@@ -1,0 +1,117 @@
+"""Truncated min-convolution over the XOR group GF(2)^m, in plain torch.
+
+Port of the EMS part of ``ems_nbldpc_tpu/ops/minconv.py``.  The EMS check
+node writes each output symbol ``s`` as the cheapest XOR of one symbol from
+each input message, built from 2-input merges (reference forward/backward
+recursion, ``bubble_decoder.c:72-305``).  The merge here is the
+*truncated* tropical convolution
+
+    out[..., s] = min_j bv[..., j] + a[..., s ^ bg[..., j]]
+
+with ``(bv, bg)`` the nm best (value, GF id) pairs of one side.  On the
+GPU ``a[..., s ^ g]`` is a plain gather, so the JAX package's log2(q) roll
+trick (``xor_gather``) is not carried.
+
+Tie order: ``lax.top_k`` puts the lower index first among equal values and
+``torch.topk`` gives no such guarantee, so every list whose GF ids matter
+is the head of ``torch.sort(v, stable=True)``.  Where only the nm-th
+*value* is used, ``torch.topk(...).values`` is exact.
+"""
+from __future__ import annotations
+
+import torch
+
+INF = 1e9
+
+
+def delta_message(shape, q: int, dtype=torch.float32, device=None):
+    """Identity element of minconv: cost 0 at symbol 0, INF elsewhere."""
+    base = torch.full((q,), INF, dtype=dtype, device=device)
+    base[0] = 0.0
+    return base.expand(tuple(shape) + (q,))
+
+
+def ems_input_truncate(v: torch.Tensor, nm: int) -> torch.Tensor:
+    """Exclude everything outside the best ``nm`` entries of a message.
+
+    The reference CN only sees the nm best (value, GF) pairs of each VtoC
+    message (``NB_LDPC.c:354-374``); densely that is a hard exclusion
+    (cost = INF).  Entries tied with the nm-th value all stay.
+    """
+    q = v.shape[-1]
+    if nm >= q:
+        return v
+    kth = torch.topk(v, nm, dim=-1, largest=False).values[..., -1:]
+    return torch.where(v <= kth, v, torch.full_like(v, INF))
+
+
+def ems_output_saturate(v: torch.Tensor, nm: int, offset: float) -> torch.Tensor:
+    """Clamp a dense CN output to its nm best entries + offset saturation.
+
+    Every entry above the nm-th best collapses to ``nm-th best + offset``
+    (the reference's re-densification fill, ``bubble_decoder.c:262-278``).
+    """
+    q = v.shape[-1]
+    if nm >= q:
+        return v
+    kth = torch.topk(v, nm, dim=-1, largest=False).values[..., -1:]
+    return torch.minimum(v, kth + offset)
+
+
+def topk_message(v: torch.Tensor, nm: int):
+    """Best-nm (ascending values, GF ids) of a dense min-cost message;
+    equal values keep the lower GF id first, as ``lax.top_k`` does."""
+    vals, ids = torch.sort(v, dim=-1, stable=True)
+    return vals[..., :nm], ids[..., :nm]
+
+
+def minconv_topk(a: torch.Tensor, bv: torch.Tensor,
+                 bg: torch.Tensor) -> torch.Tensor:
+    """out[..., s] = min_j bv[..., j] + a[..., s ^ bg[..., j]].
+
+    ``a``: dense [..., q]; ``(bv, bg)``: [..., nm] list of the other side.
+    Accumulates over j one candidate at a time, so the peak temporary is
+    [..., q] rather than [..., nm, q].  Each candidate is one f32 add, and
+    min is exact, so the result does not depend on the order over j.
+    """
+    q = a.shape[-1]
+    s = torch.arange(q, device=a.device)
+    out = None
+    for j in range(bv.shape[-1]):
+        cand = bv[..., j, None] + torch.gather(a, -1, bg[..., j, None] ^ s)
+        out = cand if out is None else torch.minimum(out, cand)
+    return out
+
+
+def fb_checknode_topk(vr: torch.Tensor, nm: int) -> torch.Tensor:
+    """F/B check node with nm-truncated combine steps (EMS semantics).
+
+    vr: [..., dc, q] rotated inputs.  The forward and backward chains keep
+    dense accumulators; each combine admits only the nm best entries of
+    the incoming side: the inputs' lists in the chains, and the backward
+    accumulators' lists in the middle merges.  Returns [..., dc, q].
+    """
+    dc = vr.shape[-2]
+    if dc <= 2:
+        raise NotImplementedError(
+            "dc <= 2 rows take the dense CN, which is not ported yet "
+            "(ROADMAP Queue 1: flooding and the min-conv CNs)"
+        )
+    bv, bg = topk_message(vr, nm)                   # [..., dc, nm]
+    msgs = [vr[..., i, :] for i in range(dc)]
+    fwd = [msgs[0]]
+    bwd = [msgs[-1]]
+    for i in range(1, dc - 1):
+        j = dc - 1 - i
+        acc = torch.stack([fwd[-1], bwd[-1]], dim=-2)          # [..., 2, q]
+        sv = torch.stack([bv[..., i, :], bv[..., j, :]], dim=-2)
+        sg = torch.stack([bg[..., i, :], bg[..., j, :]], dim=-2)
+        nxt = minconv_topk(acc, sv, sg)
+        fwd.append(nxt[..., 0, :])
+        bwd.append(nxt[..., 1, :])
+    bwd = bwd[::-1]  # bwd[i] = conv of msgs[i+1..dc-1]
+    # all middle merges in one batched combine
+    tv, tg = topk_message(torch.stack(bwd[1: dc - 1], dim=-2), nm)
+    mid = minconv_topk(torch.stack(fwd[: dc - 2], dim=-2), tv, tg)
+    outs = [bwd[0]] + [mid[..., i, :] for i in range(dc - 2)] + [fwd[-1]]
+    return torch.stack(outs, dim=-2)
