@@ -2,37 +2,63 @@
 """Smoke run of the PyTorch port (``ems_nbldpc_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # all phases, from the repo root
-    python3 chip_smoke.py --profile  # all phases, then trace one batch
-                                     # (writes profile_out/profile_batch.json)
+    python3 chip_smoke.py --profile  # all phases, and trace one batch of
+                                     # each chain (profile_out/*.json)
 
-Phases; any failure exits non-zero and prints no ``ok`` line:
+Phases; any failure exits non-zero and prints no ``ok`` line.  The code is
+random_regular(8100, 4050, 256, dv=2) (N = 8100 symbols = 64800 bits,
+R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles the CUDA check node with nvcc (sm_90a), prints the time
-   and ptxas' register / shared-memory report;
-3. kernel against plain: ``ops/cuda_cn.fb_checknode`` must equal its plain
-   torch version (``minconv.fb_checknode_topk``) bit for bit
+2. build: compiles both CUDA kernels with nvcc (sm_90a), one nvcc per
+   source, started together; prints the times and ptxas' register /
+   shared-memory report;
+3. EMS kernel against plain: ``ops/cuda_cn.fb_checknode`` must equal its
+   plain torch version (``minconv.fb_checknode_topk``) bit for bit
    (``torch.equal``) at the main path's shape and at ragged / odd shapes,
    on continuous inputs and on "ties" inputs (a few integer levels, so
    that the lower-GF-id-first tie order of the lists matters); prints
    both per-call times;
-4. full chain at full width: ``MonteCarlo`` on random_regular(8100, 4050,
-   256, dv=2) (N = 8100 symbols = 64800 bits, R = 1/2, GF(256), dc = 4,
-   3 super-layers), F = 128, 256 frames, 2.0 dB, layered EMS nm = 32 with
-   ``cn_impl="pallas"``; checks that every kernel launch of the timed run
-   came from the decoder (3 per host-loop step), that the generated
-   codewords satisfy the syndrome, avg_it < 10 and FER <= 0.25;
-5. determinism at full width: one batch of 16 frames decoded with the
-   kernel and with the plain torch CN gives identical decisions and
-   iteration counts.
+3b. SPA kernel against plain: ``ops/cuda_spa.spa_checknode`` against
+   ``fht.spa_checknode_plain`` at the main path's shapes and at odd ones
+   (some with padding coefficients), on decoder-like and uniform inputs.
+   Tolerance: the kernel's butterflies and the plain version's matrix
+   products sum in different orders, and the inverse transform cancels q
+   terms of O(1) down to p, which leaves p an f32 error near 1e-7 of the
+   best symbol's, i.e. a cost error near 1e-7 * exp(cost): 3e-4 at cost 8,
+   2e-2 at cost 12 (measured: 1.3e-2 at q = 16), and no agreement at all
+   past cost ~16, where both sides are rounding noise.  So: exp(-cost)
+   within atol 1e-5 everywhere, costs within atol 1e-3 where the plain
+   cost is <= 8 (the likely symbols, which decide), and padding lanes
+   exactly 0; prints the cost error by band, and both per-call times;
+4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
+   layered EMS nm = 32 with ``cn_impl="pallas"``; checks that every
+   kernel launch of the timed run came from the decoder (3 per host-loop
+   step), that the generated codewords satisfy the syndrome, avg_it < 10
+   and FER <= 0.25;
+5. EMS determinism: one batch of 16 frames decoded with the kernel and
+   with the plain torch CN gives identical decisions and iteration counts;
+4b. SPA chain at full width (the SPA row of ``bench.py``): layered SPA,
+   20 iterations, dense f32, 1.8 dB, F = 128, 256 frames; checks SPA
+   kernel launches = 3 per step, avg_it < 20, FER <= 0.25;
+5b. SPA decode both ways: one batch of 16 frames through the kernel and
+   through the plain version: identical decisions and convergence,
+   iteration counts within 1 (differences printed);
+4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
+   nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
+   frames; checks no kernel launch (the list CN has no kernel yet),
+   avg_it < 10, FER <= 0.25.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the kernels' JSON record.  No JAX is imported.
+Each chain runs once to warm up, then once timed with the launch counts
+set to 0 just before and read just after.  The last line is
+``{"ok": true, "device": {...}}``; the line before it is the kernels' JSON
+record.  No JAX is imported.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -45,8 +71,14 @@ import torch
 
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
 from ems_nbldpc_torch.decoder.flooding import syndrome_ok
+from ems_nbldpc_torch.decoder.graph import DeviceGraph
+from ems_nbldpc_torch.decoder.layered import decode_layered_hostloop
+from ems_nbldpc_torch.gf import get_gf
 from ems_nbldpc_torch.models.code import random_regular
-from ems_nbldpc_torch.ops import cuda_cn
+from ems_nbldpc_torch.models.encoder import gaussian_elimination
+from ems_nbldpc_torch.ops import cuda_cn, cuda_spa
+from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
+                                      transpose_perm_tables)
 from ems_nbldpc_torch.ops.minconv import ems_input_truncate, fb_checknode_topk
 from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig
 
@@ -59,6 +91,16 @@ KERNEL_SHAPES = [          # (T, dc, q, nm); the first rows are the main path's
     (77, 12, 256, 32),
 ]
 KINDS = ("uniform", "ties")
+SPA_SHAPES = [             # (T, G, dc, q, padding); the first rows are the
+    (16 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),   # main path's
+    (128 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),
+    (1000, 250, 3, 16, False),
+    (333, 111, 5, 64, True),
+    (77, 11, 12, 256, True),
+]
+SPA_KINDS = ("decoder", "uniform")
+SPA_COST_ATOL, SPA_COST_MAX, SPA_PROB_ATOL = 1e-3, 8.0, 1e-5
+LAYERS = 3
 
 
 def kernel_input(t, dc, q, nm, kind, seed):
@@ -107,7 +149,7 @@ def time_ms(fn, reps: int) -> float:
 
 
 def check_kernel():
-    phase("3 kernel against plain")
+    phase("3 EMS kernel against plain")
     worst = 0.0
     for i, (t, dc, q, nm) in enumerate(KERNEL_SHAPES):
         for kind in KINDS:
@@ -143,14 +185,102 @@ def check_kernel():
     return worst, times[KERNEL_SHAPES[1][0]]
 
 
-def profile_batch(mc, out_dir="profile_out"):
+def spa_input(t, g, dc, q, kind, padding, seed):
+    """(mvc [T, dc, q], coefs [G, dc] int32) on the card, from ``seed``.
+    "decoder": each message has one low-cost symbol (0..1) and the rest
+    2..40, as a decoder's extrinsics; "uniform": costs 0..9."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (t, dc, q)
+    if kind == "decoder":
+        mvc = 2 + 38 * torch.rand(shape, generator=gen, device="cuda")
+        best = torch.randint(0, q, (t, dc, 1), generator=gen, device="cuda")
+        low = torch.rand((t, dc, 1), generator=gen, device="cuda")
+        mvc.scatter_(-1, best, low)
+    else:
+        mvc = 9 * torch.rand(shape, generator=gen, device="cuda")
+    lo = 0 if padding else 1
+    coefs = torch.randint(lo, q, (g, dc), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    if padding:
+        coefs[0, -1] = 0
+    return mvc, coefs
+
+
+def spa_tables(q):
+    return tuple(torch.as_tensor(x, device="cuda")
+                 for x in transpose_perm_tables(get_gf(q)))
+
+
+def check_spa_kernel():
+    """3b: the SPA kernel against its plain version; returns the largest
+    cost error in the stated scope, and (kernel ms, plain ms) per call at
+    F = 16 and F = 128."""
+    phase("3b SPA kernel against plain")
+    worst = 0.0
+    for i, (t, g, dc, q, padding) in enumerate(SPA_SHAPES):
+        t_tab, tinv_tab = spa_tables(q)
+        for kind in SPA_KINDS:
+            mvc, coefs = spa_input(t, g, dc, q, kind, padding, seed=200 + i)
+            got = cuda_spa.spa_checknode(mvc, coefs, t_tab, tinv_tab)
+            t_in, t_out = position_tables(coefs, t_tab, tinv_tab)
+            want = spa_checknode_plain(mvc.reshape(t // g, g, dc, q), t_in,
+                                       t_out).reshape(t, dc, q)
+            torch.cuda.synchronize()
+            pad = (coefs == 0).repeat(t // g, 1)          # [T, dc]
+            real = ~pad
+            diff = torch.where(real[..., None], (got - want).abs(), 0.0)
+            bands = {c: float(diff.masked_fill(want > c, 0).max())
+                     for c in (4.0, SPA_COST_MAX, 12.0, 1e9)}
+            cost_err = bands[SPA_COST_MAX]
+            prob_err = float((torch.exp(-got) - torch.exp(-want)).abs()
+                             [real].max())
+            pad_ok = bool((got[pad] == 0).all() and (want[pad] == 0).all())
+            finite = bool(torch.isfinite(got).all())
+            print(f"T={t} G={g} dc={dc} q={q} {kind}: cost err where plain "
+                  f"<= 4 / 8 / 12 / any: " + " / ".join(
+                      f"{v:.3e}" for v in bands.values())
+                  + f"; exp(-cost) err {prob_err:.3e}; padding lanes "
+                  f"{int(pad.sum())} zero={pad_ok}; finite={finite}",
+                  flush=True)
+            check(finite and pad_ok and cost_err <= SPA_COST_ATOL
+                  and prob_err <= SPA_PROB_ATOL,
+                  f"SPA kernel != plain at {(t, g, dc, q)} {kind}")
+            worst = max(worst, cost_err)
+            del mvc, got, want, diff, t_in, t_out
+    times = {}
+    for t, g, dc, q, padding in SPA_SHAPES[:2]:
+        t_tab, tinv_tab = spa_tables(q)
+        mvc, coefs = spa_input(t, g, dc, q, "decoder", padding, seed=7)
+        t_in, t_out = position_tables(coefs, t_tab, tinv_tab)
+        mvc4 = mvc.reshape(t // g, g, dc, q)
+
+        def kern():
+            return cuda_spa.spa_checknode(mvc, coefs, t_tab, tinv_tab)
+
+        def plain():
+            return spa_checknode_plain(mvc4, t_in, t_out)
+
+        # plain, kernel, kernel, plain: compare within one call only
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kern, 10)
+        k2 = time_ms(kern, 10)
+        p2 = time_ms(plain, 3)
+        times[t // g] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"F={t // g} T={t} dc={dc} q={q}: kernel {k1:.4f} / {k2:.4f} "
+              f"ms, plain {p1:.4f} / {p2:.4f} ms per call", flush=True)
+        del mvc, mvc4, t_in, t_out
+    return worst, times[128]
+
+
+def profile_batch(mc, tag, out_dir="profile_out"):
     """Trace one Monte-Carlo batch; print the device busy share and the
     device time by kernel (from the exported chrome trace)."""
     from torch.profiler import ProfilerActivity, profile
 
-    phase("profile one batch")
+    phase(f"profile one batch: {tag}")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_batch.json")
+    path = os.path.join(out_dir, f"profile_batch_{tag}.json")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -182,6 +312,45 @@ def profile_batch(mc, out_dir="profile_out"):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
 
 
+def run_chain(name, code, enc, dec, ebn0):
+    """Warm-up run, then a timed run of 256 frames at F = 128 with every
+    launch count set to 0 just before it.  Returns (MonteCarlo, result,
+    {kernel: launches})."""
+    cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
+                    stop_errors=10**9, encode="device", decoder=dec)
+    t0 = time.perf_counter()
+    mc = MonteCarlo(code, cfg, enc, device="cuda")
+    print(f"generator upload {time.perf_counter() - t0:.1f} s", flush=True)
+    warm = mc.run()
+    print(f"warm-up: {warm.frames} frames, FER {warm.frame_errors}/"
+          f"{warm.frames}, avg_it {warm.avg_iters:.3f}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_cn.launches = cuda_spa.launches = 0
+    res = mc.run()
+    launches = {"fb_checknode": cuda_cn.launches,
+                "spa_checknode": cuda_spa.launches}
+    peak = torch.cuda.max_memory_allocated()
+    lo, hi = res.fer_ci
+    print(f"{name} timed: {res.frames} frames in {res.elapsed_s:.3f} s = "
+          f"{res.frames_per_s:.3f} frames/s; avg_it {res.avg_iters:.4f}; "
+          f"FER {res.frame_errors}/{res.frames} = {res.fer:.4f} "
+          f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
+          f"{res.decoder_steps}; launches {launches}; peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    check(res.frames == 256, f"{name}: {res.frames} frames, expected 256")
+    check(res.avg_iters < dec.max_iters,
+          f"{name}: avg_it {res.avg_iters} reached the budget")
+    check(res.fer <= 0.25, f"{name}: FER {res.fer} > 0.25")
+    return mc, res, launches
+
+
+def free(mc):
+    """Drop a MonteCarlo and its 4.2 GB generator matrix from the card."""
+    del mc._pmat
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -194,64 +363,53 @@ def main(argv) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     phase("2 build")
-    _, seconds, log = cuda_cn.build(verbose=True)
-    print(f"nvcc build {seconds:.2f} s")
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print(line.strip())
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
+                                                               verbose=True)
+                  for mod in (cuda_cn, cuda_spa)}
+        for name, fut in builds.items():
+            _, seconds, log = fut.result()
+            print(f"nvcc {name} {seconds:.2f} s")
+            for line in log.splitlines():
+                if "ptxas" in line:
+                    print(line.strip())
+    print(f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     max_err, (k_ms, p_ms) = check_kernel()
+    spa_err, (spa_k_ms, spa_p_ms) = check_spa_kernel()
 
-    phase("4 full chain")
+    phase("4 EMS chain")
     t0 = time.perf_counter()
     code = random_regular(8100, 4050, 256, dv=2, seed=0)
     n_layers = len(code.layers)
     print(f"code N={code.n} M={code.m_rows} q={code.q} dc={code.dc_max} "
           f"layers={n_layers} sizes={[len(x) for x in code.layers]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(n_layers == 3, f"{n_layers} super-layers, expected 3")
+    check(n_layers == LAYERS, f"{n_layers} super-layers, expected {LAYERS}")
+    t0 = time.perf_counter()
+    enc = gaussian_elimination(code)
+    print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
+    graph = DeviceGraph.from_code(code)
     dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
                         offset=0.3, cn_impl="pallas", loop="host",
                         storage="dense", dtype="float32")
-    cfg = SimConfig(ebn0_db=2.0, frames_per_batch=128, max_frames=256,
-                    stop_errors=10**9, encode="device", decoder=dec)
-    t0 = time.perf_counter()
-    mc = MonteCarlo(code, cfg, device="cuda")
-    print(f"encoder + generator upload {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    warm = mc.run()
-    print(f"warm-up: {warm.frames} frames, FER {warm.frame_errors}/"
-          f"{warm.frames}, avg_it {warm.avg_iters:.3f}", flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_cn.launches = 0
-    res = mc.run()
-    launches = cuda_cn.launches
-    peak = torch.cuda.max_memory_allocated()
-    lo, hi = res.fer_ci
-    print(f"timed: {res.frames} frames in {res.elapsed_s:.3f} s = "
-          f"{res.frames_per_s:.3f} frames/s; avg_it {res.avg_iters:.4f}; "
-          f"FER {res.frame_errors}/{res.frames} = {res.fer:.4f} "
-          f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
-          f"{res.decoder_steps}; kernel launches {launches}; peak memory "
-          f"{peak / 2**30:.3f} GiB", flush=True)
-    check(res.frames == 256, f"{res.frames} frames, expected 256")
-    check(launches == n_layers * res.decoder_steps > 0,
-          f"{launches} kernel launches for {res.decoder_steps} decoder steps")
-    check(res.avg_iters < 10, f"avg_it {res.avg_iters} reached the budget")
-    check(res.fer <= 0.25, f"FER {res.fer} > 0.25")
+    mc, res, ems_launches = run_chain("EMS", code, enc, dec, 2.0)
+    check(ems_launches["fb_checknode"] == n_layers * res.decoder_steps > 0
+          and ems_launches["spa_checknode"] == 0,
+          f"launches {ems_launches} for {res.decoder_steps} decoder steps")
     cw, intr = mc.gen(0)
     check(tuple(intr.shape) == (128, code.n, code.q),
           f"intrinsic shape {tuple(intr.shape)}")
     check(bool(torch.isfinite(intr).all()), "non-finite intrinsics")
-    check(bool(syndrome_ok(mc.graph, cw).all()), "a codeword fails H")
+    check(bool(syndrome_ok(graph, cw).all()), "a codeword fails H")
     print("all 128 codewords of batch 0 satisfy the syndrome", flush=True)
 
-    phase("5 kernel vs plain decode at full width")
+    phase("5 EMS kernel vs plain decode at full width")
     intr16 = intr[:16].contiguous()
     outs = {}
     for impl in ("pallas", "topk"):
-        d, it, conv = decode(mc.graph, intr16,
+        d, it, conv = decode(graph, intr16,
                              dataclasses.replace(dec, cn_impl=impl))
         outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
     same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
@@ -259,15 +417,65 @@ def main(argv) -> int:
           f"iters {outs['pallas'][1].tolist()}", flush=True)
     check(same, "kernel and plain decodes differ")
     if "--profile" in argv:
-        profile_batch(mc)
+        profile_batch(mc, "ems")
+    free(mc)
+    del mc, cw, intr, intr16
+
+    phase("4b SPA chain")
+    spa_dec = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
+                            loop="host", storage="dense", dtype="float32")
+    mc, spa_res, spa_launches = run_chain("SPA", code, enc, spa_dec, 1.8)
+    check(spa_launches["spa_checknode"] == n_layers * spa_res.decoder_steps > 0
+          and spa_launches["fb_checknode"] == 0,
+          f"launches {spa_launches} for {spa_res.decoder_steps} decoder "
+          f"steps")
+
+    phase("5b SPA kernel vs plain decode at full width")
+    intr16 = mc.gen(0)[1][:16].contiguous()
+    outs = {}
+    for plain in (False, True):
+        d, it, conv = decode_layered_hostloop(graph, intr16, 20, cn="spa",
+                                              plain_spa=plain)
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu())
+    (d_k, it_k, c_k), (d_p, it_p, c_p) = outs[False], outs[True]
+    it_diff = (it_k - it_p).abs()
+    print(f"F=16: identical decisions {torch.equal(d_k, d_p)}, convergence "
+          f"{torch.equal(c_k, c_p)}; iters kernel {it_k.tolist()}, plain "
+          f"{it_p.tolist()}; frames whose iteration counts differ: "
+          f"{int((it_diff > 0).sum())}", flush=True)
+    check(torch.equal(d_k, d_p) and torch.equal(c_k, c_p)
+          and int(it_diff.max()) <= 1, "SPA kernel and plain decodes differ")
+    if "--profile" in argv:
+        profile_batch(mc, "spa")
+    free(mc)
+    del mc, intr16
+
+    phase("4c list-EMS chain")
+    list_dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems",
+                             nm=32, offset=0.3, nboper=64, loop="host",
+                             storage="compressed", dtype="bfloat16")
+    mc, list_res, list_launches = run_chain("list-EMS", code, enc, list_dec,
+                                            1.8)
+    check(sum(list_launches.values()) == 0,
+          f"launches {list_launches}: the list path has no kernel yet")
+    if "--profile" in argv:
+        profile_batch(mc, "list")
+    free(mc)
+    del mc
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fb_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/fb_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/pallas_cn.py:138",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": ems_launches["fb_checknode"], "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
+    }, {
+        "name": "spa_checknode", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/spa_checknode.cu",
+        "replaces": "ems_nbldpc_tpu/ops/fht.py:249",
+        "launches": spa_launches["spa_checknode"], "max_abs_err": spa_err,
+        "ms": spa_k_ms, "plain_ms": spa_p_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,14 @@ same relative path as its counterpart.  The port imports ``torch`` and
 never ``jax``: the NumPy host layer (GF tables, parsers, code graph,
 encoder) is carried as its own copy.
 
-Ported so far: the layered-EMS Monte-Carlo chain with dense f32 storage
-and the host loop — bit-matmul encoder, BPSK/AWGN, the layered decoder
-with ``cn="ems"`` and ``cn_impl`` in {"topk", "pallas", "auto"}, the
-syndrome check and the error counters.  ``cn_impl="pallas"`` selects the
-hand-written CUDA check-node kernel (``ops/cuda_cn.py``).
+Ported so far, all on the layered schedule with the host loop: the
+Monte-Carlo chain (bit-matmul encoder, BPSK/AWGN, the decoder, the
+syndrome check and the error counters) with
+- EMS, dense f32 storage, ``cn_impl`` in {"topk", "pallas", "auto"};
+  ``"pallas"`` selects the hand-written CUDA check node (``ops/cuda_cn.py``);
+- SPA via the Walsh-Hadamard transform, dense f32 storage, through the
+  hand-written CUDA SPA check node (``ops/cuda_spa.py``) on the card;
+- truncated-list EMS with compressed CtoV storage, f32 or bf16.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,15 @@
 """Decoder front-end: configuration + dispatch.
 
 ``DecoderConfig`` has the JAX package's fields and defaults, so a
-configuration carries across unchanged.  Ported so far: the layered
-schedule with the host loop, dense float32 storage and ``cn="ems"``;
-every other branch raises ``NotImplementedError`` naming its ROADMAP item.
+configuration carries across unchanged.  Ported so far, all on the layered
+schedule with the host loop:
+
+* dense float32 storage with ``cn="ems"`` (``cn_impl`` topk | pallas |
+  auto) or ``cn="spa"`` (the hand-written CUDA SPA check node on the card);
+* compressed storage with the truncated-list EMS CN (any ``cn_impl`` but
+  ``"topk"``, as in the JAX package), float32 or bfloat16.
+
+Every other branch raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import dataclasses
 import torch
 
 from .graph import DeviceGraph
-from .layered import decode_layered_hostloop
+from .layered import decode_layered_hostloop, decode_layered_list_hostloop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,9 +32,11 @@ class DecoderConfig:
     #                             arg 7); read by the list CN only
     cn_impl: str = "auto"       # topk | pallas (the hand-written CUDA CN,
     #                             ops/cuda_cn.py) | auto; dense | list |
-    #                             bubble | lbubble are not ported yet
+    #                             bubble | lbubble are not ported yet.
+    #                             Compressed storage runs the list CN for
+    #                             any value but topk (not ported yet)
     loop: str = "device"        # device (not ported yet) | host
-    storage: str = "dense"      # dense | compressed (not ported yet)
+    storage: str = "dense"      # dense | compressed (nm-truncated CtoV)
     syn_ncv: int = 45           # syndrome-CN family parameters (cn=
     syn_d: tuple = (40, 15, 5)  # "syndrome", not ported yet)
     syn_shape: str = "trapeze"
@@ -59,20 +67,29 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
         raise NotImplementedError(
             "schedule='flooding' is not ported yet (ROADMAP Queue 1: "
             "flooding and the min-conv CNs)")
-    if cfg.storage == "compressed":
-        raise NotImplementedError(
-            "storage='compressed' is not ported yet (ROADMAP Queue 1: "
-            "list EMS)")
     if cfg.loop == "device":
         raise NotImplementedError(
             "loop='device' is not ported yet (ROADMAP Queue 1: device "
             "loops); use loop='host'")
-    if cfg.dtype != "float32":
+    if cfg.storage == "compressed" and cfg.cn_impl == "topk":
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the dense path is ported for float32 only")
+            "storage='compressed' with cn_impl='topk' (the dense-CN "
+            "compressed decoder) is not ported yet (ROADMAP Queue 1: "
+            "flooding and the min-conv CNs)")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype={cfg.dtype!r}")
+    if cfg.storage == "dense" and cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the dense path is ported for float32 "
+            "only (ROADMAP Queue 1: flooding and the min-conv CNs, dense "
+            "bf16 storage)")
     g = (code_or_graph if isinstance(code_or_graph, DeviceGraph)
          else DeviceGraph.from_code(code_or_graph))
     intrinsic = intrinsic.to(cfg.torch_dtype())
+    if cfg.storage == "compressed":
+        return decode_layered_list_hostloop(
+            g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
+            nboper=cfg.nboper, dtype=cfg.torch_dtype())
     return decode_layered_hostloop(
         g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
         cn=cfg.cn, cn_impl=cfg.cn_impl)

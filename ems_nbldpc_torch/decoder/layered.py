@@ -1,20 +1,27 @@
 """Layered (horizontal) schedule over column-disjoint super-layers.
 
-Port of the dense-storage EMS path of ``ems_nbldpc_tpu/decoder/layered.py``
-(``_layer_plan``, ``_make_dense_iteration``, ``make_layered_stepper``,
-``decode_layered_hostloop``).  Rows that share no variable commute, so each
-super-layer (host colouring, ``models/code.py``) is one batched CN step.
+Port of the host-loop paths of ``ems_nbldpc_tpu/decoder/layered.py``:
+the dense-storage sweep (``_layer_plan``, ``_make_dense_iteration`` with
+its EMS and SPA branches, ``make_layered_stepper``,
+``decode_layered_hostloop``) and the truncated-list EMS sweep with
+compressed CtoV storage (``_make_list_iteration_unrolled``,
+``_list_init_state``, ``make_layered_list_stepper``,
+``decode_layered_list_hostloop``).  Rows that share no variable commute,
+so each super-layer (host colouring, ``models/code.py``) is one batched CN
+step.
 
-State: APP [F, N+1, q] and CtoV [F, E+1, q], each with the JAX package's
-padding column / edge (the target of padded row slots).  The JAX
-version's functional ``.at[].set`` scatters become in-place indexed
-assignment on these two tensors: a super-layer's columns and edges are
-disjoint, so every written element has one writer.
+State: APP [F, N+1, q] and CtoV ([F, E+1, q] dense, or the nm-truncated
+(vals, ids, sat) triple), each with the JAX package's padding column /
+edge (the target of padded row slots).  The JAX version's functional
+``.at[].set`` scatters become in-place indexed assignment on the state
+tensors: a super-layer's columns and edges are disjoint, so every written
+element has one writer (padded slots all write the same value).
 
 Per super-layer (the reference's ``NB_LDPC.c:320-466``):
   mvc  = APP[cols] - CtoV[edges]      (VN extrinsic), minus its min
-  mcv  = CN(rotate(truncate(mvc)))    (nm-truncated F/B EMS)
-  mcv  = saturate(rotate_back(mcv)), minus its min
+  mcv  = CN(mvc)                      (EMS: rotate, truncate, F/B, rotate
+                                       back, saturate; SPA: rotations
+                                       folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
 """
 from __future__ import annotations
@@ -24,22 +31,32 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import listcn
 from ..ops.cuda_cn import fb_checknode
+from ..ops.cuda_spa import spa_checknode
+from ..ops.fht import (position_tables, spa_checknode_plain,
+                       transpose_perm_tables)
 from ..ops.minconv import (delta_message, ems_input_truncate,
-                           ems_output_saturate, fb_checknode_topk)
+                           ems_output_saturate, fb_checknode_topk,
+                           topk_message)
 from .flooding import syndrome_ok, use_topk
 from .graph import DeviceGraph, rotate, rotation_table
 
 
 @functools.lru_cache(maxsize=16)
 def _layer_plan(g: DeviceGraph, device: str):
-    """Per-layer index tensors and rotation tables on ``device``."""
+    """Per-layer index tensors on ``device``: gathers, the coefficients,
+    and their rotation tables (EMS: dense gathers; SPA: transform-domain
+    permutations; list EMS: GF(2)-basis columns)."""
     e = g.n_edges
     n = g.code.n
     dc = g.code.dc_max
+    gf = g.code.gf
+    t_tab, tinv_tab = (torch.as_tensor(t, device=device)
+                       for t in transpose_perm_tables(gf))
 
-    def up(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    def up(a, dtype=np.int64):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
 
     plans = []
     for rows in g.layers:
@@ -48,23 +65,31 @@ def _layer_plan(g: DeviceGraph, device: str):
         cols = np.concatenate([g.code.row_cols, np.full((1, dc), n)])[rows]
         valid = edge_ids < e
         coefs = g.code.row_coefs[rows]
+        coefs_t = up(coefs, np.int32)
+        t_in, t_out = position_tables(coefs_t, t_tab, tinv_tab)
         plans.append(dict(
             edge_ids=up(edge_ids),
             cols=up(cols),
             # None for full rows: the neutral-message mask is then a no-op
             valid=None if valid.all() else torch.as_tensor(valid, device=device),
-            rot_in=up(rotation_table(coefs, g.code.gf, "in")),
-            rot_out=up(rotation_table(coefs, g.code.gf, "out")),
+            rot_in=up(rotation_table(coefs, gf, "in")),
+            rot_out=up(rotation_table(coefs, gf, "out")),
+            coefs=coefs_t,
+            t_tab=t_tab, tinv_tab=tinv_tab, t_in=t_in, t_out=t_out,
+            rc_in=up(listcn.mul_cols(gf, coefs), np.int32),
+            rc_out=up(listcn.mul_cols(gf, coefs, inverse=True), np.int32),
             shape=(len(rows), dc),
         ))
     return plans
 
 
 def _check_supported(nm, q, cn, cn_impl):
+    if cn == "spa":
+        return  # the SPA CN reads neither nm nor cn_impl, as in JAX
     if cn != "ems":
         raise NotImplementedError(
-            f"cn={cn!r} is not ported yet (ROADMAP Queue 1: the SPA path, "
-            "the syndrome CN, and the dense min-sum CN)")
+            f"cn={cn!r} is not ported yet (ROADMAP Queue 1: the syndrome "
+            "CN and the dense min-sum CN)")
     if cn_impl in ("bubble", "lbubble", "list"):
         raise NotImplementedError(
             f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1)")
@@ -78,41 +103,58 @@ def _check_supported(nm, q, cn, cn_impl):
         raise ValueError(f"cn='ems' needs 1 <= nm <= q, got nm={nm}, q={q}")
 
 
-def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl):
+def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
+                          plain_spa=False):
     """The per-iteration CN sweep over all super-layers.
 
     Returns ``one_iteration(app, ctov, active)``, which updates ``app`` and
-    ``ctov`` in place.  ``cn_impl="pallas"`` runs the hand-written CUDA
-    check node (``ops/cuda_cn.fb_checknode``; its plain version on CPU
-    tensors); ``"topk"``/``"auto"`` the plain torch ``fb_checknode_topk``.
+    ``ctov`` in place.  ``cn="ems"``: ``cn_impl="pallas"`` runs the
+    hand-written CUDA check node (``ops/cuda_cn.fb_checknode``; its plain
+    version on CPU tensors); ``"topk"``/``"auto"`` the plain torch
+    ``fb_checknode_topk``.  ``cn="spa"`` runs the hand-written CUDA SPA
+    check node (``ops/cuda_spa.spa_checknode``; its plain version on CPU
+    tensors); ``plain_spa`` forces the plain version on any device, for
+    comparing the two.
     """
     q = g.q
     _check_supported(nm, q, cn, cn_impl)
-    truncate = nm < q
+    truncate = cn == "ems" and nm < q
+
+    def spa_cn(mvc, p):
+        if plain_spa:
+            return spa_checknode_plain(mvc, p["t_in"], p["t_out"])
+        f, gdim, dcdim, _ = mvc.shape
+        out = spa_checknode(mvc.reshape(f * gdim, dcdim, q), p["coefs"],
+                            p["t_tab"], p["tinv_tab"])
+        return out.reshape(mvc.shape)
+
+    def ems_cn(mvc, p):
+        f = mvc.shape[0]
+        gdim, dcdim = p["shape"]
+        mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
+        vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
+        vr = vr.reshape(mvc.shape)
+        if p["valid"] is not None:
+            neutral = delta_message(vr.shape[:-1], q, vr.dtype, vr.device)
+            vr = torch.where(p["valid"][None, ..., None], vr, neutral)
+        if cn_impl == "pallas":
+            mcv_r = fb_checknode(vr.reshape(f * gdim, dcdim, q), nm)
+        else:
+            mcv_r = fb_checknode_topk(vr, nm)
+        mcv = rotate(mcv_r.reshape(f, gdim * dcdim, q), p["rot_out"])
+        mcv = mcv.reshape(mvc.shape)
+        return ems_output_saturate(mcv, nm, offset) if truncate else mcv
+
+    check_node = spa_cn if cn == "spa" else ems_cn
 
     def one_iteration(app, ctov, active):
-        f = app.shape[0]
         act = active[:, None, None, None]
         for p in _layer_plan(g, str(app.device)):
-            gdim, dcdim = p["shape"]
             app_rows = app[:, p["cols"]]                 # [F, G, dc, q]
             ctov_rows = ctov[:, p["edge_ids"]]
             mvc = app_rows - ctov_rows
             mvc = mvc - mvc.min(dim=-1, keepdim=True).values
-            mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
-            vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
-            vr = vr.reshape(mvc.shape)
-            if p["valid"] is not None:
-                neutral = delta_message(vr.shape[:-1], q, vr.dtype, vr.device)
-                vr = torch.where(p["valid"][None, ..., None], vr, neutral)
-            if cn_impl == "pallas":
-                mcv_r = fb_checknode(vr.reshape(f * gdim, dcdim, q), nm)
-            else:
-                mcv_r = fb_checknode_topk(vr, nm)
-            mcv = rotate(mcv_r.reshape(f, gdim * dcdim, q), p["rot_out"])
-            mcv = mcv.reshape(mvc.shape)
-            if truncate:
-                mcv = ems_output_saturate(mcv, nm, offset)
+            mcv = check_node(mvc, p)
             mcv = mcv - mcv.min(dim=-1, keepdim=True).values
             # freeze converged frames (their APP/CtoV stop changing)
             mcv = torch.where(act, mcv, ctov_rows)
@@ -123,55 +165,169 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl):
     return one_iteration
 
 
+def _step_decisions(g, app, decide, conv, iters, active):
+    """Decisions, convergence and iteration counts after one sweep."""
+    d_new = app[:, :g.code.n].argmin(dim=-1)
+    decide = torch.where(active[:, None], d_new, decide)
+    conv = conv | syndrome_ok(g, decide)
+    return decide, conv, iters + active.to(torch.int32)
+
+
+def _initial_decisions(g, app0):
+    f = app0.shape[0]
+    d0 = app0[:, :g.code.n].argmin(dim=-1)
+    iters0 = torch.zeros(f, dtype=torch.int32, device=app0.device)
+    return d0, syndrome_ok(g, d0), iters0
+
+
 def make_layered_stepper(
     g: DeviceGraph,
     nm: int = 0,
     offset: float = 0.0,
     cn: str = "minsum",
     cn_impl: str = "auto",
+    plain_spa: bool = False,
 ):
     """Host-loop decoder: ``state = init_fn(intrinsic)``,
     ``state = step_fn(state)``; state = (app, ctov, decide, conv, iters).
     ``step_fn`` updates app and ctov in place and returns the new state.
+    ``plain_spa`` is internal: it runs the SPA CN's plain version on the
+    card, for holding the kernel against it.
     """
-    n, q, e = g.code.n, g.q, g.n_edges
-    one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl)
+    q, e = g.q, g.n_edges
+    one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl,
+                                          plain_spa)
 
     def init_fn(intrinsic):
         f = intrinsic.shape[0]
         app0 = torch.nn.functional.pad(intrinsic, (0, 0, 0, 1))
         ctov0 = torch.zeros((f, e + 1, q), dtype=intrinsic.dtype,
                             device=intrinsic.device)
-        d0 = app0[:, :n].argmin(dim=-1)
-        conv0 = syndrome_ok(g, d0)
-        iters0 = torch.zeros(f, dtype=torch.int32, device=intrinsic.device)
-        return app0, ctov0, d0, conv0, iters0
+        return (app0, ctov0) + _initial_decisions(g, app0)
 
     def step_fn(state):
         app, ctov, decide, conv, iters = state
         active = ~conv
         one_iteration(app, ctov, active)
-        d_new = app[:, :n].argmin(dim=-1)
-        decide = torch.where(active[:, None], d_new, decide)
-        conv = conv | syndrome_ok(g, decide)
-        iters = iters + active.to(torch.int32)
-        return app, ctov, decide, conv, iters
+        return (app, ctov) + _step_decisions(g, app, decide, conv, iters,
+                                             active)
 
     return init_fn, step_fn
 
 
-def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
-                            cn="minsum", cn_impl="auto"):
-    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
-
-    Polls ``conv.all()`` on the host once per iteration and stops when
-    every frame has converged or the budget is spent.
-    """
-    init_fn, step_fn = make_layered_stepper(g, nm, offset, cn, cn_impl)
+def _host_loop(init_fn, step_fn, intrinsic, max_iters):
+    """Step until every frame has converged or the budget is spent,
+    polling ``conv.all()`` on the host once per iteration.  Returns
+    (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
     state = init_fn(intrinsic)
     for _ in range(max_iters):
-        if bool(state[3].all()):
+        if bool(state[-2].all()):
             break
         state = step_fn(state)
-    _, _, decide, conv, iters = state
-    return decide, iters, conv
+    return state[-3], state[-1], state[-2]
+
+
+def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
+                            cn="minsum", cn_impl="auto", plain_spa=False):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    return _host_loop(
+        *make_layered_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        intrinsic, max_iters)
+
+
+# ---------------------------------------------------------------------------
+# truncated-list EMS (ops/listcn.py) with compressed CtoV storage: the
+# bench's EMS row.  The CN is sorts and elementwise ops on [.., nm] lists.
+# ---------------------------------------------------------------------------
+
+
+def _make_list_iteration(g: DeviceGraph, nm: int, offset: float,
+                         nboper: int):
+    """One layered sweep over all super-layers, truncated-list EMS CN.
+
+    State: dense APP [F, N+1, q] + compressed CtoV (vals [F, E+1, nm],
+    ids [F, E+1, nm] uint8, sat [F, E+1]), the reference's own CtoV
+    content (nm sorted entries + saturated fill, bubble_decoder.c:262-278).
+    Returns ``one_iteration(app, cv_v, cv_g, cv_sat, active)``, which
+    updates the four state tensors in place.
+    """
+    q = g.q
+    # packed-key truncation quantizes to bf16 (the storage dtype); the
+    # exact (nboper = 0) mode keeps the f32 sort for bit-exact oracle tests
+    truncate = listcn.topk_list if nboper > 0 else topk_message
+
+    def one_iteration(app, cv_v, cv_g, cv_sat, active):
+        keep = ~active[:, None, None]                        # [F, 1, 1]
+        for p in _layer_plan(g, str(app.device)):
+            edge_ids, cols = p["edge_ids"], p["cols"]
+            app_rows = app[:, cols]                          # [F, G, dc, q]
+            cvv_rows = cv_v[:, edge_ids]
+            cvg_rows = cv_g[:, edge_ids]
+            sat_rows = cv_sat[:, edge_ids]
+            ctov_rows = listcn.expand_list(
+                cvv_rows.float(), cvg_rows, sat_rows.float(), q, app.dtype)
+            mvc = app_rows - ctov_rows
+            mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+            # VN truncation (NB_LDPC.c:354-374) + rotation of the id lists
+            bv, bg = truncate(mvc.float(), nm)
+            bgr = listcn.rotate_ids(bg.to(torch.int32), p["rc_in"][None])
+            if p["valid"] is not None:
+                nv, ng = listcn.neutral_list(bv.shape[:-1], nm,
+                                             device=bv.device)
+                lane = p["valid"][None, ..., None]
+                bv = torch.where(lane, bv, nv)
+                bgr = torch.where(lane, bgr, ng)
+            ov, ogr = listcn.fb_checknode_list(bv, bgr, nm, nboper)
+            og = listcn.rotate_ids(ogr, p["rc_out"][None])
+            ov, sat = listcn.saturate_list(ov, offset)
+            dense = listcn.expand_list(ov, og, sat, q, app.dtype)
+
+            cv_v[:, edge_ids] = torch.where(keep[..., None], cvv_rows,
+                                            ov.to(cv_v.dtype))
+            cv_g[:, edge_ids] = torch.where(keep[..., None], cvg_rows,
+                                            og.to(cv_g.dtype))
+            cv_sat[:, edge_ids] = torch.where(keep, sat_rows,
+                                              sat.to(cv_sat.dtype))
+            app[:, cols] = torch.where(keep[..., None], app_rows,
+                                       (mvc + dense).to(app.dtype))
+
+    return one_iteration
+
+
+def make_layered_list_stepper(g: DeviceGraph, nm: int, offset: float = 0.3,
+                              nboper: int = 0, dtype=torch.bfloat16):
+    """Host-loop list-EMS decoder: ``state = init_fn(intrinsic)``,
+    ``state = step_fn(state)``; state = (app, cv_v, cv_g, cv_sat, decide,
+    conv, iters), updated in place.  ``dtype`` is the storage dtype of
+    APP and the CtoV values and saturation levels."""
+    if not 1 <= nm <= g.q:
+        raise ValueError(f"list EMS needs 1 <= nm <= q, got nm={nm}, "
+                         f"q={g.q}")
+    e = g.n_edges
+    one_iteration = _make_list_iteration(g, nm, offset, nboper)
+
+    def init_fn(intrinsic):
+        f, dev = intrinsic.shape[0], intrinsic.device
+        app0 = torch.nn.functional.pad(intrinsic.to(dtype), (0, 0, 0, 1))
+        cv_v = torch.zeros((f, e + 1, nm), dtype=dtype, device=dev)
+        cv_g = torch.arange(nm, dtype=torch.uint8, device=dev).repeat(
+            f, e + 1, 1)
+        cv_sat = torch.zeros((f, e + 1), dtype=dtype, device=dev)
+        return (app0, cv_v, cv_g, cv_sat) + _initial_decisions(g, app0)
+
+    def step_fn(state):
+        app, cv_v, cv_g, cv_sat, decide, conv, iters = state
+        active = ~conv
+        one_iteration(app, cv_v, cv_g, cv_sat, active)
+        return (app, cv_v, cv_g, cv_sat) + _step_decisions(
+            g, app, decide, conv, iters, active)
+
+    return init_fn, step_fn
+
+
+def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
+                                 nboper=0, dtype=torch.bfloat16):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    return _host_loop(
+        *make_layered_list_stepper(g, nm, offset, nboper, dtype),
+        intrinsic, max_iters)

@@ -12,67 +12,26 @@ configurations carry across unchanged).
   which the kernel matches bit for bit.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into
-``ems_nbldpc_torch/build/`` at first use and loaded with ``ctypes``; the
-library name carries a digest of the source and flags, so an edited
-source is rebuilt.  ``launches`` counts kernel launches (never plain
+``ems_nbldpc_torch/build/`` at first use and loaded with ``ctypes``
+(``ops/_build.py``).  ``launches`` counts kernel launches (never plain
 calls).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from . import _build
 from .minconv import fb_checknode_topk
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fb_checknode.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# dynamic shared memory one block may use on Hopper
-SMEM_LIMIT = 232448
 
 launches = 0  # kernel launches since import (reset it to 0 to count a run)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA check node cannot be "
-                           "built (put the CUDA toolkit's bin on PATH)")
-    return path
-
-
 def build(verbose: bool = False) -> tuple[str, float, str]:
-    """Compile the kernel library if it is not built yet.
-
-    Returns (library path, seconds spent compiling, compiler output).
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills).
-    """
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    # -Xptxas -v only reports; the library is the same, so is its name
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    lib = os.path.join(BUILD_DIR, f"libfb_checknode_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib):
-        return lib, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
+    """Compile the kernel library if it is not built yet (``_build.build``)."""
+    return _build.build("fb_checknode", verbose)
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +67,7 @@ def _check(vr: torch.Tensor, nm: int) -> None:
         raise ValueError(f"fb_checknode: dc={dc} must be >= 3")
     if not 1 <= nm <= q:
         raise ValueError(f"fb_checknode: nm={nm} must lie in [1, q={q}]")
-    if smem_bytes(dc, q, nm) > SMEM_LIMIT:
+    if smem_bytes(dc, q, nm) > _build.SMEM_LIMIT:
         raise ValueError(f"fb_checknode: dc={dc}, q={q}, nm={nm} needs "
                          f"{smem_bytes(dc, q, nm)} B of shared memory")
 

@@ -65,6 +65,20 @@ def topk_message(v: torch.Tensor, nm: int):
     return vals[..., :nm], ids[..., :nm]
 
 
+def scatter_topk_dense(bv: torch.Tensor, bg: torch.Tensor, q: int,
+                       fill: float = INF) -> torch.Tensor:
+    """Dense [..., q] message from a truncated (values, GF ids) list:
+    out[g] = min(fill, min of bv[j] over j with bg[j] == g).
+
+    The JAX package's one-hot masked min, as a scatter-min: min is exact
+    and order-free, so the two agree bit for bit, and no [..., nm, q]
+    one-hot tensor is built (22 GB at the full-size list path's shapes).
+    """
+    out = torch.full(bv.shape[:-1] + (q,), fill, dtype=bv.dtype,
+                     device=bv.device)
+    return out.scatter_reduce_(-1, bg.long(), bv, reduce="amin")
+
+
 def minconv_topk(a: torch.Tensor, bv: torch.Tensor,
                  bg: torch.Tensor) -> torch.Tensor:
     """out[..., s] = min_j bv[..., j] + a[..., s ^ bg[..., j]].

@@ -188,11 +188,12 @@ class MonteCarlo:
     ``gen`` (codewords + channel), ``decode`` (host loop), ``count``."""
 
     def __init__(self, code: NBCode, cfg: SimConfig,
-                 enc: Optional[Encoder] = None, device=None):
+                 enc: Optional[Encoder] = None, *, device):
+        """``device`` is required: a run names the device it measures, and
+        a missing card is an error, never a silent fall back to the CPU."""
         self.code = code
         self.cfg = cfg
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device)
         self.graph = DeviceGraph.from_code(code)
         self._make_codeword, self.encode_bits, self.enc, pmat_np = (
             make_codeword_fn(code, cfg, enc))

@@ -132,8 +132,9 @@ def test_converged_frames_are_frozen():
 
 
 @pytest.mark.parametrize("change", [
-    dict(schedule="flooding"), dict(storage="compressed"),
-    dict(loop="device"), dict(dtype="bfloat16"), dict(cn="spa"),
+    dict(schedule="flooding"), dict(storage="compressed", cn_impl="topk"),
+    dict(loop="device"), dict(dtype="bfloat16"),
+    dict(schedule="flooding", cn="spa"),
     dict(cn="minsum"), dict(cn="syndrome"), dict(cn_impl="dense"),
     dict(cn_impl="bubble"), dict(cn_impl="list"), dict(nm=16, cn_impl="auto"),
 ])

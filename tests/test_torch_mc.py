@@ -65,6 +65,15 @@ def test_stop_rule_and_zero_codeword():
     assert res.undetected_errors <= res.frame_errors
 
 
+def test_monte_carlo_needs_a_device():
+    jc = jrandom_regular(96, 48, 16, seed=0)
+    cfg = SimConfig(ebn0_db=2.0, decoder=DecoderConfig(cn_impl="topk", **DEC))
+    with pytest.raises(TypeError):
+        MonteCarlo(from_jax_code(jc), cfg)       # no CPU fallback
+    assert MonteCarlo(from_jax_code(jc), cfg, None, device="cpu").device.type \
+        == "cpu"
+
+
 def test_config_key_names_every_result_knob():
     a = SimConfig(ebn0_db=1.0)
     assert config_key(a) == config_key(SimConfig(ebn0_db=2.0,
