@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # all phases, from the repo root
     python3 chip_smoke.py --profile  # all phases, and trace one batch of
-                                     # each chain (profile_out/*.json)
+                                     # each full-width chain
+                                     # (profile_out/*.json)
 
 Phases; any failure exits non-zero and prints no ``ok`` line.  The code is
 random_regular(8100, 4050, 256, dv=2) (N = 8100 symbols = 64800 bits,
@@ -16,12 +17,15 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    shared-memory report;
 3. EMS kernel against plain: ``ops/cuda_cn.fb_checknode`` must equal its
    plain torch version (``minconv.fb_checknode_topk``) bit for bit
-   (``torch.equal``) at the main path's shape and at ragged / odd shapes,
-   on continuous inputs and on "ties" inputs (a few integer levels, so
-   that the lower-GF-id-first tie order of the lists matters); prints
-   both per-call times;
+   (``torch.equal``) at the main paths' shapes (layered [F·1350, 4, 256]
+   and flooding [F·4050, 4, 256], F = 16 and 128) and at ragged / odd
+   shapes, on continuous inputs and on "ties" inputs (a few integer
+   levels, so that the lower-GF-id-first tie order of the lists matters);
+   prints both per-call times at the main paths' shapes;
 3b. SPA kernel against plain: ``ops/cuda_spa.spa_checknode`` against
-   ``fht.spa_checknode_plain`` at the main path's shapes and at odd ones
+   ``fht.spa_checknode_plain`` at the main paths' shapes (layered F = 16
+   and 128 with G = 1350 coefficient rows, flooding F = 16 with
+   G = 4050) and at odd ones
    (some with padding coefficients), on decoder-like and uniform inputs.
    Tolerance: the kernel's butterflies and the plain version's matrix
    products sum in different orders, and the inverse transform cancels q
@@ -48,12 +52,34 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
    frames; checks no kernel launch (the list CN has no kernel yet),
-   avg_it < 10, FER <= 0.25.
+   avg_it < 10, FER <= 0.25;
+4d. flooding EMS chain at full width: ``schedule="flooding"``, nm = 32,
+   offset 0.3, ``cn_impl="pallas"``, 20 iterations, dense f32, 2.0 dB,
+   F = 128, 256 frames; checks EMS kernel launches = 1 per step (one call
+   on all F·M = 518,400 rows), no SPA launch, avg_it < 20, FER <= 0.25;
+5d. flooding EMS decode both ways: one batch of 16 frames through the
+   kernel (launches = 1 per step) and through the plain torch CN (no
+   launch): identical decisions, iterations and convergence;
+5e. flooding SPA decode both ways: the same 16 frames through the SPA
+   kernel (launches = 1 per step) and through its plain version
+   (``plain_spa``): identical decisions and convergence, iteration counts
+   within 1 (differences printed);
+5f. the plain dense min-conv CN and the compressed dense-CN decoder on the
+   card: random_regular(96, 48, 16), 64 frames at 1.5 dB, one set of
+   intrinsics, decoded by flooding and layered ``cn="minsum"`` (nm = 0,
+   the exact min-sum CN), layered ``cn_impl="dense"`` and layered
+   ``storage="compressed",
+   cn_impl="topk"`` (f32), each on the card and on the CPU: identical
+   decisions, iterations and convergence, and no kernel launch.
 
 Each chain runs once to warm up, then once timed with the launch counts
-set to 0 just before and read just after.  The last line is
-``{"ok": true, "device": {...}}``; the line before it is the kernels' JSON
-record.  No JAX is imported.
+set to 0 just before and read just after; both sides of 5d and 5e are
+counted the same way.  The last four lines are a compact JSON record of
+each chain's timed run (and its profile with ``--profile``), the card's
+name and power limit, the kernels' JSON record (for each kernel the
+paths it launched in and its launches in each, its per-call times at
+the layered and flooding shapes), and ``{"ok": true, "device": {...}}``.
+No JAX is imported.
 """
 from __future__ import annotations
 
@@ -70,7 +96,8 @@ import numpy as np
 import torch
 
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
-from ems_nbldpc_torch.decoder.flooding import syndrome_ok
+from ems_nbldpc_torch.decoder.flooding import (decode_flooding_hostloop,
+                                               syndrome_ok)
 from ems_nbldpc_torch.decoder.graph import DeviceGraph
 from ems_nbldpc_torch.decoder.layered import decode_layered_hostloop
 from ems_nbldpc_torch.gf import get_gf
@@ -83,17 +110,21 @@ from ems_nbldpc_torch.ops.minconv import ems_input_truncate, fb_checknode_topk
 from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig
 
 SLICE_ROWS = 1350          # rows per super-layer of the full-width code
-KERNEL_SHAPES = [          # (T, dc, q, nm); the first rows are the main path's
-    (16 * SLICE_ROWS, 4, 256, 32),
-    (128 * SLICE_ROWS, 4, 256, 32),
+CODE_ROWS = 4050           # rows of the full-width code (one flooding call)
+KERNEL_SHAPES = [          # (T, dc, q, nm); the first four are the main
+    (16 * SLICE_ROWS, 4, 256, 32),      # paths' (layered 5 and 4, then
+    (128 * SLICE_ROWS, 4, 256, 32),     # flooding 5d and 4d), all timed
+    (16 * CODE_ROWS, 4, 256, 32),
+    (128 * CODE_ROWS, 4, 256, 32),
     (1000, 3, 16, 5),
     (333, 5, 64, 12),
     (77, 12, 256, 32),
 ]
 KINDS = ("uniform", "ties")
-SPA_SHAPES = [             # (T, G, dc, q, padding); the first rows are the
-    (16 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),   # main path's
-    (128 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),
+SPA_SHAPES = [             # (T, G, dc, q, padding); the first three are the
+    (16 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),   # main paths' (layered 5b
+    (128 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),  # and 4b, flooding 5e),
+    (16 * CODE_ROWS, CODE_ROWS, 4, 256, False),     # all timed
     (1000, 250, 3, 16, False),
     (333, 111, 5, 64, True),
     (77, 11, 12, 256, True),
@@ -101,6 +132,7 @@ SPA_SHAPES = [             # (T, G, dc, q, padding); the first rows are the
 SPA_KINDS = ("decoder", "uniform")
 SPA_COST_ATOL, SPA_COST_MAX, SPA_PROB_ATOL = 1e-3, 8.0, 1e-5
 LAYERS = 3
+SUMMARY = {}               # chain -> its timed run's numbers, printed last
 
 
 def kernel_input(t, dc, q, nm, kind, seed):
@@ -165,7 +197,7 @@ def check_kernel():
             worst = max(worst, err)
             del vr, got, want
     times = {}
-    for t, dc, q, nm in KERNEL_SHAPES[:2]:
+    for t, dc, q, nm in KERNEL_SHAPES[:4]:
         vr = kernel_input(t, dc, q, nm, "uniform", seed=7)
 
         def kern():
@@ -182,7 +214,8 @@ def check_kernel():
         times[t] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"T={t} dc={dc} q={q} nm={nm}: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms per call", flush=True)
-    return worst, times[KERNEL_SHAPES[1][0]]
+        del vr
+    return worst, times
 
 
 def spa_input(t, g, dc, q, kind, padding, seed):
@@ -214,8 +247,8 @@ def spa_tables(q):
 
 def check_spa_kernel():
     """3b: the SPA kernel against its plain version; returns the largest
-    cost error in the stated scope, and (kernel ms, plain ms) per call at
-    F = 16 and F = 128."""
+    cost error in the stated scope, and {T: (kernel ms, plain ms)} per
+    call at the main paths' shapes."""
     phase("3b SPA kernel against plain")
     worst = 0.0
     for i, (t, g, dc, q, padding) in enumerate(SPA_SHAPES):
@@ -249,7 +282,7 @@ def check_spa_kernel():
             worst = max(worst, cost_err)
             del mvc, got, want, diff, t_in, t_out
     times = {}
-    for t, g, dc, q, padding in SPA_SHAPES[:2]:
+    for t, g, dc, q, padding in SPA_SHAPES[:3]:
         t_tab, tinv_tab = spa_tables(q)
         mvc, coefs = spa_input(t, g, dc, q, "decoder", padding, seed=7)
         t_in, t_out = position_tables(coefs, t_tab, tinv_tab)
@@ -266,11 +299,12 @@ def check_spa_kernel():
         k1 = time_ms(kern, 10)
         k2 = time_ms(kern, 10)
         p2 = time_ms(plain, 3)
-        times[t // g] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"F={t // g} T={t} dc={dc} q={q}: kernel {k1:.4f} / {k2:.4f} "
-              f"ms, plain {p1:.4f} / {p2:.4f} ms per call", flush=True)
+        times[t] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"F={t // g} T={t} G={g} dc={dc} q={q}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call",
+              flush=True)
         del mvc, mvc4, t_in, t_out
-    return worst, times[128]
+    return worst, times
 
 
 def profile_batch(mc, tag, out_dir="profile_out"):
@@ -310,6 +344,8 @@ def profile_batch(mc, tag, out_dir="profile_out"):
           f"(idle {100 - 100 * busy / wall_us:.2f}%)")
     for name, us in by_name.most_common(15):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
+    return {"wall_ms": round(wall_us / 1e3, 3),
+            "busy_pct": round(100 * busy / wall_us, 2)}
 
 
 def run_chain(name, code, enc, dec, ebn0):
@@ -326,10 +362,9 @@ def run_chain(name, code, enc, dec, ebn0):
           f"{warm.frames}, avg_it {warm.avg_iters:.3f}", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_cn.launches = cuda_spa.launches = 0
+    reset_launches()
     res = mc.run()
-    launches = {"fb_checknode": cuda_cn.launches,
-                "spa_checknode": cuda_spa.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     lo, hi = res.fer_ci
     print(f"{name} timed: {res.frames} frames in {res.elapsed_s:.3f} s = "
@@ -338,11 +373,56 @@ def run_chain(name, code, enc, dec, ebn0):
           f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
           f"{res.decoder_steps}; launches {launches}; peak memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
+    SUMMARY[name] = {"fps": round(res.frames_per_s, 3),
+                     "avg_it": round(res.avg_iters, 4),
+                     "fer": f"{res.frame_errors}/{res.frames}",
+                     "steps": res.decoder_steps,
+                     "peak_gib": round(peak / 2**30, 3)}
     check(res.frames == 256, f"{name}: {res.frames} frames, expected 256")
     check(res.avg_iters < dec.max_iters,
           f"{name}: avg_it {res.avg_iters} reached the budget")
     check(res.fer <= 0.25, f"{name}: FER {res.fer} > 0.25")
     return mc, res, launches
+
+
+def reset_launches():
+    cuda_cn.launches = cuda_spa.launches = 0
+
+
+def read_launches() -> dict:
+    return {"fb_checknode": cuda_cn.launches,
+            "spa_checknode": cuda_spa.launches}
+
+
+def check_small_card_decodes():
+    """5f: the plain dense CN paths on the card against the same decodes
+    on the CPU, from one set of intrinsics made on the CPU."""
+    phase("5f dense min-conv CN and compressed dense-CN decoder, card vs CPU")
+    code = random_regular(96, 48, 16, seed=0)
+    cfg = SimConfig(ebn0_db=1.5, frames_per_batch=64, encode="device")
+    _, intr = MonteCarlo(code, cfg, device="cpu").gen(0)
+    base = DecoderConfig(max_iters=15, cn="ems", nm=8, offset=0.3,
+                         loop="host", storage="dense", dtype="float32")
+    for name, dec in (
+            ("flooding minsum", dataclasses.replace(
+                base, schedule="flooding", cn="minsum", nm=0)),
+            ("layered minsum", dataclasses.replace(base, cn="minsum", nm=0,
+                                                   cn_impl="auto")),
+            ("layered dense", dataclasses.replace(base, cn_impl="dense")),
+            ("layered compressed topk", dataclasses.replace(
+                base, cn_impl="topk", storage="compressed"))):
+        reset_launches()
+        card = [x.cpu() for x in decode(code, intr.cuda(), dec)]
+        launches = read_launches()
+        host = decode(code, intr, dec)
+        same = all(torch.equal(a, b) for a, b in zip(card, host))
+        print(f"{name}: identical decisions/iterations/convergence {same}; "
+              f"iters max {int(card[1].max())} mean "
+              f"{float(card[1].float().mean()):.4f}, converged "
+              f"{int(card[2].sum())}/64; launches {launches}", flush=True)
+        check(same, f"{name}: card and CPU decodes differ")
+        check(int(card[1].max()) > 1, f"{name}: uninformative batch")
+        check(sum(launches.values()) == 0, f"{name}: launched {launches}")
 
 
 def free(mc):
@@ -376,8 +456,12 @@ def main(argv) -> int:
                     print(line.strip())
     print(f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    max_err, (k_ms, p_ms) = check_kernel()
-    spa_err, (spa_k_ms, spa_p_ms) = check_spa_kernel()
+    max_err, k_times = check_kernel()
+    spa_err, spa_times = check_spa_kernel()
+    k_ms, p_ms = k_times[KERNEL_SHAPES[1][0]]           # layered, F = 128
+    fk_ms, fp_ms = k_times[KERNEL_SHAPES[3][0]]         # flooding, F = 128
+    spa_k_ms, spa_p_ms = spa_times[SPA_SHAPES[1][0]]    # layered, F = 128
+    fspa_k_ms, fspa_p_ms = spa_times[SPA_SHAPES[2][0]]  # flooding, F = 16
 
     phase("4 EMS chain")
     t0 = time.perf_counter()
@@ -387,6 +471,7 @@ def main(argv) -> int:
           f"layers={n_layers} sizes={[len(x) for x in code.layers]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(n_layers == LAYERS, f"{n_layers} super-layers, expected {LAYERS}")
+    paths = {"fb_checknode": {}, "spa_checknode": {}}
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
@@ -398,6 +483,7 @@ def main(argv) -> int:
     check(ems_launches["fb_checknode"] == n_layers * res.decoder_steps > 0
           and ems_launches["spa_checknode"] == 0,
           f"launches {ems_launches} for {res.decoder_steps} decoder steps")
+    paths["fb_checknode"]["layered EMS"] = ems_launches["fb_checknode"]
     cw, intr = mc.gen(0)
     check(tuple(intr.shape) == (128, code.n, code.q),
           f"intrinsic shape {tuple(intr.shape)}")
@@ -417,7 +503,7 @@ def main(argv) -> int:
           f"iters {outs['pallas'][1].tolist()}", flush=True)
     check(same, "kernel and plain decodes differ")
     if "--profile" in argv:
-        profile_batch(mc, "ems")
+        SUMMARY["EMS"]["profile"] = profile_batch(mc, "ems")
     free(mc)
     del mc, cw, intr, intr16
 
@@ -429,6 +515,7 @@ def main(argv) -> int:
           and spa_launches["fb_checknode"] == 0,
           f"launches {spa_launches} for {spa_res.decoder_steps} decoder "
           f"steps")
+    paths["spa_checknode"]["layered SPA"] = spa_launches["spa_checknode"]
 
     phase("5b SPA kernel vs plain decode at full width")
     intr16 = mc.gen(0)[1][:16].contiguous()
@@ -446,7 +533,7 @@ def main(argv) -> int:
     check(torch.equal(d_k, d_p) and torch.equal(c_k, c_p)
           and int(it_diff.max()) <= 1, "SPA kernel and plain decodes differ")
     if "--profile" in argv:
-        profile_batch(mc, "spa")
+        SUMMARY["SPA"]["profile"] = profile_batch(mc, "spa")
     free(mc)
     del mc, intr16
 
@@ -459,23 +546,91 @@ def main(argv) -> int:
     check(sum(list_launches.values()) == 0,
           f"launches {list_launches}: the list path has no kernel yet")
     if "--profile" in argv:
-        profile_batch(mc, "list")
+        SUMMARY["list-EMS"]["profile"] = profile_batch(mc, "list")
     free(mc)
     del mc
 
+    phase("4d flooding EMS chain")
+    fl_dec = DecoderConfig(max_iters=20, schedule="flooding", cn="ems", nm=32,
+                           offset=0.3, cn_impl="pallas", loop="host",
+                           storage="dense", dtype="float32")
+    mc, fl_res, fl_launches = run_chain("flooding EMS", code, enc, fl_dec,
+                                        2.0)
+    check(fl_launches["fb_checknode"] == fl_res.decoder_steps > 0
+          and fl_launches["spa_checknode"] == 0,
+          f"launches {fl_launches} for {fl_res.decoder_steps} decoder steps")
+    paths["fb_checknode"]["flooding EMS"] = fl_launches["fb_checknode"]
+
+    phase("5d flooding EMS kernel vs plain decode at full width")
+    intr16 = mc.gen(0)[1][:16].contiguous()
+    outs, fl_calls = {}, {}
+    for impl in ("pallas", "topk"):
+        reset_launches()
+        d, it, conv = decode(graph, intr16,
+                             dataclasses.replace(fl_dec, cn_impl=impl))
+        outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
+        fl_calls[impl] = read_launches()
+    same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
+    steps16 = int(outs["pallas"][1].max())
+    print(f"F=16: identical decisions/iterations/convergence: {same}; "
+          f"iters {outs['pallas'][1].tolist()}; launches kernel "
+          f"{fl_calls['pallas']}, plain {fl_calls['topk']}", flush=True)
+    check(same, "flooding kernel and plain decodes differ")
+    check(fl_calls["pallas"]["fb_checknode"] == steps16 > 0
+          and fl_calls["pallas"]["spa_checknode"] == 0
+          and sum(fl_calls["topk"].values()) == 0,
+          f"flooding EMS launches {fl_calls} for {steps16} steps")
+
+    phase("5e flooding SPA kernel vs plain decode at full width")
+    outs = {}
+    for plain in (False, True):
+        reset_launches()
+        d, it, conv = decode_flooding_hostloop(graph, intr16, 20, cn="spa",
+                                               plain_spa=plain)
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(), read_launches())
+    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+    it_diff = (it_k - it_p).abs()
+    print(f"F=16: identical decisions {torch.equal(d_k, d_p)}, convergence "
+          f"{torch.equal(c_k, c_p)}; iters kernel {it_k.tolist()}, plain "
+          f"{it_p.tolist()}; frames whose iteration counts differ: "
+          f"{int((it_diff > 0).sum())}; launches kernel {l_k}, plain {l_p}",
+          flush=True)
+    check(torch.equal(d_k, d_p) and torch.equal(c_k, c_p)
+          and int(it_diff.max()) <= 1,
+          "flooding SPA kernel and plain decodes differ")
+    check(l_k["spa_checknode"] == int(it_k.max()) > 0
+          and l_k["fb_checknode"] == 0 and sum(l_p.values()) == 0,
+          f"flooding SPA launches {l_k} (plain {l_p}) for "
+          f"{int(it_k.max())} steps")
+    paths["spa_checknode"]["flooding SPA"] = l_k["spa_checknode"]
+    if "--profile" in argv:
+        SUMMARY["flooding EMS"]["profile"] = profile_batch(mc, "flooding")
+    free(mc)
+    del mc, intr16
+
+    check_small_card_decodes()
+
+    print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fb_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/fb_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/pallas_cn.py:138",
-        "launches": ems_launches["fb_checknode"], "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "launches": sum(paths["fb_checknode"].values()),
+        "paths": list(paths["fb_checknode"]),
+        "launches_by_path": paths["fb_checknode"], "max_abs_err": max_err,
+        "ms": k_ms, "plain_ms": p_ms, "flooding_rows": KERNEL_SHAPES[3][0],
+        "flooding_ms": fk_ms, "flooding_plain_ms": fp_ms,
     }, {
         "name": "spa_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/spa_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/fht.py:249",
-        "launches": spa_launches["spa_checknode"], "max_abs_err": spa_err,
+        "launches": sum(paths["spa_checknode"].values()),
+        "paths": list(paths["spa_checknode"]),
+        "launches_by_path": paths["spa_checknode"], "max_abs_err": spa_err,
         "ms": spa_k_ms, "plain_ms": spa_p_ms,
+        "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": fspa_k_ms,
+        "flooding_plain_ms": fspa_p_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,36 @@
-"""Syndrome check and CN-implementation choice shared by the schedules.
+"""Flooding-schedule decoder, batched over frames.
 
-The slice of ``ems_nbldpc_tpu/decoder/flooding.py`` that the layered
-decoder uses.  The flooding schedule itself is not ported yet.
+Port of ``ems_nbldpc_tpu/decoder/flooding.py``.  One iteration updates
+*all* M check nodes from the previous iteration's messages, the maximally
+parallel schedule (the reference's layered loop at ``NB_LDPC.c:313-472``
+is the serial special case; see layered.py).  All tensors are
+``[F, ..., q]`` with F = frames.
+
+State: CtoV [F, E+1, q] (its padding edge E is the target of padded
+column slots and stays 0).  There is no stored APP: the totals are
+``intrinsic + (sum of incident CtoV)``, recomputed every step in that
+grouping, so decisions are bit-exact against the JAX package.
+
+Early termination: the per-frame syndrome check (``NB_LDPC.c:468-471``,
+``tools.c:284-299``) becomes a convergence mask; decisions latch at the
+first syndrome-zero iteration, converged frames keep their CtoV, and
+``host_loop`` (shared with layered.py) stops when every frame has
+converged or the iteration budget is spent.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .graph import DeviceGraph, upload
+from ..ops.cuda_cn import fb_checknode
+from ..ops.cuda_spa import spa_checknode
+from ..ops.fht import (position_tables, spa_checknode_plain,
+                       transpose_perm_tables)
+from ..ops.minconv import (delta_message, ems_input_truncate,
+                           ems_output_saturate, fb_checknode_dense,
+                           fb_checknode_topk, mask_invalid)
+from .graph import DeviceGraph, rotate, rotation_table, upload
 
 
 def syndrome_ok(g: DeviceGraph, decide: torch.Tensor) -> torch.Tensor:
@@ -35,3 +58,202 @@ def use_topk(cn: str, nm: int, q: int, cn_impl: str) -> bool:
         return False
     # auto: the truncated combine whenever nm is well below q
     return cn == "ems" and 0 < nm <= q // 2
+
+
+def check_supported(nm: int, q: int, cn: str, cn_impl: str) -> None:
+    """Raise for a CN configuration the port does not run (either
+    schedule): the syndrome and bubble CNs are not ported yet, and an
+    nm-truncated CN needs 1 <= nm <= q."""
+    if cn == "syndrome":
+        raise NotImplementedError(
+            "cn='syndrome' is not ported yet (ROADMAP Queue 1 item 6: the "
+            "syndrome CN)")
+    if cn_impl in ("bubble", "lbubble"):
+        raise NotImplementedError(
+            f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1 item "
+            "8: exact bubble emulation)")
+    if cn == "spa":
+        return  # the SPA CN reads neither nm nor cn_impl, as in JAX
+    if cn not in ("ems", "minsum"):
+        raise ValueError(f"cn={cn!r}")
+    if cn_impl not in ("pallas", "topk", "auto", "dense", "list"):
+        raise ValueError(f"cn_impl={cn_impl!r}")
+    truncated = (cn == "ems" or cn_impl == "pallas"
+                 or use_topk(cn, nm, q, cn_impl))
+    if truncated and not 1 <= nm <= q:
+        raise ValueError(f"cn={cn!r}, cn_impl={cn_impl!r} needs 1 <= nm <= "
+                         f"q, got nm={nm}, q={q}")
+
+
+@functools.lru_cache(maxsize=16)
+def _spa_tables(g: DeviceGraph, device: str) -> dict:
+    """The SPA CN's row coefficients [M, dc] int32 (0 = padding), the
+    code's ``transpose_perm_tables`` and their per-position tables."""
+    t_tab, tinv_tab = (torch.as_tensor(t, device=device)
+                       for t in transpose_perm_tables(g.code.gf))
+    coefs = torch.as_tensor(g.code.row_coefs, dtype=torch.int32,
+                            device=device)
+    t_in, t_out = position_tables(coefs, t_tab, tinv_tab)
+    return dict(coefs=coefs, t_tab=t_tab, tinv_tab=tinv_tab, t_in=t_in,
+                t_out=t_out)
+
+
+@functools.lru_cache(maxsize=16)
+def _edge_rotations(g: DeviceGraph, device: str):
+    """Per-edge rotation tables (rot_in, rot_out), [E, q] int64 each; only
+    the flooding schedule reads them (layered.py keeps per-layer ones)."""
+    code = g.code
+    return tuple(torch.as_tensor(rotation_table(code.edge_coef, code.gf, d),
+                                 device=device) for d in ("in", "out"))
+
+
+def _vn_totals(g: DeviceGraph, intrinsic, ctov_pad):
+    """APP totals: intrinsic + (sum of incident CtoV).  [F, N, q].
+
+    The incident messages are gathered one column slot at a time (peak
+    [F, N, q], not [F, N, dv, q]) and summed left to right, as the JAX
+    reduction over dv does."""
+    ce = upload(g, str(ctov_pad.device))["col_edges"]
+    inc = ctov_pad[:, ce[:, 0]]
+    for j in range(1, ce.shape[1]):
+        inc = inc + ctov_pad[:, ce[:, j]]
+    return intrinsic + inc
+
+
+def _rows_from_edges(g: DeviceGraph, x_pad):
+    """[F, E+1, q] -> [F, M, dc, q] via the row-edge gather."""
+    return x_pad[:, upload(g, str(x_pad.device))["row_edges"]]
+
+
+def _edges_from_rows(g: DeviceGraph, x_rows):
+    """[F, M, dc, q] -> [F, E, q]."""
+    t = upload(g, str(x_rows.device))
+    return x_rows[:, t["edge_row"], t["edge_slot"]]
+
+
+def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
+              cn_impl: str = "auto", plain_spa: bool = False):
+    """The CN step of every row at once: rotate in, F/B CN, rotate out.
+
+    vtoc: [F, E, q] min-normalized variable-to-check messages.  Returns
+    mcv [F, E, q], min-normalized.  ``cn="spa"`` runs the hand-written
+    CUDA SPA check node (``ops/cuda_spa.spa_checknode``; its plain version
+    on CPU tensors, or on any device with ``plain_spa``).  Otherwise
+    ``cn_impl="pallas"`` runs the hand-written CUDA EMS check node
+    (``ops/cuda_cn.fb_checknode``; its plain version on CPU tensors), and
+    the rest the plain torch ``fb_checknode_topk`` or
+    ``fb_checknode_dense`` as ``use_topk`` picks.
+    """
+    q = g.q
+    f = vtoc.shape[0]
+    dev = vtoc.device
+    t = upload(g, str(dev))
+    if cn == "ems" and nm < q:
+        vtoc = ems_input_truncate(vtoc, nm)
+    if cn == "spa":
+        # rotations folded into the transform; padding slots (edge E ->
+        # zero message, coefficient 0) transform to the neutral w = 1
+        vt_pad = torch.cat([vtoc, vtoc.new_zeros((f, 1, q))], dim=1)
+        rows = _rows_from_edges(g, vt_pad)               # [F, M, dc, q]
+        s = _spa_tables(g, str(dev))
+        if plain_spa:
+            mcv_rows = spa_checknode_plain(rows, s["t_in"], s["t_out"])
+        else:
+            fm, m, dc = rows.shape[:3]
+            mcv_rows = spa_checknode(rows.reshape(fm * m, dc, q), s["coefs"],
+                                     s["t_tab"], s["tinv_tab"]
+                                     ).reshape(rows.shape)
+        mcv = _edges_from_rows(g, mcv_rows)
+        return mcv - mcv.min(dim=-1, keepdim=True).values
+    rot_in, rot_out = _edge_rotations(g, str(dev))
+    vr = rotate(vtoc, rot_in)
+    pad = delta_message((f, 1), q, vr.dtype, dev)
+    vr_rows = _rows_from_edges(g, torch.cat([vr, pad], dim=1))
+    valid = None if g.regular else t["edge_valid_row"][None]
+    if cn_impl == "pallas":
+        vr_rows = mask_invalid(vr_rows, valid)
+        fm, m, dc = vr_rows.shape[:3]
+        mcv_rows = fb_checknode(vr_rows.reshape(fm * m, dc, q), nm
+                                ).reshape(vr_rows.shape)
+    elif use_topk(cn, nm, q, cn_impl):
+        mcv_rows = fb_checknode_topk(vr_rows, nm, valid)
+    else:
+        mcv_rows = fb_checknode_dense(vr_rows, valid)
+    mcv = rotate(_edges_from_rows(g, mcv_rows), rot_out)
+    if cn == "ems" and nm < q:
+        # output saturation: entries beyond the nm best are clamped to
+        # (nm-th best + offset), the fill rule of bubble_decoder.c:262-278
+        mcv = ems_output_saturate(mcv, nm, offset)
+    return mcv - mcv.min(dim=-1, keepdim=True).values
+
+
+def make_flooding_stepper(
+    g: DeviceGraph,
+    nm: int = 0,
+    offset: float = 0.0,
+    cn: str = "minsum",
+    cn_impl: str = "auto",
+    plain_spa: bool = False,
+):
+    """Host-loop flooding decoder: ``state = init_fn(intrinsic)``,
+    ``state = step_fn(state)``; state = (intrinsic, ctov_pad, decide,
+    conv, iters).  The intrinsic rides along unchanged (the JAX loop
+    closes over it); ``step_fn`` updates ctov_pad in place.
+    ``plain_spa`` is internal: it runs the SPA CN's plain version on the
+    card, for holding the kernel against it.
+    """
+    check_supported(nm, g.q, cn, cn_impl)
+    e = g.n_edges
+
+    def decisions(intrinsic, ctov_pad):
+        return _vn_totals(g, intrinsic, ctov_pad).argmin(dim=-1)
+
+    def init_fn(intrinsic):
+        f, _, q = intrinsic.shape
+        ctov0 = intrinsic.new_zeros((f, e + 1, q))
+        d0 = decisions(intrinsic, ctov0)
+        iters0 = torch.zeros(f, dtype=torch.int32, device=intrinsic.device)
+        return intrinsic, ctov0, d0, syndrome_ok(g, d0), iters0
+
+    def step_fn(state):
+        intrinsic, ctov_pad, decide, conv, iters = state
+        edge_col = upload(g, str(intrinsic.device))["edge_col"]
+        tot = _vn_totals(g, intrinsic, ctov_pad)
+        vtoc = tot[:, edge_col] - ctov_pad[:, :e]
+        del tot
+        vtoc = vtoc - vtoc.min(dim=-1, keepdim=True).values
+        mcv = checknode(g, vtoc, nm, offset, cn, cn_impl, plain_spa)
+        del vtoc
+        active = ~conv
+        # converged frames keep their CtoV; the padding edge stays 0
+        ctov_pad[:, :e] = torch.where(active[:, None, None], mcv,
+                                      ctov_pad[:, :e])
+        del mcv
+        decide = torch.where(active[:, None],
+                             decisions(intrinsic, ctov_pad), decide)
+        conv = conv | syndrome_ok(g, decide)
+        return (intrinsic, ctov_pad, decide, conv,
+                iters + active.to(torch.int32))
+
+    return init_fn, step_fn
+
+
+def host_loop(init_fn, step_fn, intrinsic, max_iters):
+    """Step until every frame has converged or the budget is spent,
+    polling ``conv.all()`` on the host once per iteration (the JAX
+    while_loop's ``cond``).  Returns (decide [F, N] int64, iters [F]
+    int32, converged [F] bool)."""
+    state = init_fn(intrinsic)
+    for _ in range(max_iters):
+        if bool(state[-2].all()):
+            break
+        state = step_fn(state)
+    return state[-3], state[-1], state[-2]
+
+
+def decode_flooding_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
+                             cn="minsum", cn_impl="auto", plain_spa=False):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    return host_loop(
+        *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        intrinsic, max_iters)

@@ -46,14 +46,29 @@ class DeviceGraph:
     ``upload`` puts them on a device."""
 
     code: NBCode
-    row_edges: np.ndarray    # [M, dc_max], pad = E
-    layers: tuple            # tuple of row-id arrays (column-disjoint groups)
+    regular: bool               # all rows have degree dc_max
+    col_edges: np.ndarray       # [N, dv_max], pad = E
+    row_edges: np.ndarray       # [M, dc_max], pad = E
+    edge_valid_row: np.ndarray  # [M, dc_max] bool, False at padded slots
+    edge_slot: np.ndarray       # [E] position of each edge within its row
+    layers: tuple               # tuple of row-id arrays (column-disjoint groups)
 
     @classmethod
     @functools.lru_cache(maxsize=None)
     def from_code(cls, code: NBCode) -> "DeviceGraph":
-        return cls(code=code, row_edges=code.row_edges.astype(np.int32),
-                   layers=code.layers)
+        e = code.n_edges
+        row_edges = code.row_edges
+        offs = np.concatenate([[0], np.cumsum(code.row_deg)])
+        slot = np.arange(e) - np.repeat(offs[:-1], code.row_deg)
+        return cls(
+            code=code,
+            regular=bool(np.all(code.row_deg == code.dc_max)),
+            col_edges=code.col_edges.astype(np.int32),
+            row_edges=row_edges.astype(np.int32),
+            edge_valid_row=row_edges < e,
+            edge_slot=slot.astype(np.int32),
+            layers=code.layers,
+        )
 
     @property
     def q(self) -> int:
@@ -67,13 +82,19 @@ class DeviceGraph:
 @functools.lru_cache(maxsize=16)
 def upload(g: DeviceGraph, device: str) -> dict:
     """The index arrays the device path reads, as int64 tensors on
-    ``device`` (uploaded once per graph and device)."""
+    ``device`` (uploaded once per graph and device): the edge tables and
+    the flat GF multiplication table; ``edge_valid_row`` is bool."""
     def up(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
+    code = g.code
     return dict(
-        edge_col=up(g.code.edge_col),
-        edge_coef=up(g.code.edge_coef),
+        edge_col=up(code.edge_col),
+        edge_row=up(code.edge_row),
+        edge_coef=up(code.edge_coef),
+        edge_slot=up(g.edge_slot),
+        col_edges=up(g.col_edges),
         row_edges=up(g.row_edges),
-        mul_flat=up(g.code.gf.mul_table.reshape(-1)),
+        edge_valid_row=torch.as_tensor(g.edge_valid_row, device=device),
+        mul_flat=up(code.gf.mul_table.reshape(-1)),
     )

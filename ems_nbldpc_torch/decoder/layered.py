@@ -2,8 +2,11 @@
 
 Port of the host-loop paths of ``ems_nbldpc_tpu/decoder/layered.py``:
 the dense-storage sweep (``_layer_plan``, ``_make_dense_iteration`` with
-its EMS and SPA branches, ``make_layered_stepper``,
-``decode_layered_hostloop``) and the truncated-list EMS sweep with
+its SPA branch and, through ``_make_rotated_cn``, its EMS (``cn_impl``
+pallas / topk) and dense min-conv branches,
+``make_layered_stepper``, ``decode_layered_hostloop``), the same sweep
+with nm-compressed CtoV storage (``make_layered_compressed_stepper``,
+``decode_layered_compressed``), and the truncated-list EMS sweep with
 compressed CtoV storage (``_make_list_iteration_unrolled``,
 ``_list_init_state``, ``make_layered_list_stepper``,
 ``decode_layered_list_hostloop``).  Rows that share no variable commute,
@@ -19,9 +22,9 @@ element has one writer (padded slots all write the same value).
 
 Per super-layer (the reference's ``NB_LDPC.c:320-466``):
   mvc  = APP[cols] - CtoV[edges]      (VN extrinsic), minus its min
-  mcv  = CN(mvc)                      (EMS: rotate, truncate, F/B, rotate
-                                       back, saturate; SPA: rotations
-                                       folded into the transform)
+  mcv  = CN(mvc)                      (EMS / min-sum: rotate, truncate,
+                                       F/B, rotate back, saturate; SPA:
+                                       rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
 """
 from __future__ import annotations
@@ -36,10 +39,10 @@ from ..ops.cuda_cn import fb_checknode
 from ..ops.cuda_spa import spa_checknode
 from ..ops.fht import (position_tables, spa_checknode_plain,
                        transpose_perm_tables)
-from ..ops.minconv import (delta_message, ems_input_truncate,
-                           ems_output_saturate, fb_checknode_topk,
-                           topk_message)
-from .flooding import syndrome_ok, use_topk
+from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
+                           fb_checknode_dense, fb_checknode_topk,
+                           mask_invalid, scatter_topk_dense, topk_message)
+from .flooding import check_supported, host_loop, syndrome_ok, use_topk
 from .graph import DeviceGraph, rotate, rotation_table
 
 
@@ -83,42 +86,49 @@ def _layer_plan(g: DeviceGraph, device: str):
     return plans
 
 
-def _check_supported(nm, q, cn, cn_impl):
-    if cn == "spa":
-        return  # the SPA CN reads neither nm nor cn_impl, as in JAX
-    if cn != "ems":
-        raise NotImplementedError(
-            f"cn={cn!r} is not ported yet (ROADMAP Queue 1: the syndrome "
-            "CN and the dense min-sum CN)")
-    if cn_impl in ("bubble", "lbubble", "list"):
-        raise NotImplementedError(
-            f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1)")
-    if cn_impl not in ("pallas", "topk", "auto", "dense"):
-        raise ValueError(f"cn_impl={cn_impl!r}")
-    if cn_impl != "pallas" and not use_topk(cn, nm, q, cn_impl):
-        raise NotImplementedError(
-            f"nm={nm}, q={q}, cn_impl={cn_impl!r} selects the dense CN, "
-            "which is not ported yet (ROADMAP Queue 1: the min-conv CNs)")
-    if not 1 <= nm <= q:
-        raise ValueError(f"cn='ems' needs 1 <= nm <= q, got nm={nm}, q={q}")
+def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
+    """``rotated_cn(mvc, p)``: one super-layer's EMS / min-sum CN on the
+    min-normalized [F, G, dc, q] extrinsics of plan ``p`` (truncate,
+    rotate in, mask padded slots, F/B CN, rotate out; no saturation).
+    ``cn_impl="pallas"`` runs the hand-written CUDA check node
+    (``ops/cuda_cn.fb_checknode``; its plain version on CPU tensors);
+    otherwise ``use_topk`` picks the plain torch ``fb_checknode_topk`` or
+    the dense ``fb_checknode_dense``."""
+    q = g.q
+    check_supported(nm, q, cn, cn_impl)
+    truncate = cn == "ems" and nm < q
+    topk_cn = use_topk(cn, nm, q, cn_impl)
+
+    def rotated_cn(mvc, p):
+        f = mvc.shape[0]
+        gdim, dcdim = p["shape"]
+        mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
+        vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
+        vr = mask_invalid(vr.reshape(mvc.shape), p["valid"])
+        if cn_impl == "pallas":
+            mcv_r = fb_checknode(vr.reshape(f * gdim, dcdim, q), nm)
+        elif topk_cn:
+            mcv_r = fb_checknode_topk(vr, nm)
+        else:
+            mcv_r = fb_checknode_dense(vr)
+        mcv = rotate(mcv_r.reshape(f, gdim * dcdim, q), p["rot_out"])
+        return mcv.reshape(mvc.shape)
+
+    return rotated_cn
 
 
 def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                           plain_spa=False):
-    """The per-iteration CN sweep over all super-layers.
-
-    Returns ``one_iteration(app, ctov, active)``, which updates ``app`` and
-    ``ctov`` in place.  ``cn="ems"``: ``cn_impl="pallas"`` runs the
-    hand-written CUDA check node (``ops/cuda_cn.fb_checknode``; its plain
-    version on CPU tensors); ``"topk"``/``"auto"`` the plain torch
-    ``fb_checknode_topk``.  ``cn="spa"`` runs the hand-written CUDA SPA
-    check node (``ops/cuda_spa.spa_checknode``; its plain version on CPU
-    tensors); ``plain_spa`` forces the plain version on any device, for
-    comparing the two.
+    """The per-iteration CN sweep over all super-layers, dense CtoV:
+    ``one_iteration(app, ctov, active)`` updates the state in place.
+    ``cn="ems"``/``"minsum"``: ``_make_rotated_cn``, then (EMS) output
+    saturation.  ``cn="spa"`` runs the hand-written CUDA SPA check node
+    (``ops/cuda_spa.spa_checknode``; its plain version on CPU tensors);
+    ``plain_spa`` forces the plain version on any device, for comparing
+    the two.
     """
     q = g.q
-    _check_supported(nm, q, cn, cn_impl)
-    truncate = cn == "ems" and nm < q
+    check_supported(nm, q, cn, cn_impl)
 
     def spa_cn(mvc, p):
         if plain_spa:
@@ -128,24 +138,15 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                             p["t_tab"], p["tinv_tab"])
         return out.reshape(mvc.shape)
 
-    def ems_cn(mvc, p):
-        f = mvc.shape[0]
-        gdim, dcdim = p["shape"]
-        mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
-        vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
-        vr = vr.reshape(mvc.shape)
-        if p["valid"] is not None:
-            neutral = delta_message(vr.shape[:-1], q, vr.dtype, vr.device)
-            vr = torch.where(p["valid"][None, ..., None], vr, neutral)
-        if cn_impl == "pallas":
-            mcv_r = fb_checknode(vr.reshape(f * gdim, dcdim, q), nm)
-        else:
-            mcv_r = fb_checknode_topk(vr, nm)
-        mcv = rotate(mcv_r.reshape(f, gdim * dcdim, q), p["rot_out"])
-        mcv = mcv.reshape(mvc.shape)
-        return ems_output_saturate(mcv, nm, offset) if truncate else mcv
+    if cn == "spa":
+        check_node = spa_cn
+    else:
+        rotated_cn = _make_rotated_cn(g, nm, cn, cn_impl)
+        truncate = cn == "ems" and nm < q
 
-    check_node = spa_cn if cn == "spa" else ems_cn
+        def check_node(mvc, p):
+            mcv = rotated_cn(mvc, p)
+            return ems_output_saturate(mcv, nm, offset) if truncate else mcv
 
     def one_iteration(app, ctov, active):
         act = active[:, None, None, None]
@@ -215,23 +216,87 @@ def make_layered_stepper(
     return init_fn, step_fn
 
 
-def _host_loop(init_fn, step_fn, intrinsic, max_iters):
-    """Step until every frame has converged or the budget is spent,
-    polling ``conv.all()`` on the host once per iteration.  Returns
-    (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
-    state = init_fn(intrinsic)
-    for _ in range(max_iters):
-        if bool(state[-2].all()):
-            break
-        state = step_fn(state)
-    return state[-3], state[-1], state[-2]
-
-
 def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
                             cn="minsum", cn_impl="auto", plain_spa=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
-    return _host_loop(
+    return host_loop(
         *make_layered_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        intrinsic, max_iters)
+
+
+def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration):
+    """(init_fn, step_fn) over the compressed state (app, cv_v, cv_g,
+    cv_sat, decide, conv, iters), updated in place by ``one_iteration``."""
+    e = g.n_edges
+
+    def init_fn(intrinsic):
+        f, dev = intrinsic.shape[0], intrinsic.device
+        app0 = torch.nn.functional.pad(intrinsic.to(dtype), (0, 0, 0, 1))
+        cv_v = torch.zeros((f, e + 1, nm), dtype=dtype, device=dev)
+        cv_g = torch.arange(nm, dtype=torch.uint8, device=dev).repeat(
+            f, e + 1, 1)
+        cv_sat = torch.zeros((f, e + 1), dtype=dtype, device=dev)
+        return (app0, cv_v, cv_g, cv_sat) + _initial_decisions(g, app0)
+
+    def step_fn(state):
+        app, cv_v, cv_g, cv_sat, decide, conv, iters = state
+        active = ~conv
+        one_iteration(app, cv_v, cv_g, cv_sat, active)
+        return (app, cv_v, cv_g, cv_sat) + _step_decisions(
+            g, app, decide, conv, iters, active)
+
+    return init_fn, step_fn
+
+
+def make_layered_compressed_stepper(g: DeviceGraph, nm: int,
+                                    offset: float = 0.3,
+                                    dtype=torch.bfloat16):
+    """Layered EMS (dense ``fb_checknode_topk`` CN) with nm-compressed
+    CtoV storage: ``state = init_fn(intrinsic)``, ``state =
+    step_fn(state)``; state = (app, cv_v [F, E+1, nm], cv_g uint8,
+    cv_sat [F, E+1], decide, conv, iters), updated in place.  After EMS
+    output saturation a CN message has at most nm distinct sub-saturation
+    values, so (vals, ids, sat) re-encodes it losslessly.  ``dtype`` is
+    the storage dtype of APP and the CtoV values and saturation levels."""
+    q = g.q
+    rotated_cn = _make_rotated_cn(g, nm, "ems", "topk")
+
+    def one_iteration(app, cv_v, cv_g, cv_sat, active):
+        keep = ~active[:, None, None]                    # [F, 1, 1]
+        for p in _layer_plan(g, str(app.device)):
+            edge_ids, cols = p["edge_ids"], p["cols"]
+            app_rows = app[:, cols]                      # [F, G, dc, q]
+            cvv_rows = cv_v[:, edge_ids]
+            cvg_rows = cv_g[:, edge_ids]
+            sat_rows = cv_sat[:, edge_ids]
+            ctov_rows = torch.minimum(
+                scatter_topk_dense(cvv_rows, cvg_rows, q),
+                sat_rows[..., None])
+            mvc = app_rows - ctov_rows
+            mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+            mcv = rotated_cn(mvc, p)
+            # compress: nm best + saturation, a lossless re-encoding of the
+            # EMS-saturated message (bubble_decoder.c:262-278)
+            bv, bg = topk_message(mcv, nm)
+            bv = bv - bv[..., 0:1]                       # normalize min=0
+            sat = bv[..., -1] + offset
+            dense = torch.minimum(scatter_topk_dense(bv, bg, q),
+                                  sat[..., None])
+            cv_v[:, edge_ids] = torch.where(keep[..., None], cvv_rows, bv)
+            cv_g[:, edge_ids] = torch.where(keep[..., None], cvg_rows,
+                                            bg.to(cv_g.dtype))
+            cv_sat[:, edge_ids] = torch.where(keep, sat_rows, sat)
+            app[:, cols] = torch.where(keep[..., None], app_rows,
+                                       mvc + dense)
+
+    return _compressed_stepper(g, nm, dtype, one_iteration)
+
+
+def decode_layered_compressed(g, intrinsic, max_iters, nm, offset=0.3,
+                              dtype=torch.bfloat16):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    return host_loop(
+        *make_layered_compressed_stepper(g, nm, offset, dtype),
         intrinsic, max_iters)
 
 
@@ -303,31 +368,13 @@ def make_layered_list_stepper(g: DeviceGraph, nm: int, offset: float = 0.3,
     if not 1 <= nm <= g.q:
         raise ValueError(f"list EMS needs 1 <= nm <= q, got nm={nm}, "
                          f"q={g.q}")
-    e = g.n_edges
-    one_iteration = _make_list_iteration(g, nm, offset, nboper)
-
-    def init_fn(intrinsic):
-        f, dev = intrinsic.shape[0], intrinsic.device
-        app0 = torch.nn.functional.pad(intrinsic.to(dtype), (0, 0, 0, 1))
-        cv_v = torch.zeros((f, e + 1, nm), dtype=dtype, device=dev)
-        cv_g = torch.arange(nm, dtype=torch.uint8, device=dev).repeat(
-            f, e + 1, 1)
-        cv_sat = torch.zeros((f, e + 1), dtype=dtype, device=dev)
-        return (app0, cv_v, cv_g, cv_sat) + _initial_decisions(g, app0)
-
-    def step_fn(state):
-        app, cv_v, cv_g, cv_sat, decide, conv, iters = state
-        active = ~conv
-        one_iteration(app, cv_v, cv_g, cv_sat, active)
-        return (app, cv_v, cv_g, cv_sat) + _step_decisions(
-            g, app, decide, conv, iters, active)
-
-    return init_fn, step_fn
+    return _compressed_stepper(g, nm, dtype,
+                               _make_list_iteration(g, nm, offset, nboper))
 
 
 def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
                                  nboper=0, dtype=torch.bfloat16):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
-    return _host_loop(
+    return host_loop(
         *make_layered_list_stepper(g, nm, offset, nboper, dtype),
         intrinsic, max_iters)

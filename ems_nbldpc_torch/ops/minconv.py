@@ -1,10 +1,14 @@
-"""Truncated min-convolution over the XOR group GF(2)^m, in plain torch.
+"""Min-convolution over the XOR group GF(2)^m, in plain torch.
 
-Port of the EMS part of ``ems_nbldpc_tpu/ops/minconv.py``.  The EMS check
-node writes each output symbol ``s`` as the cheapest XOR of one symbol from
-each input message, built from 2-input merges (reference forward/backward
-recursion, ``bubble_decoder.c:72-305``).  The merge here is the
-*truncated* tropical convolution
+Port of ``ems_nbldpc_tpu/ops/minconv.py``.  The check node writes each
+output symbol ``s`` as the cheapest XOR of one symbol from each input
+message, built from 2-input merges (reference forward/backward recursion,
+``bubble_decoder.c:72-305``).  A merge is either the dense tropical
+convolution (exact min-sum)
+
+    out[..., s] = min_t a[..., t] + b[..., t ^ s]
+
+or its *truncated* form (EMS)
 
     out[..., s] = min_j bv[..., j] + a[..., s ^ bg[..., j]]
 
@@ -79,6 +83,25 @@ def scatter_topk_dense(bv: torch.Tensor, bg: torch.Tensor, q: int,
     return out.scatter_reduce_(-1, bg.long(), bv, reduce="amin")
 
 
+def minconv_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense tropical XOR-convolution: out[..., s] = min_t a[..., t] +
+    b[..., t ^ s].
+
+    The JAX version gathers a [..., q, q] candidate tensor (136-272 GB at
+    the flooding decoder's full width); here one candidate row per ``t``
+    is added and folded in, so the peak temporary is [..., q].  Each
+    candidate is one f32 add and min is exact, so the result is bit-exact
+    and independent of the loop order.
+    """
+    q = a.shape[-1]
+    s = torch.arange(q, device=a.device)
+    out = None
+    for t in range(q):
+        cand = a[..., t, None] + b[..., t ^ s]
+        out = cand if out is None else torch.minimum(out, cand)
+    return out
+
+
 def minconv_topk(a: torch.Tensor, bv: torch.Tensor,
                  bg: torch.Tensor) -> torch.Tensor:
     """out[..., s] = min_j bv[..., j] + a[..., s ^ bg[..., j]].
@@ -97,20 +120,32 @@ def minconv_topk(a: torch.Tensor, bv: torch.Tensor,
     return out
 
 
-def fb_checknode_topk(vr: torch.Tensor, nm: int) -> torch.Tensor:
+def mask_invalid(vr: torch.Tensor, valid) -> torch.Tensor:
+    """Padding slots (``valid`` False, [..., dc] bool, broadcast against
+    vr's leading dims; None: no padding) become the delta message, which
+    contributes nothing to a merge."""
+    if valid is None:
+        return vr
+    neutral = delta_message(vr.shape[:-1], vr.shape[-1], vr.dtype, vr.device)
+    return torch.where(valid[..., None], vr, neutral)
+
+
+def fb_checknode_topk(vr: torch.Tensor, nm: int,
+                      valid: torch.Tensor | None = None) -> torch.Tensor:
     """F/B check node with nm-truncated combine steps (EMS semantics).
 
-    vr: [..., dc, q] rotated inputs.  The forward and backward chains keep
-    dense accumulators; each combine admits only the nm best entries of
-    the incoming side: the inputs' lists in the chains, and the backward
-    accumulators' lists in the middle merges.  Returns [..., dc, q].
+    vr: [..., dc, q] rotated inputs; valid: optional [..., dc] bool,
+    False for padding slots (masked to the delta message).  The forward
+    and backward chains keep dense accumulators; each combine admits only
+    the nm best entries of the incoming side: the inputs' lists in the
+    chains, and the backward accumulators' lists in the middle merges.
+    Rows of dc <= 2 have no merge to truncate and take the dense CN.
+    Returns [..., dc, q].
     """
     dc = vr.shape[-2]
+    vr = mask_invalid(vr, valid)
     if dc <= 2:
-        raise NotImplementedError(
-            "dc <= 2 rows take the dense CN, which is not ported yet "
-            "(ROADMAP Queue 1: flooding and the min-conv CNs)"
-        )
+        return fb_checknode_dense(vr)
     bv, bg = topk_message(vr, nm)                   # [..., dc, nm]
     msgs = [vr[..., i, :] for i in range(dc)]
     fwd = [msgs[0]]
@@ -127,5 +162,35 @@ def fb_checknode_topk(vr: torch.Tensor, nm: int) -> torch.Tensor:
     # all middle merges in one batched combine
     tv, tg = topk_message(torch.stack(bwd[1: dc - 1], dim=-2), nm)
     mid = minconv_topk(torch.stack(fwd[: dc - 2], dim=-2), tv, tg)
+    outs = [bwd[0]] + [mid[..., i, :] for i in range(dc - 2)] + [fwd[-1]]
+    return torch.stack(outs, dim=-2)
+
+
+def fb_checknode_dense(vr: torch.Tensor,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward/backward dense CN over the dc axis (exact min-sum).
+
+    vr: [..., dc, q] rotated inputs; valid: optional [..., dc] bool, False
+    for padding slots (masked to the delta message: they contribute
+    nothing, and their outputs are well-defined but unused).  dc = 1 gives
+    the delta message, dc = 2 the swapped pair; otherwise 3 (dc - 2)
+    ``minconv_xor`` merges, the dc - 2 middle ones batched into one call.
+    Returns [..., dc, q].
+    """
+    dc, q = vr.shape[-2:]
+    vr = mask_invalid(vr, valid)
+    if dc == 1:
+        return delta_message(vr.shape[:-1], q, vr.dtype, vr.device)
+    if dc == 2:
+        return vr.flip(-2)
+    msgs = [vr[..., i, :] for i in range(dc)]
+    fwd = [msgs[0]]
+    bwd = [msgs[-1]]
+    for i in range(1, dc - 1):
+        fwd.append(minconv_xor(fwd[-1], msgs[i]))
+        bwd.append(minconv_xor(bwd[-1], msgs[dc - 1 - i]))
+    bwd = bwd[::-1]  # bwd[i] = conv of msgs[i+1..dc-1]
+    mid = minconv_xor(torch.stack(fwd[: dc - 2], dim=-2),
+                      torch.stack(bwd[1: dc - 1], dim=-2))
     outs = [bwd[0]] + [mid[..., i, :] for i in range(dc - 2)] + [fwd[-1]]
     return torch.stack(outs, dim=-2)

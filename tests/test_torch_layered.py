@@ -1,9 +1,10 @@
-"""The layered host-loop EMS decoder: the port against the JAX package.
+"""The layered host-loop decoders: the port against the JAX package.
 
 The same intrinsics (from the JAX channel, as numpy) go through JAX
 ``decode(..., layered, host loop, cn="ems", cn_impl="topk")`` and through
 the port with ``cn_impl="pallas"`` (on a CPU tensor: the kernel's plain
-version).  Decisions, iteration counts and convergence flags must be
+version), and likewise for the dense min-conv and compressed-storage
+branches.  Decisions, iteration counts and convergence flags must be
 identical; the state after one step (APP, CtoV) within rtol 1e-6 (the
 state is a sum of f32 terms that XLA may fuse differently; in practice it
 comes out equal)."""
@@ -131,12 +132,57 @@ def test_converged_frames_are_frozen():
     assert (state[4][~conv] > iters.max()).all()
 
 
-@pytest.mark.parametrize("change", [
+PORTED = [  # branches that raised before the flooding schedule was ported
     dict(schedule="flooding"), dict(storage="compressed", cn_impl="topk"),
-    dict(loop="device"), dict(dtype="bfloat16"),
     dict(schedule="flooding", cn="spa"),
-    dict(cn="minsum"), dict(cn="syndrome"), dict(cn_impl="dense"),
-    dict(cn_impl="bubble"), dict(cn_impl="list"), dict(nm=16, cn_impl="auto"),
+    # exact min-sum: nm = 0 under auto takes the dense min-conv CN
+    dict(cn="minsum", nm=0, cn_impl="auto"),
+    dict(cn_impl="dense"), dict(cn_impl="list"), dict(nm=16, cn_impl="auto"),
+    # min-sum through the truncated combine (nm = 4, the kernel's plain
+    # version against JAX topk)
+    dict(cn="minsum"),
+]
+
+
+@pytest.mark.parametrize("change", PORTED)
+def test_ported_branches_match_jax(change):
+    """Each branch decodes as the JAX package does: identical decisions,
+    iterations and convergence (``cn_impl="pallas"`` is the kernel's plain
+    version here; JAX runs its exact reference, ``topk``)."""
+    jc, _, intr = jax_frames(48, 24, 16, 24, 1.5, seed=6)
+    base = dict(max_iters=8, cn="ems", nm=4, cn_impl="pallas", loop="host")
+    cfg = dataclasses.replace(DecoderConfig(**base), **change)
+    jcfg = JConfig(**dict(dataclasses.asdict(cfg), cn_impl="topk"
+                          if cfg.cn_impl == "pallas" else cfg.cn_impl))
+    want = [np.asarray(x) for x in jdecode(jc, jnp.asarray(intr), jcfg)]
+    assert want[1].max() > 1 and want[2].any()      # informative
+    got = decode(from_jax_code(jc), torch.from_numpy(intr), cfg)
+    for name, a, b in zip(("decide", "iters", "conv"), got, want):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compressed_topk_decode_matches_jax(dtype):
+    """The dense-CN decoder with nm-compressed CtoV storage, f32 and bf16
+    state on both sides."""
+    jc, _, intr = jax_frames(96, 48, 16, 32, 1.5, seed=8)
+    jcfg = JConfig(max_iters=12, schedule="layered", cn="ems", nm=8,
+                   offset=0.3, cn_impl="topk", loop="host",
+                   storage="compressed", dtype=dtype)
+    want = [np.asarray(x) for x in jdecode(jc, jnp.asarray(intr), jcfg)]
+    assert want[1].max() > 1 and want[2].any()      # informative
+    got = decode(from_jax_code(jc), torch.from_numpy(intr),
+                 DecoderConfig(**dataclasses.asdict(jcfg)))
+    for name, a, b in zip(("decide", "iters", "conv"), got, want):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+@pytest.mark.parametrize("change", [
+    dict(loop="device"), dict(dtype="bfloat16"), dict(cn="syndrome"),
+    dict(cn_impl="bubble"), dict(schedule="flooding", cn="syndrome"),
+    dict(schedule="flooding", cn_impl="bubble"),
+    dict(schedule="flooding", cn_impl="lbubble"),
+    dict(schedule="flooding", loop="device"),
 ])
 def test_unported_branches_raise(change):
     jc = jrandom_regular(24, 12, 16, seed=2)
@@ -144,4 +190,13 @@ def test_unported_branches_raise(change):
                          loop="host")
     cfg = dataclasses.replace(base, **change)
     with pytest.raises(NotImplementedError, match="not ported yet|ported for"):
+        decode(from_jax_code(jc), torch.zeros((2, jc.n, jc.q)), cfg)
+
+
+def test_flooding_compressed_is_rejected():
+    """As in JAX: compressed storage exists for the layered schedule only."""
+    jc = jrandom_regular(24, 12, 16, seed=2)
+    cfg = DecoderConfig(max_iters=2, schedule="flooding", cn="ems", nm=4,
+                        cn_impl="topk", loop="host", storage="compressed")
+    with pytest.raises(ValueError, match="layered"):
         decode(from_jax_code(jc), torch.zeros((2, jc.n, jc.q)), cfg)
