@@ -14,14 +14,21 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    name and power limit, and the torch and CUDA versions;
 2. build: compiles both CUDA kernels with nvcc (sm_90a), one nvcc per
    source, started together; prints the times and ptxas' register /
-   shared-memory report;
-3. EMS kernel against plain: ``ops/cuda_cn.fb_checknode`` must equal its
-   plain torch version (``minconv.fb_checknode_topk``) bit for bit
-   (``torch.equal``) at the main paths' shapes (layered [F·1350, 4, 256]
-   and flooding [F·4050, 4, 256], F = 16 and 128) and at ragged / odd
-   shapes, on continuous inputs and on "ties" inputs (a few integer
-   levels, so that the lower-GF-id-first tie order of the lists matters);
-   prints both per-call times at the main paths' shapes;
+   shared-memory report; then builds the full-width code;
+3. EMS kernel against plain, bit for bit (``torch.equal``): the bare
+   ``ops/cuda_cn.fb_checknode`` against ``minconv.fb_checknode_topk`` on
+   truncated rows, and the fused step ``ops/cuda_cn.ems_rows`` against
+   ``ems_rows_plain`` (and the torch route around the bare kernel) on
+   min-normalised unrotated rows, with the real code's tables, at the
+   main paths' shapes (layered [F·1350, 4, 256] with G = 1350 and
+   flooding [F·4050, 4, 256] with G = 4050, F = 16 and 128, nm = 32) and
+   at odd shapes with padding slots and ``valid`` (q = 16, dc = 12,
+   nm = q and truncation off among them), on continuous inputs and on
+   "ties" inputs (a few integer levels, so that the lower-GF-id-first
+   tie order of the lists matters); at the four main shapes, times the
+   fused kernel, the torch route around the bare kernel, the plain
+   composition and the bare kernel in turns, beside the bound (bytes
+   at 3.35 TB/s against candidates at 67 TFLOP/s);
 3b. SPA kernel against plain: ``ops/cuda_spa.spa_checknode`` against
    ``fht.spa_checknode_plain`` at the main paths' shapes (layered F = 16
    and 128 with G = 1350 coefficient rows, flooding F = 16 with
@@ -37,10 +44,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    cost is <= 8 (the likely symbols, which decide), and padding lanes
    exactly 0; prints the cost error by band, and both per-call times;
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
-   layered EMS nm = 32 with ``cn_impl="pallas"``; checks that every
-   kernel launch of the timed run came from the decoder (3 per host-loop
-   step), that the generated codewords satisfy the syndrome, avg_it < 10
-   and FER <= 0.25;
+   layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
+   per super-layer); checks that every kernel launch of the timed run
+   came from the decoder (3 per host-loop step), that the generated
+   codewords satisfy the syndrome, avg_it < 10 and FER <= 0.25;
 5. EMS determinism: one batch of 16 frames decoded with the kernel and
    with the plain torch CN gives identical decisions and iteration counts;
 4b. SPA chain at full width (the SPA row of ``bench.py``): layered SPA,
@@ -64,22 +71,25 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    kernel (launches = 1 per step) and through its plain version
    (``plain_spa``): identical decisions and convergence, iteration counts
    within 1 (differences printed);
-5f. the plain dense min-conv CN and the compressed dense-CN decoder on the
-   card: random_regular(96, 48, 16), 64 frames at 1.5 dB, one set of
-   intrinsics, decoded by flooding and layered ``cn="minsum"`` (nm = 0,
-   the exact min-sum CN), layered ``cn_impl="dense"`` and layered
-   ``storage="compressed",
-   cn_impl="topk"`` (f32), each on the card and on the CPU: identical
-   decisions, iterations and convergence, and no kernel launch.
+5f. the plain dense min-conv CN, the compressed dense-CN decoder and
+   min-sum through the EMS kernel on the card: random_regular(96, 48, 16),
+   64 frames at 1.5 dB, one set of intrinsics, decoded by flooding and
+   layered ``cn="minsum"`` (nm = 0, the exact min-sum CN), layered
+   ``cn_impl="dense"``, layered ``storage="compressed", cn_impl="topk"``
+   (f32), and flooding and layered ``cn="minsum", cn_impl="pallas"``
+   (nm = 8), each on the card and on the CPU (plain versions there):
+   identical decisions, iterations and convergence; no kernel launch but
+   for the two ``pallas`` decodes (1 per flooding step, 1 per super-layer).
 
 Each chain runs once to warm up, then once timed with the launch counts
 set to 0 just before and read just after; both sides of 5d and 5e are
 counted the same way.  The last four lines are a compact JSON record of
-each chain's timed run (and its profile with ``--profile``), the card's
-name and power limit, the kernels' JSON record (for each kernel the
-paths it launched in and its launches in each, its per-call times at
-the layered and flooding shapes), and ``{"ok": true, "device": {...}}``.
-No JAX is imported.
+each chain's timed run (and its profile with ``--profile``, which fails
+the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel),
+the card's name and power limit, the kernels' JSON record (for each
+kernel the paths it launched in and its launches in each, its per-call
+times at the layered and flooding shapes beside its plain version's and
+its bound), and ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
 from __future__ import annotations
 
@@ -96,31 +106,46 @@ import numpy as np
 import torch
 
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
-from ems_nbldpc_torch.decoder.flooding import (decode_flooding_hostloop,
+from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
+                                               decode_flooding_hostloop,
                                                syndrome_ok)
-from ems_nbldpc_torch.decoder.graph import DeviceGraph
-from ems_nbldpc_torch.decoder.layered import decode_layered_hostloop
+from ems_nbldpc_torch.decoder.graph import DeviceGraph, rotation_table
+from ems_nbldpc_torch.decoder.layered import (_layer_plan,
+                                              decode_layered_hostloop)
 from ems_nbldpc_torch.gf import get_gf
 from ems_nbldpc_torch.models.code import random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.ops import cuda_cn, cuda_spa
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
-from ems_nbldpc_torch.ops.minconv import ems_input_truncate, fb_checknode_topk
+from ems_nbldpc_torch.ops.minconv import (ems_input_truncate,
+                                          ems_output_saturate,
+                                          fb_checknode_topk, mask_invalid)
 from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig
 
 SLICE_ROWS = 1350          # rows per super-layer of the full-width code
 CODE_ROWS = 4050           # rows of the full-width code (one flooding call)
-KERNEL_SHAPES = [          # (T, dc, q, nm); the first four are the main
-    (16 * SLICE_ROWS, 4, 256, 32),      # paths' (layered 5 and 4, then
-    (128 * SLICE_ROWS, 4, 256, 32),     # flooding 5d and 4d), all timed
-    (16 * CODE_ROWS, 4, 256, 32),
+KERNEL_SHAPES = [          # (T, dc, q, nm) of the bare fb_checknode; the
+    (16 * SLICE_ROWS, 4, 256, 32),      # first four are the main paths'
+    (128 * SLICE_ROWS, 4, 256, 32),     # (layered 5 and 4, then flooding
+    (16 * CODE_ROWS, 4, 256, 32),       # 5d and 4d)
     (128 * CODE_ROWS, 4, 256, 32),
     (1000, 3, 16, 5),
     (333, 5, 64, 12),
     (77, 12, 256, 32),
 ]
+ROWS_ODD = [               # (T, G, dc, q, nm, truncate) of ems_rows beside
+    (1000, 50, 3, 16, 5, True),         # the main paths' shapes; all with
+    (333, 111, 5, 64, 12, True),        # padding slots and valid
+    (77, 11, 12, 256, 32, True),
+    (90, 9, 12, 16, 16, False),
+    (96, 8, 6, 128, 128, True),
+    (400, 20, 4, 256, 32, False),
+]
 KINDS = ("uniform", "ties")
+OFFSET = 0.3
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12   # H100 SXM: HBM3, f32 outside
+#                                           the tensor cores
 SPA_SHAPES = [             # (T, G, dc, q, padding); the first three are the
     (16 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),   # main paths' (layered 5b
     (128 * SLICE_ROWS, SLICE_ROWS, 4, 256, False),  # and 4b, flooding 5e),
@@ -136,15 +161,75 @@ SUMMARY = {}               # chain -> its timed run's numbers, printed last
 
 
 def kernel_input(t, dc, q, nm, kind, seed):
-    """Rows as the decoder hands them to the CN: seeded, then truncated to
-    each message's nm best.  "ties" draws integer levels 0..5, so equal
-    values are common inside and at the edge of every nm-best list."""
+    """Rows as the decoder hands them to the bare CN: seeded, then
+    truncated to each message's nm best.  "ties" draws integer levels 0..5,
+    so equal values are common inside and at the edge of every nm-best
+    list."""
     rng = np.random.default_rng(seed)
     if kind == "ties":
         v = rng.integers(0, 6, (t, dc, q)).astype(np.float32)
     else:
         v = rng.random((t, dc, q), dtype=np.float32) * 9
     return ems_input_truncate(torch.as_tensor(v, device="cuda"), nm).contiguous()
+
+
+def rows_input(t, dc, q, kind, seed):
+    """Unrotated min-normalised rows, as the decoders hand them to
+    ``ems_rows``, made on the card from ``seed`` ("ties": levels 0..5)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if kind == "ties":
+        v = torch.randint(0, 6, (t, dc, q), generator=gen, device="cuda"
+                          ).float()
+    else:
+        v = 9 * torch.rand((t, dc, q), generator=gen, device="cuda")
+    return v - v.min(dim=-1, keepdim=True).values
+
+
+def odd_tables(g, dc, q, seed):
+    """uint8 rotation tables [G, dc, q] and valid [G, dc] for random
+    coefficients with a few padding slots (coefficient 0)."""
+    rng = np.random.default_rng(seed)
+    coefs = rng.integers(1, q, (g, dc))
+    coefs[0, -1] = 0
+    coefs[rng.integers(0, g, 3), rng.integers(0, dc, 3)] = 0
+    gf = get_gf(q)
+    tabs = [torch.as_tensor(rotation_table(coefs, gf, d).reshape(g, dc, q)
+                            .astype(np.uint8), device="cuda")
+            for d in ("in", "out")]
+    return tabs[0], tabs[1], torch.as_tensor(coefs != 0, device="cuda")
+
+
+def old_route(x, rin, rout, valid, nm, offset, truncate):
+    """The route before the fused kernel: torch truncation, rotations,
+    mask, saturation and normalisation around the bare kernel."""
+    t, dc, q = x.shape
+    g = rin.shape[0]
+    v = x.reshape(t // g, g, dc, q)
+    if truncate:
+        v = ems_input_truncate(v, nm)
+    v = mask_invalid(torch.gather(v, -1, rin.expand_as(v)), valid)
+    out = cuda_cn.fb_checknode(v.reshape(t, dc, q), nm).reshape(v.shape)
+    out = torch.gather(out, -1, rout.expand_as(out))
+    if truncate:
+        out = ems_output_saturate(out, nm, offset)
+    return (out - out.min(dim=-1, keepdim=True).values).reshape(t, dc, q)
+
+
+def ems_bound_ms(t, g, dc, q, nm):
+    """The least time of one ``ems_rows`` call on an H100: its bytes (rows
+    in and out once, the uint8 tables once) at 3.35 TB/s against its
+    candidates (one f32 add and one min each, 3 (dc - 2) merges of nm x q
+    per row) at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    nbytes = 2 * 4 * t * dc * q + 2 * g * dc * q
+    ops = 2 * t * 3 * (dc - 2) * nm * q
+    return bound(nbytes, ops)
+
+
+def bound(nbytes, ops):
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def phase(name):
@@ -180,7 +265,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernel():
+def check_kernel(graph):
+    """3: the EMS kernel against its plain versions; returns the largest
+    error (0 when bit-exact) and {(path, T): times} at the main shapes."""
     phase("3 EMS kernel against plain")
     worst = 0.0
     for i, (t, dc, q, nm) in enumerate(KERNEL_SHAPES):
@@ -191,30 +278,74 @@ def check_kernel():
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             exact = torch.equal(got, want)
-            print(f"T={t} dc={dc} q={q} nm={nm} {kind}: bit-exact={exact} "
-                  f"max_abs_err={err}", flush=True)
+            print(f"fb_checknode T={t} dc={dc} q={q} nm={nm} {kind}: "
+                  f"bit-exact={exact} max_abs_err={err}", flush=True)
             check(exact, f"kernel != plain at {(t, dc, q, nm)} {kind}")
             worst = max(worst, err)
             del vr, got, want
+    layer = _layer_plan(graph, "cuda")[0]
+    rows = _cn_row_tables(graph, "cuda")
+    main = {"layered": (layer["rot_in8"], layer["rot_out8"], layer["valid"]),
+            "flooding": (rows["rot_in"], rows["rot_out"], rows["valid"])}
+    cases = [(path, f * main[path][0].shape[0], *main[path], 32, True)
+             for path in ("layered", "flooding") for f in (16, 128)]
+    for i, (t, g, dc, q, nm, truncate) in enumerate(ROWS_ODD):
+        cases.append(("odd", t, *odd_tables(g, dc, q, seed=i), nm, truncate))
+    for i, (path, t, rin, rout, valid, nm, truncate) in enumerate(cases):
+        for kind in KINDS:
+            _, dc, q = rin.shape
+            x = rows_input(t, dc, q, kind, seed=300 + i)
+            got = cuda_cn.ems_rows(x, rin, rout, valid, nm, OFFSET, truncate)
+            want = cuda_cn.ems_rows_plain(x, rin, rout, valid, nm, OFFSET,
+                                          truncate)
+            old = old_route(x, rin.long(), rout.long(), valid, nm, OFFSET,
+                            truncate)
+            torch.cuda.synchronize()
+            err = max(float((got - want).abs().max()),
+                      float((old - want).abs().max()))
+            exact = torch.equal(got, want) and torch.equal(old, want)
+            pad = 0 if valid is None else int((~valid).sum())
+            print(f"ems_rows {path} T={t} G={rin.shape[0]} dc={dc} q={q} "
+                  f"nm={nm} truncate={truncate} padding slots={pad} {kind}: "
+                  f"bit-exact={exact} (old route too) max_abs_err={err}",
+                  flush=True)
+            check(exact, f"ems_rows != plain at {path} T={t} {kind}")
+            worst = max(worst, err)
+            del x, got, want, old
     times = {}
-    for t, dc, q, nm in KERNEL_SHAPES[:4]:
-        vr = kernel_input(t, dc, q, nm, "uniform", seed=7)
-
-        def kern():
-            return cuda_cn.fb_checknode(vr, nm)
-
-        def plain():
-            return fb_checknode_topk(vr, nm)
-
-        # plain, kernel, kernel, plain: compare within one call only
-        p1 = time_ms(plain, 3)
-        k1 = time_ms(kern, 10)
-        k2 = time_ms(kern, 10)
-        p2 = time_ms(plain, 3)
-        times[t] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"T={t} dc={dc} q={q} nm={nm}: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms per call", flush=True)
-        del vr
+    for path, t, rin, rout, valid, nm, truncate in cases[:4]:
+        x = rows_input(t, 4, 256, "uniform", seed=7)
+        rin64, rout64 = rin.long(), rout.long()
+        vr = kernel_input(t, 4, 256, nm, "uniform", seed=7)
+        fns = {
+            "fused": lambda: cuda_cn.ems_rows(x, rin, rout, valid, nm, OFFSET,
+                                              truncate),
+            "old": lambda: old_route(x, rin64, rout64, valid, nm, OFFSET,
+                                     truncate),
+            "plain": lambda: cuda_cn.ems_rows_plain(x, rin, rout, valid, nm,
+                                                    OFFSET, truncate),
+            "bare": lambda: cuda_cn.fb_checknode(vr, nm),
+        }
+        reps = {"fused": 10, "bare": 10, "old": 3, "plain": 3}
+        got = collections.defaultdict(list)
+        # in turns, compared within one call only
+        for name in ("plain", "old", "fused", "bare", "bare", "fused", "old",
+                     "plain"):
+            got[name].append(time_ms(fns[name], reps[name]))
+        g = rin.shape[0]
+        b_ms, b_by = ems_bound_ms(t, g, 4, 256, nm)
+        times[(path, t)] = dict(
+            {k: sum(v) / 2 for k, v in got.items()}, bound=b_ms, bound_by=b_by)
+        print(f"{path} T={t} G={g} dc=4 q=256 nm={nm}: fused "
+              + " / ".join(f"{v:.4f}" for v in got["fused"])
+              + " ms, old route " + " / ".join(f"{v:.4f}" for v in got["old"])
+              + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+              + " ms, bare kernel "
+              + " / ".join(f"{v:.4f}" for v in got["bare"])
+              + f" ms per call; bound {b_ms:.4f} ms ({b_by}), fused at "
+              f"{100 * b_ms / times[(path, t)]['fused']:.2f}% of it",
+              flush=True)
+        del x, vr, rin64, rout64
     return worst, times
 
 
@@ -299,10 +430,16 @@ def check_spa_kernel():
         k1 = time_ms(kern, 10)
         k2 = time_ms(kern, 10)
         p2 = time_ms(plain, 3)
-        times[t] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        # bytes: rows in and out, the coefficients and both tables once;
+        # operations: two log2(q)-stage transforms per message and ~4 more
+        # per element (exp, log, product, normalisation)
+        b_ms, b_by = bound(
+            8 * mvc.numel() + 4 * coefs.numel() + t_tab.nbytes
+            + tinv_tab.nbytes, t * dc * q * (2 * int(np.log2(q)) + 4))
+        times[t] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
         print(f"F={t // g} T={t} G={g} dc={dc} q={q}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call",
-              flush=True)
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call; bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
         del mvc, mvc4, t_in, t_out
     return worst, times
 
@@ -339,13 +476,16 @@ def profile_batch(mc, tag, out_dir="profile_out"):
             busy += b - end
             end = b
     total = sum(by_name.values())
+    topk = sum(1 for e in kernels
+               if "gatherTopK" in e["name"] or "bitonicSort" in e["name"])
     print(f"wall {wall_us / 1e3:.3f} ms; {len(kernels)} kernels; device busy "
           f"{busy / 1e3:.3f} ms = {100 * busy / wall_us:.2f}% of wall "
-          f"(idle {100 - 100 * busy / wall_us:.2f}%)")
+          f"(idle {100 - 100 * busy / wall_us:.2f}%); torch.topk kernels "
+          f"(gatherTopK, bitonicSort) {topk}")
     for name, us in by_name.most_common(15):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     return {"wall_ms": round(wall_us / 1e3, 3),
-            "busy_pct": round(100 * busy / wall_us, 2)}
+            "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk}
 
 
 def run_chain(name, code, enc, dec, ebn0):
@@ -395,34 +535,43 @@ def read_launches() -> dict:
 
 
 def check_small_card_decodes():
-    """5f: the plain dense CN paths on the card against the same decodes
-    on the CPU, from one set of intrinsics made on the CPU."""
-    phase("5f dense min-conv CN and compressed dense-CN decoder, card vs CPU")
+    """5f: the plain dense CN paths and the min-sum route through the EMS
+    kernel on the card against the same decodes on the CPU (plain
+    versions there), from one set of intrinsics made on the CPU."""
+    phase("5f dense min-conv CN, compressed dense-CN decoder and min-sum "
+          "through the EMS kernel, card vs CPU")
     code = random_regular(96, 48, 16, seed=0)
     cfg = SimConfig(ebn0_db=1.5, frames_per_batch=64, encode="device")
     _, intr = MonteCarlo(code, cfg, device="cpu").gen(0)
     base = DecoderConfig(max_iters=15, cn="ems", nm=8, offset=0.3,
                          loop="host", storage="dense", dtype="float32")
-    for name, dec in (
+    for name, dec, per_step in (
             ("flooding minsum", dataclasses.replace(
-                base, schedule="flooding", cn="minsum", nm=0)),
+                base, schedule="flooding", cn="minsum", nm=0), 0),
             ("layered minsum", dataclasses.replace(base, cn="minsum", nm=0,
-                                                   cn_impl="auto")),
-            ("layered dense", dataclasses.replace(base, cn_impl="dense")),
+                                                   cn_impl="auto"), 0),
+            ("layered dense", dataclasses.replace(base, cn_impl="dense"), 0),
             ("layered compressed topk", dataclasses.replace(
-                base, cn_impl="topk", storage="compressed"))):
+                base, cn_impl="topk", storage="compressed"), 0),
+            ("flooding minsum pallas", dataclasses.replace(
+                base, schedule="flooding", cn="minsum", cn_impl="pallas"), 1),
+            ("layered minsum pallas", dataclasses.replace(
+                base, cn="minsum", cn_impl="pallas"), len(code.layers))):
         reset_launches()
         card = [x.cpu() for x in decode(code, intr.cuda(), dec)]
         launches = read_launches()
         host = decode(code, intr, dec)
         same = all(torch.equal(a, b) for a, b in zip(card, host))
+        steps = int(card[1].max())
         print(f"{name}: identical decisions/iterations/convergence {same}; "
-              f"iters max {int(card[1].max())} mean "
+              f"iters max {steps} mean "
               f"{float(card[1].float().mean()):.4f}, converged "
               f"{int(card[2].sum())}/64; launches {launches}", flush=True)
         check(same, f"{name}: card and CPU decodes differ")
-        check(int(card[1].max()) > 1, f"{name}: uninformative batch")
-        check(sum(launches.values()) == 0, f"{name}: launched {launches}")
+        check(steps > 1, f"{name}: uninformative batch")
+        check(launches == {"fb_checknode": per_step * steps,
+                           "spa_checknode": 0},
+              f"{name}: launched {launches} in {steps} steps")
 
 
 def free(mc):
@@ -456,14 +605,6 @@ def main(argv) -> int:
                     print(line.strip())
     print(f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    max_err, k_times = check_kernel()
-    spa_err, spa_times = check_spa_kernel()
-    k_ms, p_ms = k_times[KERNEL_SHAPES[1][0]]           # layered, F = 128
-    fk_ms, fp_ms = k_times[KERNEL_SHAPES[3][0]]         # flooding, F = 128
-    spa_k_ms, spa_p_ms = spa_times[SPA_SHAPES[1][0]]    # layered, F = 128
-    fspa_k_ms, fspa_p_ms = spa_times[SPA_SHAPES[2][0]]  # flooding, F = 16
-
-    phase("4 EMS chain")
     t0 = time.perf_counter()
     code = random_regular(8100, 4050, 256, dv=2, seed=0)
     n_layers = len(code.layers)
@@ -471,11 +612,22 @@ def main(argv) -> int:
           f"layers={n_layers} sizes={[len(x) for x in code.layers]} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(n_layers == LAYERS, f"{n_layers} super-layers, expected {LAYERS}")
+    check(all(len(x) == SLICE_ROWS for x in code.layers)
+          and code.m_rows == CODE_ROWS, "unexpected layer sizes")
+    graph = DeviceGraph.from_code(code)
+
+    max_err, k_times = check_kernel(graph)
+    spa_err, spa_times = check_spa_kernel()
+    k_main = k_times[("layered", 128 * SLICE_ROWS)]
+    k_flood = k_times[("flooding", 128 * CODE_ROWS)]
+    spa_main = spa_times[SPA_SHAPES[1][0]]              # layered, F = 128
+    spa_flood = spa_times[SPA_SHAPES[2][0]]             # flooding, F = 16
+
+    phase("4 EMS chain")
     paths = {"fb_checknode": {}, "spa_checknode": {}}
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
-    graph = DeviceGraph.from_code(code)
     dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
                         offset=0.3, cn_impl="pallas", loop="host",
                         storage="dense", dtype="float32")
@@ -504,6 +656,8 @@ def main(argv) -> int:
     check(same, "kernel and plain decodes differ")
     if "--profile" in argv:
         SUMMARY["EMS"]["profile"] = profile_batch(mc, "ems")
+        check(SUMMARY["EMS"]["profile"]["topk_kernels"] == 0,
+              "torch.topk kernels in the EMS chain's profile")
     free(mc)
     del mc, cw, intr, intr16
 
@@ -605,6 +759,8 @@ def main(argv) -> int:
     paths["spa_checknode"]["flooding SPA"] = l_k["spa_checknode"]
     if "--profile" in argv:
         SUMMARY["flooding EMS"]["profile"] = profile_batch(mc, "flooding")
+        check(SUMMARY["flooding EMS"]["profile"]["topk_kernels"] == 0,
+              "torch.topk kernels in the flooding EMS profile")
     free(mc)
     del mc, intr16
 
@@ -616,11 +772,19 @@ def main(argv) -> int:
         "name": "fb_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/fb_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/pallas_cn.py:138",
+        "entry_points": ["ems_rows", "fb_checknode"],
         "launches": sum(paths["fb_checknode"].values()),
         "paths": list(paths["fb_checknode"]),
         "launches_by_path": paths["fb_checknode"], "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms, "flooding_rows": KERNEL_SHAPES[3][0],
-        "flooding_ms": fk_ms, "flooding_plain_ms": fp_ms,
+        "rows": 128 * SLICE_ROWS, "ms": k_main["fused"],
+        "plain_ms": k_main["plain"], "old_route_ms": k_main["old"],
+        "bare_ms": k_main["bare"], "bound_ms": k_main["bound"],
+        "bound_by": k_main["bound_by"], "library_ms": None,
+        "flooding_rows": 128 * CODE_ROWS, "flooding_ms": k_flood["fused"],
+        "flooding_plain_ms": k_flood["plain"],
+        "flooding_old_route_ms": k_flood["old"],
+        "flooding_bare_ms": k_flood["bare"],
+        "flooding_bound_ms": k_flood["bound"],
     }, {
         "name": "spa_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/spa_checknode.cu",
@@ -628,9 +792,10 @@ def main(argv) -> int:
         "launches": sum(paths["spa_checknode"].values()),
         "paths": list(paths["spa_checknode"]),
         "launches_by_path": paths["spa_checknode"], "max_abs_err": spa_err,
-        "ms": spa_k_ms, "plain_ms": spa_p_ms,
-        "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": fspa_k_ms,
-        "flooding_plain_ms": fspa_p_ms,
+        "rows": SPA_SHAPES[1][0], "ms": spa_main[0], "plain_ms": spa_main[1],
+        "bound_ms": spa_main[2], "bound_by": spa_main[3], "library_ms": None,
+        "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": spa_flood[0],
+        "flooding_plain_ms": spa_flood[1], "flooding_bound_ms": spa_flood[2],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,15 +21,16 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from ..ops.cuda_cn import fb_checknode
+from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
 from ..ops.fht import (position_tables, spa_checknode_plain,
                        transpose_perm_tables)
 from ..ops.minconv import (delta_message, ems_input_truncate,
                            ems_output_saturate, fb_checknode_dense,
-                           fb_checknode_topk, mask_invalid)
+                           fb_checknode_topk)
 from .graph import DeviceGraph, rotate, rotation_table, upload
 
 
@@ -66,12 +67,12 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str) -> None:
     nm-truncated CN needs 1 <= nm <= q."""
     if cn == "syndrome":
         raise NotImplementedError(
-            "cn='syndrome' is not ported yet (ROADMAP Queue 1 item 6: the "
-            "syndrome CN)")
+            "cn='syndrome' is not ported yet (ROADMAP Queue 1: the syndrome "
+            "CN)")
     if cn_impl in ("bubble", "lbubble"):
         raise NotImplementedError(
-            f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1 item "
-            "8: exact bubble emulation)")
+            f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1: exact "
+            "bubble emulation)")
     if cn == "spa":
         return  # the SPA CN reads neither nm nor cn_impl, as in JAX
     if cn not in ("ems", "minsum"):
@@ -99,9 +100,25 @@ def _spa_tables(g: DeviceGraph, device: str) -> dict:
 
 
 @functools.lru_cache(maxsize=16)
+def _cn_row_tables(g: DeviceGraph, device: str) -> dict:
+    """The CUDA EMS check node's per-row tables: rot_in / rot_out
+    [M, dc, q] uint8 from the row coefficients (0 = padding: identity),
+    and valid [M, dc] bool (None for a regular code)."""
+    code = g.code
+    shape = code.row_coefs.shape + (g.q,)
+    tabs = {d: torch.as_tensor(rotation_table(code.row_coefs, code.gf, d)
+                               .reshape(shape).astype(np.uint8),
+                               device=device) for d in ("in", "out")}
+    valid = None if g.regular else torch.as_tensor(g.edge_valid_row,
+                                                   device=device)
+    return dict(rot_in=tabs["in"], rot_out=tabs["out"], valid=valid)
+
+
+@functools.lru_cache(maxsize=16)
 def _edge_rotations(g: DeviceGraph, device: str):
-    """Per-edge rotation tables (rot_in, rot_out), [E, q] int64 each; only
-    the flooding schedule reads them (layered.py keeps per-layer ones)."""
+    """Per-edge rotation tables (rot_in, rot_out), [E, q] int64 each, for
+    the plain torch CNs; only the flooding schedule reads them (layered.py
+    keeps per-layer ones)."""
     code = g.code
     return tuple(torch.as_tensor(rotation_table(code.edge_coef, code.gf, d),
                                  device=device) for d in ("in", "out"))
@@ -139,15 +156,27 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     mcv [F, E, q], min-normalized.  ``cn="spa"`` runs the hand-written
     CUDA SPA check node (``ops/cuda_spa.spa_checknode``; its plain version
     on CPU tensors, or on any device with ``plain_spa``).  Otherwise
-    ``cn_impl="pallas"`` runs the hand-written CUDA EMS check node
-    (``ops/cuda_cn.fb_checknode``; its plain version on CPU tensors), and
-    the rest the plain torch ``fb_checknode_topk`` or
-    ``fb_checknode_dense`` as ``use_topk`` picks.
+    ``cn_impl="pallas"`` runs the whole step (truncation, rotations,
+    padding mask, CN, saturation, normalisation) in the hand-written CUDA
+    EMS check node on the unrotated rows (``ops/cuda_cn.ems_rows``; its
+    plain version on CPU tensors), and the rest the plain torch
+    ``fb_checknode_topk`` or ``fb_checknode_dense`` as ``use_topk`` picks.
     """
     q = g.q
     f = vtoc.shape[0]
     dev = vtoc.device
     t = upload(g, str(dev))
+    if cn != "spa" and cn_impl == "pallas":
+        r = _cn_row_tables(g, str(dev))
+        # a padding slot reads edge E, which the mask replaces
+        src = vtoc if g.regular else torch.cat(
+            [vtoc, vtoc.new_zeros((f, 1, q))], dim=1)
+        rows = _rows_from_edges(g, src)                  # [F, M, dc, q]
+        fm, m, dc = rows.shape[:3]
+        out = ems_rows(rows.reshape(fm * m, dc, q), r["rot_in"],
+                       r["rot_out"], r["valid"], nm, offset,
+                       cn == "ems" and nm < q)
+        return _edges_from_rows(g, out.reshape(rows.shape))
     if cn == "ems" and nm < q:
         vtoc = ems_input_truncate(vtoc, nm)
     if cn == "spa":
@@ -170,12 +199,7 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     pad = delta_message((f, 1), q, vr.dtype, dev)
     vr_rows = _rows_from_edges(g, torch.cat([vr, pad], dim=1))
     valid = None if g.regular else t["edge_valid_row"][None]
-    if cn_impl == "pallas":
-        vr_rows = mask_invalid(vr_rows, valid)
-        fm, m, dc = vr_rows.shape[:3]
-        mcv_rows = fb_checknode(vr_rows.reshape(fm * m, dc, q), nm
-                                ).reshape(vr_rows.shape)
-    elif use_topk(cn, nm, q, cn_impl):
+    if use_topk(cn, nm, q, cn_impl):
         mcv_rows = fb_checknode_topk(vr_rows, nm, valid)
     else:
         mcv_rows = fb_checknode_dense(vr_rows, valid)

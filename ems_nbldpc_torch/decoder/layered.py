@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import listcn
-from ..ops.cuda_cn import fb_checknode
+from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
 from ..ops.fht import (position_tables, spa_checknode_plain,
                        transpose_perm_tables)
@@ -49,7 +49,8 @@ from .graph import DeviceGraph, rotate, rotation_table
 @functools.lru_cache(maxsize=16)
 def _layer_plan(g: DeviceGraph, device: str):
     """Per-layer index tensors on ``device``: gathers, the coefficients,
-    and their rotation tables (EMS: dense gathers; SPA: transform-domain
+    and their rotation tables (EMS: dense gathers, also as the uint8
+    [G, dc, q] tables of the CUDA check node; SPA: transform-domain
     permutations; list EMS: GF(2)-basis columns)."""
     e = g.n_edges
     n = g.code.n
@@ -70,13 +71,17 @@ def _layer_plan(g: DeviceGraph, device: str):
         coefs = g.code.row_coefs[rows]
         coefs_t = up(coefs, np.int32)
         t_in, t_out = position_tables(coefs_t, t_tab, tinv_tab)
+        rot_in, rot_out = (rotation_table(coefs, gf, d)
+                           for d in ("in", "out"))
         plans.append(dict(
             edge_ids=up(edge_ids),
             cols=up(cols),
             # None for full rows: the neutral-message mask is then a no-op
             valid=None if valid.all() else torch.as_tensor(valid, device=device),
-            rot_in=up(rotation_table(coefs, gf, "in")),
-            rot_out=up(rotation_table(coefs, gf, "out")),
+            rot_in=up(rot_in),
+            rot_out=up(rot_out),
+            rot_in8=up(rot_in.reshape(len(rows), dc, -1), np.uint8),
+            rot_out8=up(rot_out.reshape(len(rows), dc, -1), np.uint8),
             coefs=coefs_t,
             t_tab=t_tab, tinv_tab=tinv_tab, t_in=t_in, t_out=t_out,
             rc_in=up(listcn.mul_cols(gf, coefs), np.int32),
@@ -87,13 +92,12 @@ def _layer_plan(g: DeviceGraph, device: str):
 
 
 def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
-    """``rotated_cn(mvc, p)``: one super-layer's EMS / min-sum CN on the
-    min-normalized [F, G, dc, q] extrinsics of plan ``p`` (truncate,
-    rotate in, mask padded slots, F/B CN, rotate out; no saturation).
-    ``cn_impl="pallas"`` runs the hand-written CUDA check node
-    (``ops/cuda_cn.fb_checknode``; its plain version on CPU tensors);
-    otherwise ``use_topk`` picks the plain torch ``fb_checknode_topk`` or
-    the dense ``fb_checknode_dense``."""
+    """``rotated_cn(mvc, p)``: one super-layer's plain torch EMS / min-sum
+    CN on the min-normalized [F, G, dc, q] extrinsics of plan ``p``
+    (truncate, rotate in, mask padded slots, F/B CN, rotate out; no
+    saturation); ``use_topk`` picks ``fb_checknode_topk`` or the dense
+    ``fb_checknode_dense``.  (``cn_impl="pallas"`` takes the fused CUDA
+    step instead, in ``_make_dense_iteration``.)"""
     q = g.q
     check_supported(nm, q, cn, cn_impl)
     truncate = cn == "ems" and nm < q
@@ -105,9 +109,7 @@ def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
         mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
         vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
         vr = mask_invalid(vr.reshape(mvc.shape), p["valid"])
-        if cn_impl == "pallas":
-            mcv_r = fb_checknode(vr.reshape(f * gdim, dcdim, q), nm)
-        elif topk_cn:
+        if topk_cn:
             mcv_r = fb_checknode_topk(vr, nm)
         else:
             mcv_r = fb_checknode_dense(vr)
@@ -121,8 +123,11 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                           plain_spa=False):
     """The per-iteration CN sweep over all super-layers, dense CtoV:
     ``one_iteration(app, ctov, active)`` updates the state in place.
-    ``cn="ems"``/``"minsum"``: ``_make_rotated_cn``, then (EMS) output
-    saturation.  ``cn="spa"`` runs the hand-written CUDA SPA check node
+    ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
+    CUDA kernel does the whole CN step, normalisation included
+    (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); other
+    ``cn_impl``: ``_make_rotated_cn``, then (EMS) output saturation and
+    normalisation.  ``cn="spa"`` runs the hand-written CUDA SPA check node
     (``ops/cuda_spa.spa_checknode``; its plain version on CPU tensors);
     ``plain_spa`` forces the plain version on any device, for comparing
     the two.
@@ -138,11 +143,21 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                             p["t_tab"], p["tinv_tab"])
         return out.reshape(mvc.shape)
 
+    truncate = cn == "ems" and nm < q
+    fused = cn != "spa" and cn_impl == "pallas"   # ems_rows normalises
+
+    def fused_cn(mvc, p):
+        f, gdim, dcdim, _ = mvc.shape
+        out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
+                       p["rot_out8"], p["valid"], nm, offset, truncate)
+        return out.reshape(mvc.shape)
+
     if cn == "spa":
         check_node = spa_cn
+    elif fused:
+        check_node = fused_cn
     else:
         rotated_cn = _make_rotated_cn(g, nm, cn, cn_impl)
-        truncate = cn == "ems" and nm < q
 
         def check_node(mvc, p):
             mcv = rotated_cn(mvc, p)
@@ -156,7 +171,8 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
             mvc = app_rows - ctov_rows
             mvc = mvc - mvc.min(dim=-1, keepdim=True).values
             mcv = check_node(mvc, p)
-            mcv = mcv - mcv.min(dim=-1, keepdim=True).values
+            if not fused:
+                mcv = mcv - mcv.min(dim=-1, keepdim=True).values
             # freeze converged frames (their APP/CtoV stop changing)
             mcv = torch.where(act, mcv, ctov_rows)
             new_app = torch.where(act, mvc + mcv, app_rows)
