@@ -29,11 +29,18 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    fused kernel, the torch route around the bare kernel, the plain
    composition and the bare kernel in turns, beside the bound (bytes
    at 3.35 TB/s against candidates at 67 TFLOP/s);
-3b. SPA kernel against plain: ``ops/cuda_spa.spa_checknode`` against
-   ``fht.spa_checknode_plain`` at the main paths' shapes (layered F = 16
-   and 128 with G = 1350 coefficient rows, flooding F = 16 with
-   G = 4050) and at odd ones
-   (some with padding coefficients), on decoder-like and uniform inputs.
+3b. SPA kernel against plain, both entries.  The bare
+   ``ops/cuda_spa.spa_checknode`` against ``fht.spa_checknode_plain`` at
+   the main paths' shapes (layered F = 16 and 128 with G = 1350
+   coefficient rows, flooding F = 16 with G = 4050) and at odd ones (some
+   with padding coefficients), on decoder-like and uniform inputs.  The
+   fused super-layer step ``cuda_spa.spa_layer`` against
+   ``spa_layer_plain`` (and the pre-fusion torch route around the bare
+   kernel) on the real code's three layer plans at F = 16 and 128, and on
+   random layer tables with padded slots at odd shapes (q = 16 with
+   dc = 12, q = 4 with dc = 2 among them), from a decoder-like state (APP
+   one low-cost symbol per column and the rest 2..40, CtoV 0..10, the
+   padding column and edge 0) with about a quarter of the frames frozen.
    Tolerance: the kernel's butterflies and the plain version's matrix
    products sum in different orders, and the inverse transform cancels q
    terms of O(1) down to p, which leaves p an f32 error near 1e-7 of the
@@ -42,7 +49,13 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    past cost ~16, where both sides are rounding noise.  So: exp(-cost)
    within atol 1e-5 everywhere, costs within atol 1e-3 where the plain
    cost is <= 8 (the likely symbols, which decide), and padding lanes
-   exactly 0; prints the cost error by band, and both per-call times;
+   exactly 0; for the fused step the updated CtoV so, APP within 1e-3
+   where the plain CtoV is <= 8 (mvc is computed the same way on both
+   sides), and frozen frames, the layer's untouched columns and edges and
+   the padding column and edge equal bit for bit.  Prints the cost error
+   by band; times the fused step, the pre-fusion route, the plain step and
+   the bare kernel in turns at F = 16 and 128 beside the fused step's
+   bound, and the bare kernel against its plain version;
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer); checks that every kernel launch of the timed run
@@ -52,10 +65,12 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    with the plain torch CN gives identical decisions and iteration counts;
 4b. SPA chain at full width (the SPA row of ``bench.py``): layered SPA,
    20 iterations, dense f32, 1.8 dB, F = 128, 256 frames; checks SPA
-   kernel launches = 3 per step, avg_it < 20, FER <= 0.25;
-5b. SPA decode both ways: one batch of 16 frames through the kernel and
-   through the plain version: identical decisions and convergence,
-   iteration counts within 1 (differences printed);
+   kernel launches = 3 per step, all of them ``spa_layer``, avg_it < 20,
+   FER <= 0.25;
+5b. SPA decode both ways: one batch of 16 frames through the kernel
+   (``spa_layer``, 3 launches per step) and through the plain version (no
+   launch): identical decisions and convergence, iteration counts within
+   1 (differences printed);
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
    frames; checks no kernel launch (the list CN has no kernel yet),
@@ -68,7 +83,8 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    kernel (launches = 1 per step) and through the plain torch CN (no
    launch): identical decisions, iterations and convergence;
 5e. flooding SPA decode both ways: the same 16 frames through the SPA
-   kernel (launches = 1 per step) and through its plain version
+   kernel's bare entry (launches = 1 per step) and through its plain
+   version
    (``plain_spa``): identical decisions and convergence, iteration counts
    within 1 (differences printed);
 5f. the plain dense min-conv CN, the compressed dense-CN decoder and
@@ -85,7 +101,8 @@ Each chain runs once to warm up, then once timed with the launch counts
 set to 0 just before and read just after; both sides of 5d and 5e are
 counted the same way.  The last four lines are a compact JSON record of
 each chain's timed run (and its profile with ``--profile``, which fails
-the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel),
+the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel,
+or the SPA trace a kernel other than the fused SPA step's),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes beside its plain version's and
@@ -118,6 +135,7 @@ from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.ops import cuda_cn, cuda_spa
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
+from ems_nbldpc_torch.ops.cuda_spa import spa_layer, spa_layer_plain
 from ems_nbldpc_torch.ops.minconv import (ems_input_truncate,
                                           ems_output_saturate,
                                           fb_checknode_topk, mask_invalid)
@@ -155,6 +173,15 @@ SPA_SHAPES = [             # (T, G, dc, q, padding); the first three are the
     (77, 11, 12, 256, True),
 ]
 SPA_KINDS = ("decoder", "uniform")
+SPA_LAYER_ODD = [          # (F, G, dc, q, padded slots) of spa_layer on
+    (8, 250, 3, 16, 5),                 # random layer tables
+    (6, 111, 5, 64, 7),
+    (4, 11, 12, 256, 4),
+    (16, 9, 12, 16, 4),
+    (5, 50, 2, 4, 3),
+    (3, 40, 6, 128, 6),
+    (7, 30, 4, 32, 2),
+]
 SPA_COST_ATOL, SPA_COST_MAX, SPA_PROB_ATOL = 1e-3, 8.0, 1e-5
 LAYERS = 3
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
@@ -376,10 +403,206 @@ def spa_tables(q):
                  for x in transpose_perm_tables(get_gf(q)))
 
 
-def check_spa_kernel():
-    """3b: the SPA kernel against its plain version; returns the largest
-    cost error in the stated scope, and {T: (kernel ms, plain ms)} per
-    call at the main paths' shapes."""
+def spa_state(f, n1, e1, q, cols, edges, seed):
+    """A decoder-like layered state on the card, from ``seed``: CtoV
+    [F, e1, q] 0..10 and APP [F, n1, q] = X + CtoV on the layer's slots
+    (``cols``, ``edges``), X with one low-cost symbol (0..1) per column
+    and the rest 2..40, so that APP - CtoV is a decoder's extrinsic (a
+    decoder's APP holds the CtoV it subtracts); the padding column and
+    edge (the last) 0; active [F] with about a quarter of the frames frozen
+    (the first active, the last frozen)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    app = 2 + 38 * torch.rand((f, n1, q), generator=gen, device="cuda")
+    best = torch.randint(0, q, (f, n1, 1), generator=gen, device="cuda")
+    app.scatter_(-1, best, torch.rand((f, n1, 1), generator=gen,
+                                      device="cuda"))
+    ctov = 10 * torch.rand((f, e1, q), generator=gen, device="cuda")
+    app[:, -1] = 0
+    ctov[:, -1] = 0
+    cols, edges = cols.long(), edges.long()
+    app[:, cols] += ctov[:, edges]
+    active = torch.rand(f, generator=gen, device="cuda") >= 0.25
+    active[0], active[-1] = True, False
+    return app, ctov, active
+
+
+def odd_layer(g, dc, q, pads, seed):
+    """Random layer tables (cols, edges, coefs [G, dc] int32 on the card)
+    over N = G dc + 7 columns and E = G dc + 5 edges, ``pads`` slots
+    padded (column N, edge E, coefficient 0); returns them with N + 1 and
+    E + 1."""
+    rng = np.random.default_rng(seed)
+    n, e = g * dc + 7, g * dc + 5
+    cols = rng.permutation(n)[:g * dc].reshape(g, dc)
+    edges = rng.permutation(e)[:g * dc].reshape(g, dc)
+    coefs = rng.integers(1, q, (g, dc))
+    slots = rng.choice(g * dc, pads, replace=False)
+    cols.flat[slots], edges.flat[slots], coefs.flat[slots] = n, e, 0
+    up = [torch.as_tensor(x.astype(np.int32), device="cuda")
+          for x in (cols, edges, coefs)]
+    return (*up, n + 1, e + 1)
+
+
+def spa_old_route(app, ctov, active, cols, edges, coefs, t_tab, tinv_tab):
+    """The layered SPA super-layer before the fused kernel: torch gathers,
+    normalisations, freeze and scatters around the bare kernel."""
+    act = active[:, None, None, None]
+    app_rows = app[:, cols]
+    ctov_rows = ctov[:, edges]
+    mvc = app_rows - ctov_rows
+    mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+    f, g, dc, q = mvc.shape
+    mcv = cuda_spa.spa_checknode(mvc.reshape(f * g, dc, q), coefs, t_tab,
+                                 tinv_tab).reshape(mvc.shape)
+    mcv = mcv - mcv.min(dim=-1, keepdim=True).values
+    mcv = torch.where(act, mcv, ctov_rows)
+    new_app = torch.where(act, mvc + mcv, app_rows)
+    ctov[:, edges] = mcv
+    app[:, cols] = new_app
+
+
+def spa_layer_bound_ms(f_active, g, dc, q):
+    """The least time of one ``spa_layer`` call on an H100: the APP and
+    CtoV rows of the active frames read once and written once, the index
+    tables and transform tables once, at 3.35 TB/s, against two log2(q)
+    stage transforms and ~7 more operations (sub, exp, products, log, add)
+    a symbol at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    sym = f_active * g * dc * q
+    nbytes = 4 * 4 * sym + 3 * 4 * g * dc + 2 * q * q
+    return bound(nbytes, sym * (2 * int(np.log2(q)) + 7))
+
+
+def check_layer_case(label, state, tables, old=False):
+    """One ``spa_layer`` call against ``spa_layer_plain`` (and, with
+    ``old``, the pre-fusion route) on clones of ``state``; checks the
+    stated tolerances and bit-equality where nothing may change; returns
+    the cost error where the plain cost is <= SPA_COST_MAX."""
+    app, ctov, active = state
+    cols, edges, coefs, t_tab, tinv_tab = tables
+    runs = {"fused": spa_layer, "plain": spa_layer_plain}
+    if old:
+        runs["old"] = lambda *a: spa_old_route(*a[:3], cols.long(),
+                                               edges.long(), *a[5:])
+    out = {}
+    for name, fn in runs.items():
+        a, c = app.clone(), ctov.clone()
+        fn(a, c, active, cols, edges, coefs, t_tab, tinv_tab)
+        out[name] = (a, c)
+    torch.cuda.synchronize()
+    real = coefs != 0
+    cols_r, edges_r = cols[real].long(), edges[real].long()
+    touched_c = torch.zeros(app.shape[1], dtype=torch.bool, device="cuda")
+    touched_e = torch.zeros(ctov.shape[1], dtype=torch.bool, device="cuda")
+    touched_c[cols_r], touched_e[edges_r] = True, True
+    frozen = ~active
+    _, c_p = out["plain"]
+    want = c_p[active][:, edges_r]
+    likely = want <= SPA_COST_MAX
+    worst, line, ok = 0.0, [], True
+    for name in runs:
+        if name == "plain":
+            continue
+        a, c = out[name]
+        same = (torch.equal(a[frozen], app[frozen])
+                and torch.equal(c[frozen], ctov[frozen])
+                and torch.equal(a[:, ~touched_c], app[:, ~touched_c])
+                and torch.equal(c[:, ~touched_e], ctov[:, ~touched_e]))
+        got = c[active][:, edges_r]
+        diff = (got - want).abs()
+        cost_err = float(diff[likely].max()) if bool(likely.any()) else 0.0
+        prob_err = float((torch.exp(-got) - torch.exp(-want)).abs().max())
+        app_err = float((a[active][:, cols_r] - out["plain"][0][active][
+            :, cols_r]).abs()[likely].max()) if bool(likely.any()) else 0.0
+        finite = bool(torch.isfinite(a).all() and torch.isfinite(c).all())
+        line.append(f"{name}: cost err where plain <= 8 {cost_err:.3e}, "
+                    f"exp(-cost) err {prob_err:.3e}, APP err {app_err:.3e}, "
+                    f"frozen/untouched/padding bit-equal={same}")
+        ok = ok and (finite and same and cost_err <= SPA_COST_ATOL
+                     and prob_err <= SPA_PROB_ATOL
+                     and app_err <= SPA_COST_ATOL)
+        worst = max(worst, cost_err)
+    f, g, dc, q = app.shape[0], *cols.shape, app.shape[2]
+    pad = int((~real).sum())
+    print(f"spa_layer {label} F={f} G={g} dc={dc} q={q} frozen "
+          f"{int(frozen.sum())} padding slots={pad}: " + "; ".join(line),
+          flush=True)
+    check(ok, f"spa_layer != plain at {label}")
+    return worst
+
+
+def check_spa_layer(graph):
+    """3b, the fused entry: ``spa_layer`` against ``spa_layer_plain`` on
+    the real code's layer plans and on odd random tables; then the timings.
+    Returns (largest cost error, {F: times})."""
+    worst = 0.0
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1 = code.n + 1, graph.n_edges + 1
+    for f in (16, 128):
+        for k, p in enumerate(plans):
+            state = spa_state(f, n1, e1, code.q, p["cols"], p["edge_ids"],
+                              seed=400 + f + k)
+            worst = max(worst, check_layer_case(
+                f"layer {k}", state,
+                (p["cols32"], p["edge_ids32"], p["coefs"], p["t_tab"],
+                 p["tinv_tab"]), old=True))
+            del state
+    for i, (f, g, dc, q, pads) in enumerate(SPA_LAYER_ODD):
+        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, q, pads, seed=500 + i)
+        state = spa_state(f, n1o, e1o, q, cols, edges, seed=600 + i)
+        worst = max(worst, check_layer_case(
+            "odd", state, (cols, edges, coefs, *spa_tables(q)), old=True))
+    times = {}
+    p = plans[0]
+    tables = (p["cols32"], p["edge_ids32"], p["coefs"], p["t_tab"],
+              p["tinv_tab"])
+    cols64, edges64 = p["cols"], p["edge_ids"]
+    g, dc = p["cols32"].shape
+    q = code.q
+    for f in (16, 128):
+        app, ctov, _ = spa_state(f, n1, e1, q, cols64, edges64, seed=7)
+        active = torch.ones(f, dtype=torch.bool, device="cuda")
+        copies = {k: (app.clone(), ctov.clone()) for k in ("fused", "old",
+                                                          "plain")}
+        mvc = app[:, cols64] - ctov[:, edges64]
+        mvc = (mvc - mvc.min(dim=-1, keepdim=True).values).reshape(-1, dc, q)
+        fns = {
+            "fused": lambda: spa_layer(*copies["fused"], active, *tables),
+            "old": lambda: spa_old_route(*copies["old"], active, cols64,
+                                         edges64, *tables[2:]),
+            "plain": lambda: spa_layer_plain(*copies["plain"], active,
+                                             *tables),
+            "bare": lambda: cuda_spa.spa_checknode(mvc, *tables[2:]),
+        }
+        reps = {"fused": 10, "bare": 10, "old": 3, "plain": 3}
+        got = collections.defaultdict(list)
+        # in turns, compared within one call only
+        for name in ("plain", "old", "fused", "bare", "bare", "fused", "old",
+                     "plain"):
+            got[name].append(time_ms(fns[name], reps[name]))
+        b_ms, b_by = spa_layer_bound_ms(f, g, dc, q)
+        fused = sum(got["fused"]) / 2
+        times[f] = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                        bound_by=b_by)
+        print(f"spa_layer F={f} G={g} dc={dc} q={q}: fused "
+              + " / ".join(f"{v:.4f}" for v in got["fused"])
+              + " ms, old route " + " / ".join(f"{v:.4f}" for v in got["old"])
+              + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+              + " ms, bare kernel "
+              + " / ".join(f"{v:.4f}" for v in got["bare"])
+              + f" ms per call; bound {b_ms:.4f} ms ({b_by}), fused at "
+              f"{100 * b_ms / fused:.2f}% of it", flush=True)
+        del app, ctov, copies, mvc, fns
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def check_spa_kernel(graph):
+    """3b: the SPA kernel's two entries against their plain versions;
+    returns the largest cost error in the stated scope, {T: (bare kernel
+    ms, plain ms, bound ms, bound by)} per call at the bare entry's main
+    shapes, and the fused entry's {F: times}."""
     phase("3b SPA kernel against plain")
     worst = 0.0
     for i, (t, g, dc, q, padding) in enumerate(SPA_SHAPES):
@@ -401,7 +624,8 @@ def check_spa_kernel():
                              [real].max())
             pad_ok = bool((got[pad] == 0).all() and (want[pad] == 0).all())
             finite = bool(torch.isfinite(got).all())
-            print(f"T={t} G={g} dc={dc} q={q} {kind}: cost err where plain "
+            print(f"spa_checknode T={t} G={g} dc={dc} q={q} {kind}: cost "
+                  f"err where plain "
                   f"<= 4 / 8 / 12 / any: " + " / ".join(
                       f"{v:.3e}" for v in bands.values())
                   + f"; exp(-cost) err {prob_err:.3e}; padding lanes "
@@ -437,11 +661,12 @@ def check_spa_kernel():
             8 * mvc.numel() + 4 * coefs.numel() + t_tab.nbytes
             + tinv_tab.nbytes, t * dc * q * (2 * int(np.log2(q)) + 4))
         times[t] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
-        print(f"F={t // g} T={t} G={g} dc={dc} q={q}: kernel {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call; bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"spa_checknode F={t // g} T={t} G={g} dc={dc} q={q}: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per "
+              f"call; bound {b_ms:.4f} ms ({b_by})", flush=True)
         del mvc, mvc4, t_in, t_out
-    return worst, times
+    layer_err, layer_times = check_spa_layer(graph)
+    return max(worst, layer_err), times, layer_times
 
 
 def profile_batch(mc, tag, out_dir="profile_out"):
@@ -485,7 +710,9 @@ def profile_batch(mc, tag, out_dir="profile_out"):
     for name, us in by_name.most_common(15):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     return {"wall_ms": round(wall_us / 1e3, 3),
-            "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk}
+            "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
+            "spa_kernels": sorted({e["name"] for e in kernels
+                                   if "spa_" in e["name"]})}
 
 
 def run_chain(name, code, enc, dec, ebn0):
@@ -526,12 +753,15 @@ def run_chain(name, code, enc, dec, ebn0):
 
 
 def reset_launches():
-    cuda_cn.launches = cuda_spa.launches = 0
+    cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
 
 
 def read_launches() -> dict:
+    """Kernel launches by kernel; "spa_layer" is the part of the SPA
+    kernel's launches made by its fused entry."""
     return {"fb_checknode": cuda_cn.launches,
-            "spa_checknode": cuda_spa.launches}
+            "spa_checknode": cuda_spa.launches,
+            "spa_layer": cuda_spa.layer_launches}
 
 
 def check_small_card_decodes():
@@ -570,7 +800,7 @@ def check_small_card_decodes():
         check(same, f"{name}: card and CPU decodes differ")
         check(steps > 1, f"{name}: uninformative batch")
         check(launches == {"fb_checknode": per_step * steps,
-                           "spa_checknode": 0},
+                           "spa_checknode": 0, "spa_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -617,10 +847,10 @@ def main(argv) -> int:
     graph = DeviceGraph.from_code(code)
 
     max_err, k_times = check_kernel(graph)
-    spa_err, spa_times = check_spa_kernel()
+    spa_err, spa_times, layer_times = check_spa_kernel(graph)
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
     k_flood = k_times[("flooding", 128 * CODE_ROWS)]
-    spa_main = spa_times[SPA_SHAPES[1][0]]              # layered, F = 128
+    spa_main = layer_times[128]                         # layered, F = 128
     spa_flood = spa_times[SPA_SHAPES[2][0]]             # flooding, F = 16
 
     phase("4 EMS chain")
@@ -656,6 +886,7 @@ def main(argv) -> int:
     check(same, "kernel and plain decodes differ")
     if "--profile" in argv:
         SUMMARY["EMS"]["profile"] = profile_batch(mc, "ems")
+        SUMMARY["EMS"]["profile"].pop("spa_kernels")
         check(SUMMARY["EMS"]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the EMS chain's profile")
     free(mc)
@@ -665,7 +896,8 @@ def main(argv) -> int:
     spa_dec = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
                             loop="host", storage="dense", dtype="float32")
     mc, spa_res, spa_launches = run_chain("SPA", code, enc, spa_dec, 1.8)
-    check(spa_launches["spa_checknode"] == n_layers * spa_res.decoder_steps > 0
+    check(spa_launches["spa_checknode"] == spa_launches["spa_layer"]
+          == n_layers * spa_res.decoder_steps > 0
           and spa_launches["fb_checknode"] == 0,
           f"launches {spa_launches} for {spa_res.decoder_steps} decoder "
           f"steps")
@@ -675,19 +907,32 @@ def main(argv) -> int:
     intr16 = mc.gen(0)[1][:16].contiguous()
     outs = {}
     for plain in (False, True):
+        reset_launches()
         d, it, conv = decode_layered_hostloop(graph, intr16, 20, cn="spa",
                                               plain_spa=plain)
-        outs[plain] = (d.cpu(), it.cpu(), conv.cpu())
-    (d_k, it_k, c_k), (d_p, it_p, c_p) = outs[False], outs[True]
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(), read_launches())
+    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
     it_diff = (it_k - it_p).abs()
     print(f"F=16: identical decisions {torch.equal(d_k, d_p)}, convergence "
           f"{torch.equal(c_k, c_p)}; iters kernel {it_k.tolist()}, plain "
           f"{it_p.tolist()}; frames whose iteration counts differ: "
-          f"{int((it_diff > 0).sum())}", flush=True)
+          f"{int((it_diff > 0).sum())}; launches kernel {l_k}, plain {l_p}",
+          flush=True)
     check(torch.equal(d_k, d_p) and torch.equal(c_k, c_p)
           and int(it_diff.max()) <= 1, "SPA kernel and plain decodes differ")
+    check(l_k["spa_layer"] == l_k["spa_checknode"]
+          == n_layers * int(it_k.max()) > 0 and l_k["fb_checknode"] == 0
+          and sum(l_p.values()) == 0,
+          f"layered SPA launches {l_k} (plain {l_p}) for {int(it_k.max())} "
+          f"steps")
     if "--profile" in argv:
-        SUMMARY["SPA"]["profile"] = profile_batch(mc, "spa")
+        prof = profile_batch(mc, "spa")
+        names = prof.pop("spa_kernels")
+        print(f"SPA kernels in the trace: {names}", flush=True)
+        check(names and all("spa_row_kernel<8, true>" in n for n in names),
+              f"the SPA trace holds other SPA kernels than the fused step: "
+              f"{names}")
+        SUMMARY["SPA"]["profile"] = prof
     free(mc)
     del mc, intr16
 
@@ -701,6 +946,7 @@ def main(argv) -> int:
           f"launches {list_launches}: the list path has no kernel yet")
     if "--profile" in argv:
         SUMMARY["list-EMS"]["profile"] = profile_batch(mc, "list")
+        SUMMARY["list-EMS"]["profile"].pop("spa_kernels")
     free(mc)
     del mc
 
@@ -753,12 +999,14 @@ def main(argv) -> int:
           and int(it_diff.max()) <= 1,
           "flooding SPA kernel and plain decodes differ")
     check(l_k["spa_checknode"] == int(it_k.max()) > 0
+          and l_k["spa_layer"] == 0
           and l_k["fb_checknode"] == 0 and sum(l_p.values()) == 0,
           f"flooding SPA launches {l_k} (plain {l_p}) for "
           f"{int(it_k.max())} steps")
     paths["spa_checknode"]["flooding SPA"] = l_k["spa_checknode"]
     if "--profile" in argv:
         SUMMARY["flooding EMS"]["profile"] = profile_batch(mc, "flooding")
+        SUMMARY["flooding EMS"]["profile"].pop("spa_kernels")
         check(SUMMARY["flooding EMS"]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the flooding EMS profile")
     free(mc)
@@ -789,11 +1037,14 @@ def main(argv) -> int:
         "name": "spa_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/spa_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/fht.py:249",
+        "entry_points": ["spa_layer", "spa_checknode"],
         "launches": sum(paths["spa_checknode"].values()),
         "paths": list(paths["spa_checknode"]),
         "launches_by_path": paths["spa_checknode"], "max_abs_err": spa_err,
-        "rows": SPA_SHAPES[1][0], "ms": spa_main[0], "plain_ms": spa_main[1],
-        "bound_ms": spa_main[2], "bound_by": spa_main[3], "library_ms": None,
+        "rows": 128 * SLICE_ROWS, "ms": spa_main["fused"],
+        "plain_ms": spa_main["plain"], "old_route_ms": spa_main["old"],
+        "bare_ms": spa_main["bare"], "bound_ms": spa_main["bound"],
+        "bound_by": spa_main["bound_by"], "library_ms": None,
         "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": spa_flood[0],
         "flooding_plain_ms": spa_flood[1], "flooding_bound_ms": spa_flood[2],
     }]}))

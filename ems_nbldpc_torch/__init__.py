@@ -12,7 +12,8 @@ syndrome check and the error counters) with
 - EMS, dense f32 storage, ``cn_impl`` in {"topk", "pallas", "auto"};
   ``"pallas"`` selects the hand-written CUDA check node (``ops/cuda_cn.py``);
 - SPA via the Walsh-Hadamard transform, dense f32 storage, through the
-  hand-written CUDA SPA check node (``ops/cuda_spa.py``) on the card;
+  hand-written CUDA SPA kernel (``ops/cuda_spa.py``) on the card: on the
+  layered schedule the whole super-layer step in one launch;
 - truncated-list EMS with compressed CtoV storage, f32 or bf16.
 """
 

@@ -26,6 +26,8 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
                                        F/B, rotate back, saturate; SPA:
                                        rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
+For ``cn="spa"`` on the card the whole of it is one kernel launch
+(``ops/cuda_spa.spa_layer``), with no [F, G, dc, q] temporaries.
 """
 from __future__ import annotations
 
@@ -36,9 +38,8 @@ import torch
 
 from ..ops import listcn
 from ..ops.cuda_cn import ems_rows
-from ..ops.cuda_spa import spa_checknode
-from ..ops.fht import (position_tables, spa_checknode_plain,
-                       transpose_perm_tables)
+from ..ops.cuda_spa import spa_layer, spa_layer_plain
+from ..ops.fht import transpose_perm_tables
 from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            fb_checknode_dense, fb_checknode_topk,
                            mask_invalid, scatter_topk_dense, topk_message)
@@ -48,10 +49,11 @@ from .graph import DeviceGraph, rotate, rotation_table
 
 @functools.lru_cache(maxsize=16)
 def _layer_plan(g: DeviceGraph, device: str):
-    """Per-layer index tensors on ``device``: gathers, the coefficients,
-    and their rotation tables (EMS: dense gathers, also as the uint8
-    [G, dc, q] tables of the CUDA check node; SPA: transform-domain
-    permutations; list EMS: GF(2)-basis columns)."""
+    """Per-layer index tensors on ``device``: gathers (int64, and int32
+    copies for the SPA kernel), the coefficients, and their rotation
+    tables (EMS: dense gathers, also as the uint8 [G, dc, q] tables of the
+    CUDA check node; SPA: the code's transform-domain permutations; list
+    EMS: GF(2)-basis columns)."""
     e = g.n_edges
     n = g.code.n
     dc = g.code.dc_max
@@ -69,21 +71,21 @@ def _layer_plan(g: DeviceGraph, device: str):
         cols = np.concatenate([g.code.row_cols, np.full((1, dc), n)])[rows]
         valid = edge_ids < e
         coefs = g.code.row_coefs[rows]
-        coefs_t = up(coefs, np.int32)
-        t_in, t_out = position_tables(coefs_t, t_tab, tinv_tab)
         rot_in, rot_out = (rotation_table(coefs, gf, d)
                            for d in ("in", "out"))
         plans.append(dict(
             edge_ids=up(edge_ids),
             cols=up(cols),
+            edge_ids32=up(edge_ids, np.int32),
+            cols32=up(cols, np.int32),
             # None for full rows: the neutral-message mask is then a no-op
             valid=None if valid.all() else torch.as_tensor(valid, device=device),
             rot_in=up(rot_in),
             rot_out=up(rot_out),
             rot_in8=up(rot_in.reshape(len(rows), dc, -1), np.uint8),
             rot_out8=up(rot_out.reshape(len(rows), dc, -1), np.uint8),
-            coefs=coefs_t,
-            t_tab=t_tab, tinv_tab=tinv_tab, t_in=t_in, t_out=t_out,
+            coefs=up(coefs, np.int32),
+            t_tab=t_tab, tinv_tab=tinv_tab,
             rc_in=up(listcn.mul_cols(gf, coefs), np.int32),
             rc_out=up(listcn.mul_cols(gf, coefs, inverse=True), np.int32),
             shape=(len(rows), dc),
@@ -123,28 +125,32 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                           plain_spa=False):
     """The per-iteration CN sweep over all super-layers, dense CtoV:
     ``one_iteration(app, ctov, active)`` updates the state in place.
+    ``cn="spa"``: one ``ops/cuda_spa.spa_layer`` call per super-layer, the
+    whole step (gathers, normalisation, check node, freeze, write-back) in
+    one hand-written CUDA kernel launch (its plain version
+    ``spa_layer_plain`` on CPU tensors); ``plain_spa`` runs the plain
+    version on any device, for comparing the two.
     ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
     CUDA kernel does the whole CN step, normalisation included
     (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); other
     ``cn_impl``: ``_make_rotated_cn``, then (EMS) output saturation and
-    normalisation.  ``cn="spa"`` runs the hand-written CUDA SPA check node
-    (``ops/cuda_spa.spa_checknode``; its plain version on CPU tensors);
-    ``plain_spa`` forces the plain version on any device, for comparing
-    the two.
+    normalisation.
     """
     q = g.q
     check_supported(nm, q, cn, cn_impl)
 
-    def spa_cn(mvc, p):
-        if plain_spa:
-            return spa_checknode_plain(mvc, p["t_in"], p["t_out"])
-        f, gdim, dcdim, _ = mvc.shape
-        out = spa_checknode(mvc.reshape(f * gdim, dcdim, q), p["coefs"],
-                            p["t_tab"], p["tinv_tab"])
-        return out.reshape(mvc.shape)
+    if cn == "spa":
+        layer_step = spa_layer_plain if plain_spa else spa_layer
+
+        def spa_iteration(app, ctov, active):
+            for p in _layer_plan(g, str(app.device)):
+                layer_step(app, ctov, active, p["cols32"], p["edge_ids32"],
+                           p["coefs"], p["t_tab"], p["tinv_tab"])
+
+        return spa_iteration
 
     truncate = cn == "ems" and nm < q
-    fused = cn != "spa" and cn_impl == "pallas"   # ems_rows normalises
+    fused = cn_impl == "pallas"                   # ems_rows normalises
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
@@ -152,9 +158,7 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
                        p["rot_out8"], p["valid"], nm, offset, truncate)
         return out.reshape(mvc.shape)
 
-    if cn == "spa":
-        check_node = spa_cn
-    elif fused:
+    if fused:
         check_node = fused_cn
     else:
         rotated_cn = _make_rotated_cn(g, nm, cn, cn_impl)
