@@ -12,9 +12,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles both CUDA kernels with nvcc (sm_90a), one nvcc per
-   source, started together; prints the times and ptxas' register /
-   shared-memory report; then builds the full-width code;
+2. build: compiles both CUDA kernels and the device loop's graph helper
+   with nvcc (sm_90a), one nvcc per source, started together; prints the
+   times and ptxas' register / shared-memory report; then builds the
+   full-width code;
 3. EMS kernel against plain, bit for bit (``torch.equal``): the bare
    ``ops/cuda_cn.fb_checknode`` against ``minconv.fb_checknode_topk`` on
    truncated rows, and the fused step ``ops/cuda_cn.ems_rows`` against
@@ -58,30 +59,50 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    bound, and the bare kernel against its plain version;
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
-   per super-layer); checks that every kernel launch of the timed run
-   came from the decoder (3 per host-loop step), that the generated
-   codewords satisfy the syndrome, avg_it < 10 and FER <= 0.25;
-5. EMS determinism: one batch of 16 frames decoded with the kernel and
-   with the plain torch CN gives identical decisions and iteration counts;
+   per super-layer), the default ``loop="device"`` (one captured graph
+   per decode, ``decoder/device_loop``); checks that one loop (one
+   capture) served the timed run, which made no eager launch, that the
+   kernel counted on the card the loop's launches per step (3) times the
+   decoder steps, that the generated codewords satisfy the syndrome,
+   avg_it < 10 and FER <= 0.25;
+5. EMS determinism: one batch of 16 frames decoded (host loop) with the
+   kernel and with the plain torch CN gives identical decisions and
+   iteration counts;
 4b. SPA chain at full width (the SPA row of ``bench.py``): layered SPA,
-   20 iterations, dense f32, 1.8 dB, F = 128, 256 frames; checks SPA
-   kernel launches = 3 per step, all of them ``spa_layer``, avg_it < 20,
-   FER <= 0.25;
+   20 iterations, dense f32, 1.8 dB, F = 128, 256 frames, under the device
+   loop and the host loop in turns (device, host, host, device, each loop
+   with a MonteCarlo of its own); checks SPA kernel launches = 3 per step
+   (counted on the card), all of them ``spa_layer``, the same counts under
+   both loops, avg_it < 20, FER <= 0.25;
 5b. SPA decode both ways: one batch of 16 frames through the kernel
    (``spa_layer``, 3 launches per step) and through the plain version (no
    launch): identical decisions and convergence, iteration counts within
    1 (differences printed);
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
-   frames; checks no kernel launch (the list CN has no kernel yet),
-   avg_it < 10, FER <= 0.25;
+   frames, device loop; checks no kernel launch (the list CN has no kernel
+   yet), avg_it < 10, FER <= 0.25;
 4d. flooding EMS chain at full width: ``schedule="flooding"``, nm = 32,
    offset 0.3, ``cn_impl="pallas"``, 20 iterations, dense f32, 2.0 dB,
-   F = 128, 256 frames; checks EMS kernel launches = 1 per step (one call
-   on all F·M = 518,400 rows), no SPA launch, avg_it < 20, FER <= 0.25;
-5d. flooding EMS decode both ways: one batch of 16 frames through the
-   kernel (launches = 1 per step) and through the plain torch CN (no
-   launch): identical decisions, iterations and convergence;
+   F = 128, 256 frames, device loop; checks EMS kernel launches = 1 per
+   step (one call on all F·M = 518,400 rows), no SPA launch, avg_it < 20,
+   FER <= 0.25;
+6. the device loop against the host loop at full width, after each chain
+   on one batch of its intrinsics (F = 128): layered EMS through K1,
+   layered SPA through ``spa_layer``, list-EMS (plain torch), flooding EMS
+   through K1 and flooding SPA through the bare K2 (on the flooding
+   chain's batch).  A fresh loop decodes (its capture), then decodes
+   again after every table cache was emptied and the freed memory
+   refilled (the graph reads the tables its loop keeps), then the host
+   loop: decisions, iterations and convergence bit-equal; the loop's
+   launches per step 3, 3, 0, 1 and 1; the replay makes no eager launch
+   and the kernels count per step x steps on the card, as under the host
+   loop; prints one decode's wall time under each loop, and the memory
+   each loop's decode holds: its live peak and the allocator's reserved
+   growth (the graph pool's reserved bytes apart);
+5d. flooding EMS decode both ways (host loop): one batch of 16 frames
+   through the kernel (launches = 1 per step) and through the plain torch
+   CN (no launch): identical decisions, iterations and convergence;
 5e. flooding SPA decode both ways: the same 16 frames through the SPA
    kernel's bare entry (launches = 1 per step) and through its plain
    version
@@ -95,14 +116,36 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    (f32), and flooding and layered ``cn="minsum", cn_impl="pallas"``
    (nm = 8), each on the card and on the CPU (plain versions there):
    identical decisions, iterations and convergence; no kernel launch but
-   for the two ``pallas`` decodes (1 per flooding step, 1 per super-layer).
+   for the two ``pallas`` decodes (1 per flooding step, 1 per super-layer);
+6b. odd batches, F = 5, layered SPA and flooding EMS, each against the
+   host loop as in 6: uniform random costs (no frame converges: the budget
+   ends the loop, 20 steps) and the noiseless all-zero word (every frame
+   converges at init: no step runs, no launch);
+7. the CLI at full width: the code written as a UBS file with
+   ``models/tools.write_ubs``, then ``cli.main`` with the SPA row's
+   settings (``--cn spa --iters 20 --batch 128 --max-frames 256 --ebn0
+   1.8``, defaults otherwise: device loop, on the card) against
+   ``MonteCarlo.run`` of the same config and seed on ``load`` of that
+   file: frames, frame errors, bit errors and iteration sum equal.
 
-Each chain runs once to warm up, then once timed with the launch counts
-set to 0 just before and read just after; both sides of 5d and 5e are
-counted the same way.  The last four lines are a compact JSON record of
-each chain's timed run (and its profile with ``--profile``, which fails
+Each chain runs once to warm up (under the device loop: its capture),
+then once timed with the launch counts set to 0 just before and read just
+after; both sides of 5d and 5e are counted the same way.  Two counts are
+kept: the wrappers' eager launches (``cuda_cn.launches``,
+``cuda_spa.launches``) and the launches each kernel counts itself on the
+card (``device_launches()``), which a graph's replays move too; a
+host-loop run must show the same numbers in both.  After its timed run
+each chain times two more batches untraced (``batch_split``): each
+batch's host wall time, and its device time from CUDA events around gen,
+decode and count with the batch queued behind a spin kernel; the card's
+idle share is 1 - device time / wall.  Memory:
+the allocator's live peak and its reserved peak (the graph pool, which
+holds the replays' temporaries, inside the latter).  The last four lines
+are a compact JSON record of each chain's timed runs (and its profile with
+``--profile``, which traces a device-loop batch, counts its kernels
+against the loop's launches per step times the batch's steps, and fails
 the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel,
-or the SPA trace a kernel other than the fused SPA step's),
+or the SPA trace a kernel other than the fused SPA step's or none),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes beside its plain version's and
@@ -113,25 +156,32 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from ems_nbldpc_torch import cli
+from ems_nbldpc_torch.decoder import device_loop
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
 from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
                                                decode_flooding_hostloop,
                                                syndrome_ok)
-from ems_nbldpc_torch.decoder.graph import DeviceGraph, rotation_table
+from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
+                                            rotation_table)
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
                                               decode_layered_hostloop)
 from ems_nbldpc_torch.gf import get_gf
-from ems_nbldpc_torch.models.code import random_regular
+from ems_nbldpc_torch.models import tools
+from ems_nbldpc_torch.models.code import load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
+from ems_nbldpc_torch.models.formats import ParsedMatrix
 from ems_nbldpc_torch.ops import cuda_cn, cuda_spa
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
@@ -140,6 +190,7 @@ from ems_nbldpc_torch.ops.minconv import (ems_input_truncate,
                                           ems_output_saturate,
                                           fb_checknode_topk, mask_invalid)
 from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig
+from ems_nbldpc_torch.sim.sweep import result_filename
 
 SLICE_ROWS = 1350          # rows per super-layer of the full-width code
 CODE_ROWS = 4050           # rows of the full-width code (one flooding call)
@@ -670,18 +721,22 @@ def check_spa_kernel(graph):
 
 
 def profile_batch(mc, tag, out_dir="profile_out"):
-    """Trace one Monte-Carlo batch; print the device busy share and the
-    device time by kernel (from the exported chrome trace)."""
+    """Trace one Monte-Carlo batch, after an untraced one (which holds the
+    device loop's capture if the loop is new); print the device busy share
+    and the device time by kernel (from the exported chrome trace).
+    Returns them with the batch's decoder steps and the number of
+    ``ems_rows_kernel`` and ``spa_row_kernel`` launches in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     phase(f"profile one batch: {tag}")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"profile_batch_{tag}.json")
+    mc.step(0)[0].cpu()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mc.step(0)[0].cpu()
+        counters = mc.step(0)[0].cpu()
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -709,59 +764,180 @@ def profile_batch(mc, tag, out_dir="profile_out"):
           f"(gatherTopK, bitonicSort) {topk}")
     for name, us in by_name.most_common(15):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
+    traced = {k: sum(1 for e in kernels if k in e["name"])
+              for k in ("ems_rows_kernel", "spa_row_kernel")}
+    print(f"decoder steps {int(counters[5])}; kernels in the trace {traced}",
+          flush=True)
     return {"wall_ms": round(wall_us / 1e3, 3),
             "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
+            "steps": int(counters[5]), "traced": traced,
             "spa_kernels": sorted({e["name"] for e in kernels
                                    if "spa_" in e["name"]})}
 
 
-def run_chain(name, code, enc, dec, ebn0):
-    """Warm-up run, then a timed run of 256 frames at F = 128 with every
-    launch count set to 0 just before it.  Returns (MonteCarlo, result,
-    {kernel: launches})."""
-    cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
-                    stop_errors=10**9, encode="device", decoder=dec)
-    t0 = time.perf_counter()
-    mc = MonteCarlo(code, cfg, enc, device="cuda")
-    print(f"generator upload {time.perf_counter() - t0:.1f} s", flush=True)
-    warm = mc.run()
-    print(f"warm-up: {warm.frames} frames, FER {warm.frame_errors}/"
-          f"{warm.frames}, avg_it {warm.avg_iters:.3f}", flush=True)
+def check_traced(prof, kernel, per_step, what):
+    """The trace holds ``per_step`` launches of ``kernel`` per decoder step
+    of its batch (the device loop's replays, seen by the tracer)."""
+    check(prof["traced"][kernel] == per_step * prof["steps"] > 0,
+          f"{what}: {prof['traced'][kernel]} {kernel} in the trace for "
+          f"{prof['steps']} steps, expected {per_step} per step")
+
+
+SPIN_CYCLES = 10 ** 8      # ~50 ms of one spinning thread on an H100
+
+
+def batch_split(mc, batches=2):
+    """Untraced, for batches 0..``batches``-1: the batch step's host wall
+    time (gen, decode, count and the counters' copy to the host, called as
+    ``MonteCarlo.step`` calls them), then its device time: the same step
+    again behind a spin kernel that keeps the card busy while the host
+    queues the batch, with CUDA events around its gen, decode and count,
+    so that the spans hold no gap the host made.  That holds when the host
+    queued the whole batch within the spin ("queued"), which a step with a
+    host read inside (the host loop) cannot.  The card's idle share of a
+    batch is then 1 - device time / wall, given per batch (the host's
+    clock varies more than the card's).  Returns the means (ms), each
+    batch's device time (ms) and idle share (%), and whether every batch
+    was queued in time."""
+    got = collections.defaultdict(list)
+    queued = True
+    for b in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mc.step(b)[0].cpu()
+        got["wall"].append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        cw, intr = mc.gen(b)
+        ev[2].record()
+        decide, iters, conv = decode(mc.graph, intr, mc.cfg.decoder)
+        ev[3].record()
+        counters, _ = mc.count(decide, cw, iters, conv)
+        ev[4].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counters.cpu()
+        queued = queued and host_ms < ev[0].elapsed_time(ev[1])
+        for i, part in enumerate(("gen", "decode", "count"), start=1):
+            got[part].append(ev[i].elapsed_time(ev[i + 1]))
+    ms = {k: sum(v) / len(v) for k, v in got.items()}
+    device = [sum(got[k][b] for k in ("gen", "decode", "count"))
+              for b in range(batches)]
+    idle = [100 * (1 - d / w) for d, w in zip(device, got["wall"])]
+    print("untraced batch: " + ", ".join(
+        f"{k} " + " / ".join(f"{x:.3f}" for x in v) + " ms"
+        for k, v in got.items())
+        + "; device time " + " / ".join(f"{d:.3f}" for d in device)
+        + " ms; idle share " + " / ".join(f"{x:.2f}" for x in idle)
+        + f" % (queued within the spin: {queued})", flush=True)
+    return dict({k: round(v, 3) for k, v in ms.items()},
+                device=[round(d, 3) for d in device],
+                idle_pct=[round(x, 2) for x in idle], queued=queued)
+
+
+def run_chain(name, code, enc, dec, ebn0, mc=None):
+    """Warm-up run (skipped when ``mc`` is given: a second timed run), then
+    a timed run of 256 frames at F = 128 with every launch count set to 0
+    just before it, then ``batch_split``.  Checks that the timed run made
+    or replaced no device loop, and its launches: under the device loop
+    none eager and, counted by the kernels on the card, the loop's
+    launches per step times the decoder steps; under the host loop the
+    same numbers eager and on the card.  Memory: the allocator's live and
+    reserved peaks during the timed run (the device loop's graph pool is
+    reserved memory).  Returns (MonteCarlo, result, {kernel: launches
+    counted on the card})."""
+    if mc is None:
+        cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
+                        stop_errors=10**9, encode="device", decoder=dec)
+        t0 = time.perf_counter()
+        mc = MonteCarlo(code, cfg, enc, device="cuda")
+        print(f"generator upload {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        warm = mc.run()
+        print(f"warm-up ({dec.loop} loop; {time.perf_counter() - t0:.2f} s, "
+              f"capture included): {warm.frames} frames, FER "
+              f"{warm.frame_errors}/{warm.frames}, avg_it "
+              f"{warm.avg_iters:.3f}", flush=True)
     torch.cuda.synchronize()
+    loop = device_loop.last()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = mc.run()
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    launches, eager = read_launches(), read_eager()
+    live = torch.cuda.max_memory_allocated()
+    held = torch.cuda.max_memory_reserved()
+    lp = device_loop.last()
+    pool = lp.pool_bytes if lp is not None else 0
     lo, hi = res.fer_ci
     print(f"{name} timed: {res.frames} frames in {res.elapsed_s:.3f} s = "
           f"{res.frames_per_s:.3f} frames/s; avg_it {res.avg_iters:.4f}; "
           f"FER {res.frame_errors}/{res.frames} = {res.fer:.4f} "
           f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
-          f"{res.decoder_steps}; launches {launches}; peak memory "
-          f"{peak / 2**30:.3f} GiB", flush=True)
-    SUMMARY[name] = {"fps": round(res.frames_per_s, 3),
-                     "avg_it": round(res.avg_iters, 4),
-                     "fer": f"{res.frame_errors}/{res.frames}",
-                     "steps": res.decoder_steps,
-                     "peak_gib": round(peak / 2**30, 3)}
+          f"{res.decoder_steps}; launches counted by the kernels {launches}, "
+          f"eager {eager}; peak memory live {live / 2**30:.3f} GiB, "
+          f"reserved {held / 2**30:.3f} GiB (graph pool "
+          f"{pool / 2**30:.3f})", flush=True)
+    split = batch_split(mc)
+    SUMMARY.setdefault(name, []).append({
+        "loop": dec.loop, "fps": round(res.frames_per_s, 3),
+        "avg_it": round(res.avg_iters, 4),
+        "fer": f"{res.frame_errors}/{res.frames}",
+        "steps": res.decoder_steps, "live_gib": round(live / 2**30, 3),
+        "reserved_gib": round(held / 2**30, 3),
+        "pool_gib": round(pool / 2**30, 3), "untraced": split})
     check(res.frames == 256, f"{name}: {res.frames} frames, expected 256")
     check(res.avg_iters < dec.max_iters,
           f"{name}: avg_it {res.avg_iters} reached the budget")
     check(res.fer <= 0.25, f"{name}: FER {res.fer} > 0.25")
+    check(lp is loop, f"{name}: the timed run made a device loop")
+    if dec.loop == "device":
+        check(sum(eager.values()) == 0,
+              f"{name}: eager launches {eager} under the device loop")
+        check(launches == {k: v * res.decoder_steps
+                           for k, v in lp.per_step.items()},
+              f"{name}: launches {launches}, per step {lp.per_step}, "
+              f"{res.decoder_steps} steps")
+    else:
+        check(launches == eager, f"{name}: launches counted by the kernels "
+              f"{launches}, eager {eager}")
     return mc, res, launches
 
 
 def reset_launches():
+    """Set both kinds of launch counts to 0 (synchronises the card)."""
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
+    cuda_cn.reset_device_launches()
+    cuda_spa.reset_device_launches()
 
 
 def read_launches() -> dict:
-    """Kernel launches by kernel; "spa_layer" is the part of the SPA
+    """Kernel launches by kernel, counted by the kernels themselves on the
+    card (a graph's replays included); "spa_layer" is the part of the SPA
     kernel's launches made by its fused entry."""
+    spa, layer = cuda_spa.device_launches()
+    return {"fb_checknode": cuda_cn.device_launches(),
+            "spa_checknode": spa, "spa_layer": layer}
+
+
+def read_eager() -> dict:
+    """The wrappers' eager launches, by kernel as in ``read_launches``."""
     return {"fb_checknode": cuda_cn.launches,
             "spa_checknode": cuda_spa.launches,
             "spa_layer": cuda_spa.layer_launches}
+
+
+def read_host_launches(what) -> dict:
+    """The launches of host-loop work, where every launch is eager:
+    counted by the kernels on the card, and checked equal to the
+    wrappers' counts."""
+    launches, eager = read_launches(), read_eager()
+    check(launches == eager, f"{what}: launches counted by the kernels "
+          f"{launches}, eager {eager}")
+    return launches
 
 
 def check_small_card_decodes():
@@ -789,7 +965,7 @@ def check_small_card_decodes():
                 base, cn="minsum", cn_impl="pallas"), len(code.layers))):
         reset_launches()
         card = [x.cpu() for x in decode(code, intr.cuda(), dec)]
-        launches = read_launches()
+        launches = read_host_launches(name)
         host = decode(code, intr, dec)
         same = all(torch.equal(a, b) for a, b in zip(card, host))
         steps = int(card[1].max())
@@ -805,9 +981,173 @@ def check_small_card_decodes():
 
 
 def free(mc):
-    """Drop a MonteCarlo and its 4.2 GB generator matrix from the card."""
+    """Drop the device loops (state buffers and graph pools) and a
+    MonteCarlo's 4.2 GB generator matrix from the card."""
+    device_loop.clear()
     del mc._pmat
+    gc.collect()
     torch.cuda.empty_cache()
+
+
+def memory_mark():
+    """(allocated, reserved) bytes now, with the peaks reset to them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def check_loops(path, graph, intr, dec, per_step):
+    """6: one batch through a fresh ``loop="device"`` (its capture), again
+    through the same loop after every table cache was emptied and the
+    freed memory refilled, and through ``loop="host"``: decisions,
+    iterations and convergence bit-equal; the loop's launches per step as
+    expected; the replay makes no eager launch and its kernels count per
+    step x steps on the card, as the host loop's do eagerly and on the
+    card.  Prints the wall time of one decode under each loop (the
+    replay's and the host loop's), and each loop's memory: the live peak
+    and the reserved growth of its first decode (state, the step's
+    temporaries, and for the device loop its graph pool, reserved bytes
+    apart).  Returns the steps."""
+    phase(f"6 device loop vs host loop: {path}")
+    device_loop.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = {}
+    a0, r0 = memory_mark()
+    first = [x.cpu() for x in decode(graph, intr, dataclasses.replace(
+        dec, loop="device"))]
+    lp = device_loop.last()
+    mem["device"] = (torch.cuda.max_memory_allocated() - a0,
+                     torch.cuda.max_memory_reserved() - r0)
+    state = sum(t.nbytes for t in lp.state)
+    # the graph reads its tables by address: drop every cached table and
+    # hand the freed memory out again before the replay
+    clear_tables()
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << k,), -7, dtype=torch.int64, device="cuda")
+            for k in range(8, 27, 2) for _ in range(4)]
+    reset_launches()
+    t0 = time.perf_counter()
+    second = [x.cpu() for x in decode(graph, intr, dataclasses.replace(
+        dec, loop="device"))]
+    wall_device = time.perf_counter() - t0
+    counts = {"device": (read_launches(), read_eager())}
+    same_loop = device_loop.last() is lp
+    del junk
+    gc.collect()
+    torch.cuda.empty_cache()
+    a0, r0 = memory_mark()
+    reset_launches()
+    t0 = time.perf_counter()
+    host = [x.cpu() for x in decode(graph, intr, dataclasses.replace(
+        dec, loop="host"))]
+    wall_host = time.perf_counter() - t0
+    mem["host"] = (torch.cuda.max_memory_allocated() - a0,
+                   torch.cuda.max_memory_reserved() - r0)
+    counts["host"] = (read_launches(), read_eager())
+    same = all(torch.equal(a, b) for dev in (first, second)
+               for a, b in zip(dev, host))
+    steps = int(host[1].max())
+    want = {k: per_step.get(k, 0) * steps for k in counts["host"][0]}
+    none = {k: 0 for k in want}
+    gib = 2 ** 30
+    print(f"F={intr.shape[0]}: bit-equal decisions/iterations/convergence "
+          f"{same}; steps {steps}; converged {int(host[2].sum())}/"
+          f"{intr.shape[0]}; launches per step {lp.per_step}; launches "
+          f"counted by the kernels / eager: replay {counts['device'][0]} / "
+          f"{counts['device'][1]}, host loop {counts['host'][0]} / "
+          f"{counts['host'][1]}; one decode: device loop "
+          f"{wall_device * 1e3:.3f} ms, host loop {wall_host * 1e3:.3f} ms",
+          flush=True)
+    print(f"memory of a first decode: device loop live peak "
+          f"{mem['device'][0] / gib:.3f} GiB (its state "
+          f"{state / gib:.3f}), reserved growth {mem['device'][1] / gib:.3f} "
+          f"GiB of which graph pool {lp.pool_bytes / gib:.3f}; host loop "
+          f"live peak {mem['host'][0] / gib:.3f} GiB, reserved growth "
+          f"{mem['host'][1] / gib:.3f} GiB", flush=True)
+    SUMMARY.setdefault("memory", {})[path] = {
+        "device_live_gib": round(mem["device"][0] / gib, 3),
+        "device_reserved_gib": round(mem["device"][1] / gib, 3),
+        "state_gib": round(state / gib, 3),
+        "pool_gib": round(lp.pool_bytes / gib, 3),
+        "host_live_gib": round(mem["host"][0] / gib, 3),
+        "host_reserved_gib": round(mem["host"][1] / gib, 3)}
+    check(same, f"{path}: device and host loops differ")
+    check(same_loop, f"{path}: the second decode made a new loop")
+    check(lp.per_step == {k: per_step.get(k, 0) for k in lp.per_step},
+          f"{path}: launches per step {lp.per_step}, expected {per_step}")
+    check(counts["device"] == (want, none)
+          and counts["host"] == (want, want),
+          f"{path}: launches {counts} for {steps} steps")
+    return steps
+
+
+def check_odd_batches(code, decs):
+    """6b: a batch in which no frame converges (uniform random costs: the
+    budget ends the loop) and one in which every frame converges at init
+    (the all-zero word without noise: no step runs), F = 5, through each
+    of ``decs`` ({path: (config, launches per step)}) under both loops."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    noise = 10 * torch.rand((5, code.n, code.q), generator=gen,
+                            device="cuda")
+    noise -= noise.min(dim=-1, keepdim=True).values
+    clean = torch.full((5, code.n, code.q), 10.0, device="cuda")
+    clean[..., 0] = 0
+    graph = DeviceGraph.from_code(code)
+    for path, (dec, per_step) in decs.items():
+        for label, intr, steps in (("no frame converges", noise,
+                                    dec.max_iters),
+                                   ("all converge at init", clean, 0)):
+            got = check_loops(f"6b {path}, {label}", graph, intr, dec,
+                              per_step)
+            check(got == steps, f"6b {path} {label}: {got} steps, "
+                  f"expected {steps}")
+    device_loop.clear()
+
+
+def check_cli(code):
+    """7: the CLI at full width on the code written as a UBS file, with the
+    SPA row's settings, against ``MonteCarlo.run`` of the same config and
+    seed on ``load`` of that file: frames, frame errors, bit errors and
+    iteration sum equal."""
+    phase("7 CLI at full width")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "code_N8100_GF256.txt")
+        tools.write_ubs(ParsedMatrix(
+            code.n, code.m_rows, code.q,
+            [code.row_cols[r, :d] for r, d in enumerate(code.row_deg)],
+            [code.row_coefs[r, :d] for r, d in enumerate(code.row_deg)]),
+            path)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        rc = cli.main(["--matrix", path, "--cn", "spa", "--iters", "20",
+                       "--batch", "128", "--max-frames", "256", "--ebn0",
+                       "1.8", "--out", out, "--quiet"])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "results.jsonl")) as f:
+            (rec,) = [json.loads(line) for line in f]
+        device_loop.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = SimConfig(ebn0_db=1.8, frames_per_batch=128, max_frames=256,
+                        decoder=DecoderConfig(max_iters=20, cn="spa"))
+        loaded = load(path, name=path)
+        mc = MonteCarlo(loaded, cfg, device="cuda")
+        res = mc.run()
+        text = os.path.exists(os.path.join(out, result_filename(loaded,
+                                                                cfg)))
+        free(mc)
+    cli_counts = (rec["frames"], rec["frame_errors"], rec["bit_errors"],
+                  round(rec["avg_iters"] * rec["frames"]))
+    mc_counts = (res.frames, res.frame_errors, res.bit_errors, res.iter_sum)
+    print(f"cli rc {rc} in {seconds:.1f} s (load, encoder, capture and 256 "
+          f"frames): frames, frame errors, bit errors, iteration sum "
+          f"{cli_counts}; MonteCarlo.run {mc_counts}; text result file "
+          f"{text}", flush=True)
+    check(rc == 0 and text and cli_counts == mc_counts,
+          "the CLI's run differs from MonteCarlo.run")
 
 
 def main(argv) -> int:
@@ -821,19 +1161,26 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    if "--profile" in argv:
+        # start the tracer before any graph is instantiated: a graph made
+        # before the first trace had most of its kernels missing from it
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+
     phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
-                  for mod in (cuda_cn, cuda_spa)}
+                  for mod in (cuda_cn, cuda_spa, device_loop)}
         for name, fut in builds.items():
             _, seconds, log = fut.result()
             print(f"nvcc {name} {seconds:.2f} s")
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"both built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all three built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     code = random_regular(8100, 4050, 256, dv=2, seed=0)
@@ -859,8 +1206,8 @@ def main(argv) -> int:
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
     dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
-                        offset=0.3, cn_impl="pallas", loop="host",
-                        storage="dense", dtype="float32")
+                        offset=0.3, cn_impl="pallas", storage="dense",
+                        dtype="float32")
     mc, res, ems_launches = run_chain("EMS", code, enc, dec, 2.0)
     check(ems_launches["fb_checknode"] == n_layers * res.decoder_steps > 0
           and ems_launches["spa_checknode"] == 0,
@@ -872,36 +1219,54 @@ def main(argv) -> int:
     check(bool(torch.isfinite(intr).all()), "non-finite intrinsics")
     check(bool(syndrome_ok(graph, cw).all()), "a codeword fails H")
     print("all 128 codewords of batch 0 satisfy the syndrome", flush=True)
+    check_loops("layered EMS", graph, intr, dec, {"fb_checknode": n_layers})
 
     phase("5 EMS kernel vs plain decode at full width")
     intr16 = intr[:16].contiguous()
     outs = {}
     for impl in ("pallas", "topk"):
-        d, it, conv = decode(graph, intr16,
-                             dataclasses.replace(dec, cn_impl=impl))
+        d, it, conv = decode(graph, intr16, dataclasses.replace(
+            dec, cn_impl=impl, loop="host"))
         outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
     same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
     print(f"F=16: identical decisions/iterations/convergence: {same}; "
           f"iters {outs['pallas'][1].tolist()}", flush=True)
     check(same, "kernel and plain decodes differ")
     if "--profile" in argv:
-        SUMMARY["EMS"]["profile"] = profile_batch(mc, "ems")
-        SUMMARY["EMS"]["profile"].pop("spa_kernels")
-        check(SUMMARY["EMS"]["profile"]["topk_kernels"] == 0,
+        SUMMARY["EMS"][-1]["profile"] = profile_batch(mc, "ems")
+        SUMMARY["EMS"][-1]["profile"].pop("spa_kernels")
+        check(SUMMARY["EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the EMS chain's profile")
+        check_traced(SUMMARY["EMS"][-1]["profile"], "ems_rows_kernel",
+                     n_layers, "EMS trace")
     free(mc)
     del mc, cw, intr, intr16
 
-    phase("4b SPA chain")
+    phase("4b SPA chain, device loop and host loop in turns")
     spa_dec = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
-                            loop="host", storage="dense", dtype="float32")
+                            storage="dense", dtype="float32")
+    spa_host = dataclasses.replace(spa_dec, loop="host")
+    # device, host, host, device; a fresh MonteCarlo for each loop, so that
+    # each peak holds its own loop's memory only
     mc, spa_res, spa_launches = run_chain("SPA", code, enc, spa_dec, 1.8)
+    free(mc)
+    mc, host_res, host_launches = run_chain("SPA", code, enc, spa_host, 1.8)
+    run_chain("SPA", code, enc, spa_host, 1.8, mc=mc)
+    free(mc)
+    mc, spa_res2, _ = run_chain("SPA", code, enc, spa_dec, 1.8)
     check(spa_launches["spa_checknode"] == spa_launches["spa_layer"]
           == n_layers * spa_res.decoder_steps > 0
-          and spa_launches["fb_checknode"] == 0,
-          f"launches {spa_launches} for {spa_res.decoder_steps} decoder "
-          f"steps")
+          and spa_launches["fb_checknode"] == 0
+          and host_launches == spa_launches,
+          f"launches {spa_launches} (host loop {host_launches}) for "
+          f"{spa_res.decoder_steps} decoder steps")
+    check((spa_res.frame_errors, spa_res.iter_sum, spa_res.decoder_steps)
+          == (host_res.frame_errors, host_res.iter_sum,
+              host_res.decoder_steps),
+          "the SPA chain differs between the device and the host loop")
     paths["spa_checknode"]["layered SPA"] = spa_launches["spa_checknode"]
+    check_loops("layered SPA", graph, mc.gen(0)[1], spa_dec,
+                {"spa_checknode": n_layers, "spa_layer": n_layers})
 
     phase("5b SPA kernel vs plain decode at full width")
     intr16 = mc.gen(0)[1][:16].contiguous()
@@ -910,7 +1275,8 @@ def main(argv) -> int:
         reset_launches()
         d, it, conv = decode_layered_hostloop(graph, intr16, 20, cn="spa",
                                               plain_spa=plain)
-        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(), read_launches())
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
+                       read_host_launches("5b"))
     (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
     it_diff = (it_k - it_p).abs()
     print(f"F=16: identical decisions {torch.equal(d_k, d_p)}, convergence "
@@ -932,44 +1298,54 @@ def main(argv) -> int:
         check(names and all("spa_row_kernel<8, true>" in n for n in names),
               f"the SPA trace holds other SPA kernels than the fused step: "
               f"{names}")
-        SUMMARY["SPA"]["profile"] = prof
+        print(f"SPA trace under the device loop: idle "
+              f"{100 - prof['busy_pct']:.2f}% of its wall", flush=True)
+        check_traced(prof, "spa_row_kernel", n_layers, "SPA trace")
+        SUMMARY["SPA"][-1]["profile"] = prof
     free(mc)
     del mc, intr16
 
     phase("4c list-EMS chain")
     list_dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems",
-                             nm=32, offset=0.3, nboper=64, loop="host",
+                             nm=32, offset=0.3, nboper=64,
                              storage="compressed", dtype="bfloat16")
     mc, list_res, list_launches = run_chain("list-EMS", code, enc, list_dec,
                                             1.8)
     check(sum(list_launches.values()) == 0,
           f"launches {list_launches}: the list path has no kernel yet")
+    check_loops("layered list-EMS", graph, mc.gen(0)[1], list_dec, {})
     if "--profile" in argv:
-        SUMMARY["list-EMS"]["profile"] = profile_batch(mc, "list")
-        SUMMARY["list-EMS"]["profile"].pop("spa_kernels")
+        SUMMARY["list-EMS"][-1]["profile"] = profile_batch(mc, "list")
+        SUMMARY["list-EMS"][-1]["profile"].pop("spa_kernels")
     free(mc)
     del mc
 
     phase("4d flooding EMS chain")
     fl_dec = DecoderConfig(max_iters=20, schedule="flooding", cn="ems", nm=32,
-                           offset=0.3, cn_impl="pallas", loop="host",
-                           storage="dense", dtype="float32")
+                           offset=0.3, cn_impl="pallas", storage="dense",
+                           dtype="float32")
     mc, fl_res, fl_launches = run_chain("flooding EMS", code, enc, fl_dec,
                                         2.0)
     check(fl_launches["fb_checknode"] == fl_res.decoder_steps > 0
           and fl_launches["spa_checknode"] == 0,
           f"launches {fl_launches} for {fl_res.decoder_steps} decoder steps")
     paths["fb_checknode"]["flooding EMS"] = fl_launches["fb_checknode"]
+    intr = mc.gen(0)[1]
+    check_loops("flooding EMS", graph, intr, fl_dec, {"fb_checknode": 1})
+    fl_spa = DecoderConfig(max_iters=20, schedule="flooding", cn="spa")
+    check_loops("flooding SPA", graph, intr, fl_spa, {"spa_checknode": 1})
+    device_loop.clear()
+    del intr
 
     phase("5d flooding EMS kernel vs plain decode at full width")
     intr16 = mc.gen(0)[1][:16].contiguous()
     outs, fl_calls = {}, {}
     for impl in ("pallas", "topk"):
         reset_launches()
-        d, it, conv = decode(graph, intr16,
-                             dataclasses.replace(fl_dec, cn_impl=impl))
+        d, it, conv = decode(graph, intr16, dataclasses.replace(
+            fl_dec, cn_impl=impl, loop="host"))
         outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
-        fl_calls[impl] = read_launches()
+        fl_calls[impl] = read_host_launches("5d")
     same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
     steps16 = int(outs["pallas"][1].max())
     print(f"F=16: identical decisions/iterations/convergence: {same}; "
@@ -987,7 +1363,8 @@ def main(argv) -> int:
         reset_launches()
         d, it, conv = decode_flooding_hostloop(graph, intr16, 20, cn="spa",
                                                plain_spa=plain)
-        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(), read_launches())
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
+                       read_host_launches("5e"))
     (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
     it_diff = (it_k - it_p).abs()
     print(f"F=16: identical decisions {torch.equal(d_k, d_p)}, convergence "
@@ -1005,14 +1382,22 @@ def main(argv) -> int:
           f"{int(it_k.max())} steps")
     paths["spa_checknode"]["flooding SPA"] = l_k["spa_checknode"]
     if "--profile" in argv:
-        SUMMARY["flooding EMS"]["profile"] = profile_batch(mc, "flooding")
-        SUMMARY["flooding EMS"]["profile"].pop("spa_kernels")
-        check(SUMMARY["flooding EMS"]["profile"]["topk_kernels"] == 0,
+        SUMMARY["flooding EMS"][-1]["profile"] = profile_batch(mc,
+                                                               "flooding")
+        SUMMARY["flooding EMS"][-1]["profile"].pop("spa_kernels")
+        check(SUMMARY["flooding EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the flooding EMS profile")
+        check_traced(SUMMARY["flooding EMS"][-1]["profile"],
+                     "ems_rows_kernel", 1, "flooding EMS trace")
     free(mc)
     del mc, intr16
 
+    check_odd_batches(code, {
+        "layered SPA": (spa_dec, {"spa_checknode": n_layers,
+                                  "spa_layer": n_layers}),
+        "flooding EMS": (fl_dec, {"fb_checknode": 1})})
     check_small_card_decodes()
+    check_cli(code)
 
     print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))
     print(card)

@@ -6,15 +6,19 @@ same relative path as its counterpart.  The port imports ``torch`` and
 never ``jax``: the NumPy host layer (GF tables, parsers, code graph,
 encoder) is carried as its own copy.
 
-Ported so far, all on the layered schedule with the host loop: the
-Monte-Carlo chain (bit-matmul encoder, BPSK/AWGN, the decoder, the
-syndrome check and the error counters) with
-- EMS, dense f32 storage, ``cn_impl`` in {"topk", "pallas", "auto"};
-  ``"pallas"`` selects the hand-written CUDA check node (``ops/cuda_cn.py``);
+Ported so far: the CLI (``python -m ems_nbldpc_torch.cli``) and the Eb/N0
+sweep, and the Monte-Carlo chain (bit-matmul encoder, BPSK/AWGN, the
+decoder, the syndrome check and the error counters) on both schedules,
+each decode as one CUDA graph with on-device early exit
+(``loop="device"``, the default; ``decoder/device_loop.py``) or with the
+host loop, with
+- EMS / min-sum, dense f32 storage; ``cn_impl="pallas"`` selects the
+  hand-written CUDA check node (``ops/cuda_cn.py``);
 - SPA via the Walsh-Hadamard transform, dense f32 storage, through the
   hand-written CUDA SPA kernel (``ops/cuda_spa.py``) on the card: on the
   layered schedule the whole super-layer step in one launch;
-- truncated-list EMS with compressed CtoV storage, f32 or bf16.
+- layered compressed CtoV storage, f32 or bf16: the dense-CN decoder and
+  the truncated-list EMS path.
 """
 
 __version__ = "0.1.0"

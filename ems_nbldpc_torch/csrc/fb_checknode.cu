@@ -73,6 +73,10 @@ constexpr float INF_COST = 1e9f;          // ops/minconv.INF
 constexpr int NB = 2;                     // messages bisected side by side
 constexpr int MAX_WARPS = 4;              // warps (rows in flight) per block
 
+// Launches of ems_rows_kernel on this device, counted by the kernel itself,
+// so that the launches a CUDA graph replays count too (ems_rows_launches).
+__device__ unsigned long long g_launches = 0;
+
 struct Params {
   const float* x;
   float* out;
@@ -243,6 +247,7 @@ __device__ __forceinline__ void stage(const Params& p, float* X,
 template <int PER>
 __global__ void ems_rows_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int dc = p.dc, q = p.q, nm = p.nm, L = dc - 2;
@@ -538,6 +543,25 @@ int ems_rows_launch(const float* x, float* out, long long T, int dc, int q,
   if (q == 64) return launch<2>(p, stream);
   if (q == 128) return launch<4>(p, stream);
   return launch<8>(p, stream);
+}
+
+// The kernel's launches on the current device since the library was loaded
+// or last reset, into *out (counted on the device, graph replays included).
+// Synchronises the device.
+int ems_rows_launches(unsigned long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  return static_cast<int>(e);
+}
+
+// Set the count of ems_rows_launches to 0.  Synchronises the device.
+int ems_rows_reset_launches() {
+  const unsigned long long zero = 0;
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_launches, &zero, sizeof(zero));
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

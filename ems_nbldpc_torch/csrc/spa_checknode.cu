@@ -95,6 +95,11 @@ constexpr float kOutFloor = 1e-30f;
 constexpr int kSmemLimit = 232448;           // shared memory a block may use
 constexpr int kMaxWarps = 16;                // warps per block to try
 
+// Launches of spa_row_kernel on this device, [0] of the bare entry and [1]
+// of the fused one, counted by the kernel itself, so that the launches a
+// CUDA graph replays count too (spa_launches).
+__device__ unsigned long long g_launches[2] = {0, 0};
+
 struct Params {
   float* app;                  // fused: state [F, N+1, q]
   float* ctov;                 // fused: state [F, E+1, q]
@@ -444,6 +449,8 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
 template <int PER, bool FUSED>
 __global__ void spa_row_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_launches[FUSED ? 1 : 0], 1ULL);
   const int q = p.q;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -614,6 +621,25 @@ int spa_checknode_launch(const float* mvc, const int* coefs,
   p.vec16 = q % 4 == 0 && reinterpret_cast<uintptr_t>(mvc) % 16 == 0 &&
             reinterpret_cast<uintptr_t>(out) % 16 == 0;
   return dispatch<false>(p, stream);
+}
+
+// The kernel's launches on the current device since the library was loaded
+// or last reset: out[0] by spa_checknode_launch, out[1] by spa_layer_launch
+// (counted on the device, graph replays included).  Synchronises the device.
+int spa_launches(unsigned long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  return static_cast<int>(e);
+}
+
+// Set both counts of spa_launches to 0.  Synchronises the device.
+int spa_reset_launches() {
+  const unsigned long long zero[2] = {0, 0};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

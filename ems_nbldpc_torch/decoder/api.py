@@ -1,8 +1,8 @@
 """Decoder front-end: configuration + dispatch.
 
 ``DecoderConfig`` has the JAX package's fields and defaults, so a
-configuration carries across unchanged.  Ported so far, all with the host
-loop (``loop="host"``):
+configuration carries across unchanged, and ``decode`` dispatches as the
+JAX package's does.  Ported so far:
 
 * both schedules (``"layered"``, ``"flooding"``) with dense float32
   storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
@@ -12,9 +12,14 @@ loop (``loop="host"``):
 * layered compressed storage, float32 or bfloat16: the dense-CN decoder
   for ``cn_impl="topk"``, the truncated-list EMS CN for any other value.
 
-``loop="device"``, dense bfloat16 storage, ``cn="syndrome"`` and
-``cn_impl`` bubble | lbubble raise ``NotImplementedError`` naming their
-ROADMAP item.
+``loop="device"`` (the default) runs each decode as one replay of a
+captured CUDA graph with on-device early exit on the card, and the same
+schedule eagerly on the CPU (``device_loop``); ``loop="host"`` polls
+convergence on the host once per step.  The compressed dense-CN decoder
+(``cn_impl="topk"``) runs the host loop whatever ``loop`` says, as in JAX.
+
+Dense bfloat16 storage, ``cn="syndrome"`` and ``cn_impl`` bubble | lbubble
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ import dataclasses
 
 import torch
 
-from .flooding import decode_flooding_hostloop
+from .flooding import decode_flooding, decode_flooding_hostloop
 from .graph import DeviceGraph
-from .layered import (decode_layered_compressed, decode_layered_hostloop,
+from .layered import (decode_layered, decode_layered_compressed,
+                      decode_layered_hostloop, decode_layered_list,
                       decode_layered_list_hostloop)
 
 
@@ -43,7 +49,7 @@ class DecoderConfig:
     #                             auto; bubble | lbubble are not ported yet.
     #                             Compressed storage runs the dense-CN
     #                             decoder for topk, the list CN otherwise
-    loop: str = "device"        # device (not ported yet) | host
+    loop: str = "device"        # device (captured CUDA graph) | host
     storage: str = "dense"      # dense | compressed (nm-truncated CtoV,
     #                             layered only)
     syn_ncv: int = 45           # syndrome-CN family parameters (cn=
@@ -76,10 +82,6 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
         raise ValueError(
             "compressed storage is implemented for the layered schedule "
             "(the big-code path); use schedule='layered'")
-    if cfg.loop == "device":
-        raise NotImplementedError(
-            "loop='device' is not ported yet (ROADMAP Queue 1: device "
-            "loops); use loop='host'")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"dtype={cfg.dtype!r}")
     if cfg.storage == "dense" and cfg.dtype != "float32":
@@ -89,15 +91,18 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
     g = (code_or_graph if isinstance(code_or_graph, DeviceGraph)
          else DeviceGraph.from_code(code_or_graph))
     intrinsic = intrinsic.to(cfg.torch_dtype())
+    on_device = cfg.loop == "device"
     if cfg.storage == "compressed":
         if cfg.cn_impl == "topk":
             return decode_layered_compressed(
                 g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
                 dtype=cfg.torch_dtype())
-        return decode_layered_list_hostloop(
-            g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-            nboper=cfg.nboper, dtype=cfg.torch_dtype())
-    run = (decode_flooding_hostloop if cfg.schedule == "flooding"
-           else decode_layered_hostloop)
+        run = decode_layered_list if on_device else decode_layered_list_hostloop
+        return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
+                   nboper=cfg.nboper, dtype=cfg.torch_dtype())
+    if cfg.schedule == "flooding":
+        run = decode_flooding if on_device else decode_flooding_hostloop
+    else:
+        run = decode_layered if on_device else decode_layered_hostloop
     return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-               cn=cfg.cn, cn_impl=cfg.cn_impl)
+               cn=cfg.cn, cn_impl=cfg.cn_impl, nboper=cfg.nboper)

@@ -13,13 +13,12 @@ grouping, so decisions are bit-exact against the JAX package.
 
 Early termination: the per-frame syndrome check (``NB_LDPC.c:468-471``,
 ``tools.c:284-299``) becomes a convergence mask; decisions latch at the
-first syndrome-zero iteration, converged frames keep their CtoV, and
-``host_loop`` (shared with layered.py) stops when every frame has
-converged or the iteration budget is spent.
+first syndrome-zero iteration, converged frames keep their CtoV, and the
+loop stops when every frame has converged or the iteration budget is
+spent: ``host_loop`` (shared with layered.py) polls on the host,
+``decode_flooding`` runs ``device_loop``'s captured graph.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -31,7 +30,9 @@ from ..ops.fht import (position_tables, spa_checknode_plain,
 from ..ops.minconv import (delta_message, ems_input_truncate,
                            ems_output_saturate, fb_checknode_dense,
                            fb_checknode_topk)
-from .graph import DeviceGraph, rotate, rotation_table, upload
+from . import device_loop
+from .graph import (DeviceGraph, device_tables, rotate, rotation_table,
+                    upload)
 
 
 def syndrome_ok(g: DeviceGraph, decide: torch.Tensor) -> torch.Tensor:
@@ -61,6 +62,13 @@ def use_topk(cn: str, nm: int, q: int, cn_impl: str) -> bool:
     return cn == "ems" and 0 < nm <= q // 2
 
 
+def truncates(cn: str, nm: int, q: int) -> bool:
+    """Whether the CN truncates its inputs to their nm best and saturates
+    its outputs: EMS with 0 < nm < q (``nm = 0``: no truncation, the
+    ``DecoderConfig`` meaning, so EMS is then the exact min-sum CN)."""
+    return cn == "ems" and 0 < nm < q
+
+
 def check_supported(nm: int, q: int, cn: str, cn_impl: str) -> None:
     """Raise for a CN configuration the port does not run (either
     schedule): the syndrome and bubble CNs are not ported yet, and an
@@ -79,14 +87,23 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str) -> None:
         raise ValueError(f"cn={cn!r}")
     if cn_impl not in ("pallas", "topk", "auto", "dense", "list"):
         raise ValueError(f"cn_impl={cn_impl!r}")
-    truncated = (cn == "ems" or cn_impl == "pallas"
+    truncated = (cn == "ems" and nm != 0 or cn_impl == "pallas"
                  or use_topk(cn, nm, q, cn_impl))
     if truncated and not 1 <= nm <= q:
         raise ValueError(f"cn={cn!r}, cn_impl={cn_impl!r} needs 1 <= nm <= "
                          f"q, got nm={nm}, q={q}")
 
 
-@functools.lru_cache(maxsize=16)
+def decision_buffers(intrinsic):
+    """Empty (decide [F, N] int64, conv [F] bool, iters [F] int32)."""
+    f, n = intrinsic.shape[:2]
+    dev = intrinsic.device
+    return (torch.empty((f, n), dtype=torch.int64, device=dev),
+            torch.empty(f, dtype=torch.bool, device=dev),
+            torch.empty(f, dtype=torch.int32, device=dev))
+
+
+@device_tables
 def _spa_tables(g: DeviceGraph, device: str) -> dict:
     """The SPA CN's row coefficients [M, dc] int32 (0 = padding), the
     code's ``transpose_perm_tables`` and their per-position tables."""
@@ -99,7 +116,7 @@ def _spa_tables(g: DeviceGraph, device: str) -> dict:
                 t_out=t_out)
 
 
-@functools.lru_cache(maxsize=16)
+@device_tables
 def _cn_row_tables(g: DeviceGraph, device: str) -> dict:
     """The CUDA EMS check node's per-row tables: rot_in / rot_out
     [M, dc, q] uint8 from the row coefficients (0 = padding: identity),
@@ -114,7 +131,7 @@ def _cn_row_tables(g: DeviceGraph, device: str) -> dict:
     return dict(rot_in=tabs["in"], rot_out=tabs["out"], valid=valid)
 
 
-@functools.lru_cache(maxsize=16)
+@device_tables
 def _edge_rotations(g: DeviceGraph, device: str):
     """Per-edge rotation tables (rot_in, rot_out), [E, q] int64 each, for
     the plain torch CNs; only the flooding schedule reads them (layered.py
@@ -175,9 +192,9 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
         fm, m, dc = rows.shape[:3]
         out = ems_rows(rows.reshape(fm * m, dc, q), r["rot_in"],
                        r["rot_out"], r["valid"], nm, offset,
-                       cn == "ems" and nm < q)
+                       truncates(cn, nm, q))
         return _edges_from_rows(g, out.reshape(rows.shape))
-    if cn == "ems" and nm < q:
+    if truncates(cn, nm, q):
         vtoc = ems_input_truncate(vtoc, nm)
     if cn == "spa":
         # rotations folded into the transform; padding slots (edge E ->
@@ -204,7 +221,7 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     else:
         mcv_rows = fb_checknode_dense(vr_rows, valid)
     mcv = rotate(_edges_from_rows(g, mcv_rows), rot_out)
-    if cn == "ems" and nm < q:
+    if truncates(cn, nm, q):
         # output saturation: entries beyond the nm best are clamped to
         # (nm-th best + offset), the fill rule of bubble_decoder.c:262-278
         mcv = ems_output_saturate(mcv, nm, offset)
@@ -219,12 +236,13 @@ def make_flooding_stepper(
     cn_impl: str = "auto",
     plain_spa: bool = False,
 ):
-    """Host-loop flooding decoder: ``state = init_fn(intrinsic)``,
-    ``state = step_fn(state)``; state = (intrinsic, ctov_pad, decide,
-    conv, iters).  The intrinsic rides along unchanged (the JAX loop
-    closes over it); ``step_fn`` updates ctov_pad in place.
-    ``plain_spa`` is internal: it runs the SPA CN's plain version on the
-    card, for holding the kernel against it.
+    """Stepped flooding decoder: ``state = init_fn(intrinsic)``, ``state =
+    step_fn(state)``; state = (intrinsic, ctov_pad, decide, conv, iters).
+    The intrinsic rides along unchanged (the JAX loop closes over it);
+    ``init_fn(intrinsic, state)`` resets ``state`` in place, copying the
+    intrinsic into its buffer (the device loop's); ``step_fn`` updates
+    ctov_pad in place.  ``plain_spa`` is internal: it runs the SPA CN's
+    plain version on the card, for holding the kernel against it.
     """
     check_supported(nm, g.q, cn, cn_impl)
     e = g.n_edges
@@ -232,12 +250,19 @@ def make_flooding_stepper(
     def decisions(intrinsic, ctov_pad):
         return _vn_totals(g, intrinsic, ctov_pad).argmin(dim=-1)
 
-    def init_fn(intrinsic):
-        f, _, q = intrinsic.shape
-        ctov0 = intrinsic.new_zeros((f, e + 1, q))
-        d0 = decisions(intrinsic, ctov0)
-        iters0 = torch.zeros(f, dtype=torch.int32, device=intrinsic.device)
-        return intrinsic, ctov0, d0, syndrome_ok(g, d0), iters0
+    def init_fn(intrinsic, state=None):
+        if state is None:
+            f, _, q = intrinsic.shape
+            state = (intrinsic, intrinsic.new_empty((f, e + 1, q))
+                     ) + decision_buffers(intrinsic)
+        intr, ctov, decide, conv, iters = state
+        if intr is not intrinsic:
+            intr.copy_(intrinsic)
+        ctov.zero_()
+        decide.copy_(decisions(intr, ctov))
+        conv.copy_(syndrome_ok(g, decide))
+        iters.zero_()
+        return state
 
     def step_fn(state):
         intrinsic, ctov_pad, decide, conv, iters = state
@@ -276,8 +301,24 @@ def host_loop(init_fn, step_fn, intrinsic, max_iters):
 
 
 def decode_flooding_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
-                             cn="minsum", cn_impl="auto", plain_spa=False):
-    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+                             cn="minsum", cn_impl="auto", syn=None, nboper=0,
+                             plain_spa=False):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
+    ``syn`` and ``nboper`` are read by the syndrome and bubble CNs only,
+    which raise (not ported yet)."""
     return host_loop(
         *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        intrinsic, max_iters)
+
+
+def decode_flooding(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
+                    cn_impl="auto", syn=None, nboper=0):
+    """The JAX ``decode_flooding`` (a ``while_loop``): the same decode as
+    ``decode_flooding_hostloop``, as one replay of a captured CUDA graph on
+    the card (``device_loop``; the intrinsic is copied into the loop's own
+    buffer, which every step reads).  Returns (decide [F, N] int64, iters
+    [F] int32, converged [F] bool)."""
+    return device_loop.run(
+        ("flooding", g, nm, offset, cn, cn_impl),
+        lambda: make_flooding_stepper(g, nm, offset, cn, cn_impl),
         intrinsic, max_iters)

@@ -6,9 +6,15 @@ permutations (``RotationPlan``), a gather and a one-hot matmul, because a
 per-row gather is slow on a TPU.  On the GPU a gather along the last axis
 is a plain indexed load, so a rotation here is one ``torch.gather`` with a
 per-position ``[P, q]`` table (the JAX ``"gather"`` mode).
+
+The tables put on a device are cached (``device_tables``).  A captured
+CUDA graph reads them by address, so its owner keeps the ones its step
+used (``keep_tables``): the cache may drop them, the owner still holds
+them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -16,6 +22,46 @@ import numpy as np
 import torch
 
 from ..models.code import NBCode
+
+_CACHES = []                # every device_tables function
+_kept = None                # the dict of the innermost keep_tables block
+
+
+def device_tables(fn):
+    """``functools.lru_cache(maxsize=16)`` for a function of (graph,
+    device) that returns tables on the device; inside ``keep_tables(kept)``
+    every result it hands out is also kept in ``kept``."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+    _CACHES.append(cached)
+
+    @functools.wraps(fn)
+    def tables(*args):
+        out = cached(*args)
+        if _kept is not None:
+            _kept[id(out)] = out
+        return out
+
+    tables.cache_clear = cached.cache_clear
+    return tables
+
+
+@contextlib.contextmanager
+def keep_tables(kept: dict):
+    """Inside the block, the results of every ``device_tables`` call are
+    also put in ``kept`` (id -> tables), so that whoever holds ``kept``
+    keeps them alive."""
+    global _kept
+    outer, _kept = _kept, kept
+    try:
+        yield kept
+    finally:
+        _kept = outer
+
+
+def clear_tables() -> None:
+    """Empty every ``device_tables`` cache."""
+    for cached in _CACHES:
+        cached.cache_clear()
 
 
 def rotation_table(coefs: np.ndarray, gf, direction: str) -> np.ndarray:
@@ -79,7 +125,7 @@ class DeviceGraph:
         return self.code.n_edges
 
 
-@functools.lru_cache(maxsize=16)
+@device_tables
 def upload(g: DeviceGraph, device: str) -> dict:
     """The index arrays the device path reads, as int64 tensors on
     ``device`` (uploaded once per graph and device): the edge tables and

@@ -43,11 +43,13 @@ from ..ops.fht import transpose_perm_tables
 from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            fb_checknode_dense, fb_checknode_topk,
                            mask_invalid, scatter_topk_dense, topk_message)
-from .flooding import check_supported, host_loop, syndrome_ok, use_topk
-from .graph import DeviceGraph, rotate, rotation_table
+from . import device_loop
+from .flooding import (check_supported, decision_buffers, host_loop,
+                       syndrome_ok, truncates, use_topk)
+from .graph import DeviceGraph, device_tables, rotate, rotation_table
 
 
-@functools.lru_cache(maxsize=16)
+@device_tables
 def _layer_plan(g: DeviceGraph, device: str):
     """Per-layer index tensors on ``device``: gathers (int64, and int32
     copies for the SPA kernel), the coefficients, and their rotation
@@ -102,7 +104,7 @@ def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
     step instead, in ``_make_dense_iteration``.)"""
     q = g.q
     check_supported(nm, q, cn, cn_impl)
-    truncate = cn == "ems" and nm < q
+    truncate = truncates(cn, nm, q)
     topk_cn = use_topk(cn, nm, q, cn_impl)
 
     def rotated_cn(mvc, p):
@@ -149,7 +151,7 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
 
         return spa_iteration
 
-    truncate = cn == "ems" and nm < q
+    truncate = truncates(cn, nm, q)
     fused = cn_impl == "pallas"                   # ems_rows normalises
 
     def fused_cn(mvc, p):
@@ -194,11 +196,19 @@ def _step_decisions(g, app, decide, conv, iters, active):
     return decide, conv, iters + active.to(torch.int32)
 
 
-def _initial_decisions(g, app0):
-    f = app0.shape[0]
-    d0 = app0[:, :g.code.n].argmin(dim=-1)
-    iters0 = torch.zeros(f, dtype=torch.int32, device=app0.device)
-    return d0, syndrome_ok(g, d0), iters0
+def _reset(g, state, intrinsic):
+    """In place: APP (``state[0]``) = the intrinsic with the padding column
+    0 (``copy_`` rounds as ``.to(dtype)``), and the initial (decide, conv,
+    iters) in ``state[-3:]``; returns ``state``."""
+    app = state[0]
+    n = intrinsic.shape[1]
+    app[:, :n].copy_(intrinsic)
+    app[:, n:].zero_()
+    decide, conv, iters = state[-3:]
+    decide.copy_(app[:, :n].argmin(dim=-1))
+    conv.copy_(syndrome_ok(g, decide))
+    iters.zero_()
+    return state
 
 
 def make_layered_stepper(
@@ -209,22 +219,25 @@ def make_layered_stepper(
     cn_impl: str = "auto",
     plain_spa: bool = False,
 ):
-    """Host-loop decoder: ``state = init_fn(intrinsic)``,
-    ``state = step_fn(state)``; state = (app, ctov, decide, conv, iters).
-    ``step_fn`` updates app and ctov in place and returns the new state.
-    ``plain_spa`` is internal: it runs the SPA CN's plain version on the
-    card, for holding the kernel against it.
+    """Stepped decoder: ``state = init_fn(intrinsic)``, ``state =
+    step_fn(state)``; state = (app, ctov, decide, conv, iters).
+    ``init_fn(intrinsic, state)`` resets ``state`` in place (the device
+    loop's buffers); ``step_fn`` updates app and ctov in place and returns
+    the new state.  ``plain_spa`` is internal: it runs the SPA CN's plain
+    version on the card, for holding the kernel against it.
     """
     q, e = g.q, g.n_edges
     one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl,
                                           plain_spa)
 
-    def init_fn(intrinsic):
-        f = intrinsic.shape[0]
-        app0 = torch.nn.functional.pad(intrinsic, (0, 0, 0, 1))
-        ctov0 = torch.zeros((f, e + 1, q), dtype=intrinsic.dtype,
-                            device=intrinsic.device)
-        return (app0, ctov0) + _initial_decisions(g, app0)
+    def init_fn(intrinsic, state=None):
+        if state is None:
+            f, n = intrinsic.shape[:2]
+            state = (intrinsic.new_empty((f, n + 1, q)),
+                     intrinsic.new_empty((f, e + 1, q))
+                     ) + decision_buffers(intrinsic)
+        state[1].zero_()
+        return _reset(g, state, intrinsic)
 
     def step_fn(state):
         app, ctov, decide, conv, iters = state
@@ -237,10 +250,25 @@ def make_layered_stepper(
 
 
 def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
-                            cn="minsum", cn_impl="auto", plain_spa=False):
-    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+                            cn="minsum", cn_impl="auto", syn=None, nboper=0,
+                            plain_spa=False):
+    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
+    ``syn`` and ``nboper`` are read by the syndrome and bubble CNs only,
+    which raise (not ported yet)."""
     return host_loop(
         *make_layered_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        intrinsic, max_iters)
+
+
+def decode_layered(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
+                   cn_impl="auto", syn=None, nboper=0):
+    """The JAX ``decode_layered`` (a ``while_loop``): the same decode as
+    ``decode_layered_hostloop``, as one replay of a captured CUDA graph on
+    the card (``device_loop``).  Returns (decide [F, N] int64, iters [F]
+    int32, converged [F] bool)."""
+    return device_loop.run(
+        ("layered", g, nm, offset, cn, cn_impl),
+        lambda: make_layered_stepper(g, nm, offset, cn, cn_impl),
         intrinsic, max_iters)
 
 
@@ -249,14 +277,20 @@ def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration):
     cv_sat, decide, conv, iters), updated in place by ``one_iteration``."""
     e = g.n_edges
 
-    def init_fn(intrinsic):
-        f, dev = intrinsic.shape[0], intrinsic.device
-        app0 = torch.nn.functional.pad(intrinsic.to(dtype), (0, 0, 0, 1))
-        cv_v = torch.zeros((f, e + 1, nm), dtype=dtype, device=dev)
-        cv_g = torch.arange(nm, dtype=torch.uint8, device=dev).repeat(
-            f, e + 1, 1)
-        cv_sat = torch.zeros((f, e + 1), dtype=dtype, device=dev)
-        return (app0, cv_v, cv_g, cv_sat) + _initial_decisions(g, app0)
+    def init_fn(intrinsic, state=None):
+        if state is None:
+            f, n, q = intrinsic.shape
+            new = functools.partial(torch.empty, device=intrinsic.device)
+            state = (new((f, n + 1, q), dtype=dtype),
+                     new((f, e + 1, nm), dtype=dtype),
+                     new((f, e + 1, nm), dtype=torch.uint8),
+                     new((f, e + 1), dtype=dtype)
+                     ) + decision_buffers(intrinsic)
+        _, cv_v, cv_g, cv_sat = state[:4]
+        cv_v.zero_()
+        cv_g.copy_(torch.arange(nm, dtype=torch.uint8, device=cv_g.device))
+        cv_sat.zero_()
+        return _reset(g, state, intrinsic)
 
     def step_fn(state):
         app, cv_v, cv_g, cv_sat, decide, conv, iters = state
@@ -397,4 +431,15 @@ def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
     return host_loop(
         *make_layered_list_stepper(g, nm, offset, nboper, dtype),
+        intrinsic, max_iters)
+
+
+def decode_layered_list(g, intrinsic, max_iters, nm, offset=0.3, nboper=0,
+                        dtype=torch.bfloat16):
+    """The JAX ``decode_layered_list`` (a ``while_loop``): the same decode as
+    ``decode_layered_list_hostloop`` through ``device_loop``.  Returns
+    (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    return device_loop.run(
+        ("layered_list", g, nm, offset, nboper, dtype),
+        lambda: make_layered_list_stepper(g, nm, offset, nboper, dtype),
         intrinsic, max_iters)

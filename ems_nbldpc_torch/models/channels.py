@@ -50,6 +50,13 @@ def bit_matrix(q: int) -> np.ndarray:
     return get_gf(q).bits(np.arange(q)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_table(q: int, device: torch.device) -> torch.Tensor:
+    """``bit_matrix(q)`` on ``device``, uploaded once: a copy from host
+    memory waits for the device, which a per-batch upload would do."""
+    return torch.as_tensor(bit_matrix(q), device=device)
+
+
 def bpsk_awgn(gen: torch.Generator, cw: torch.Tensor, q: int, sigma: float):
     """BPSK-modulate + AWGN; return (intrinsic_cost [F,N,q], y [F,N,m]).
 
@@ -73,7 +80,7 @@ def intrinsic_from_bpsk(y: torch.Tensor, q: int, sigma: float) -> torch.Tensor:
     It runs in full f32 only while ``torch.backends.cuda.matmul.allow_tf32``
     is False (PyTorch's default, set explicitly by ``sim/mc``).
     """
-    bmat = torch.as_tensor(bit_matrix(q), device=y.device)        # [q, m]
+    bmat = _bit_table(q, y.device)                                # [q, m]
     lin = (2.0 / (sigma * sigma)) * torch.matmul(y, bmat.T)
     return lin - lin.min(dim=-1, keepdim=True).values
 

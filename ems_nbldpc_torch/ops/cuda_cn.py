@@ -18,8 +18,11 @@ On a CUDA tensor each wrapper launches the kernel or raises; there is no
 fallback.  On a CPU tensor it runs the plain version, which the kernel
 matches bit for bit.  The kernel is compiled with ``nvcc`` for ``sm_90a``
 into ``ems_nbldpc_torch/build/`` at first use and loaded with ``ctypes``
-(``ops/_build.py``).  ``launches`` counts kernel launches (never plain
-calls).
+(``ops/_build.py``).  ``launches`` counts the wrappers' eager kernel
+launches (never plain calls; a stream capture records launches without
+making them, and ``decoder/device_loop`` restores the count after its
+capture).  ``device_launches()`` reads the count the kernel keeps itself
+on the card: one per launch, a CUDA graph's replays included.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from . import _build
 from .minconv import (ems_input_truncate, ems_output_saturate,
                       fb_checknode_topk)
 
-launches = 0  # kernel launches since import (reset it to 0 to count a run)
+launches = 0  # eager kernel launches since import (set to 0 to count a run)
 
 
 def build(verbose: bool = False) -> tuple[str, float, str]:
@@ -49,7 +52,32 @@ def _lib() -> ctypes.CDLL:
         i32, i32, ctypes.c_float, ptr,
     ]
     lib.ems_rows_launch.restype = i32
+    lib.ems_rows_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.ems_rows_launches.restype = i32
+    lib.ems_rows_reset_launches.argtypes = []
+    lib.ems_rows_reset_launches.restype = i32
     return lib
+
+
+def device_launches() -> int:
+    """The kernel's launches on the current card since its library was
+    loaded or ``reset_device_launches()``, counted by the kernel itself
+    (one thread of its first block adds one), so the launches a CUDA
+    graph replays count too.  Synchronises the card."""
+    n = ctypes.c_ulonglong()
+    err = _lib().ems_rows_launches(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"ems_rows: reading the launch count failed with "
+                           f"CUDA error {err}")
+    return n.value
+
+
+def reset_device_launches() -> None:
+    """Set ``device_launches()`` to 0.  Synchronises the card."""
+    err = _lib().ems_rows_reset_launches()
+    if err != 0:
+        raise RuntimeError(f"ems_rows: resetting the launch count failed "
+                           f"with CUDA error {err}")
 
 
 def smem_bytes(dc: int, q: int, nm: int) -> int:

@@ -21,9 +21,12 @@ fallback.  On a CPU tensor it runs the plain version.  The two agree to
 float rounding: the kernel's butterflies and the plain version's matrix
 products sum in different orders.  The kernel is compiled with ``nvcc``
 for ``sm_90a`` into ``ems_nbldpc_torch/build/`` at first use and loaded
-with ``ctypes`` (``ops/_build.py``).  ``launches`` counts kernel launches
-of both entries, ``layer_launches`` those of ``spa_layer`` (never plain
-calls).
+with ``ctypes`` (``ops/_build.py``).  ``launches`` counts the wrappers'
+eager kernel launches of both entries, ``layer_launches`` those of
+``spa_layer`` (never plain calls; a stream capture records launches
+without making them, and ``decoder/device_loop`` restores the counts after
+its capture).  ``device_launches()`` reads the counts the kernel keeps
+itself on the card: one per launch, a CUDA graph's replays included.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 from . import _build
 from .fht import position_tables, spa_checknode_plain
 
-launches = 0  # kernel launches since import (reset it to 0 to count a run)
+launches = 0  # eager kernel launches since import (set to 0 to count a run)
 layer_launches = 0  # the part of ``launches`` made by ``spa_layer``
 
 
@@ -57,7 +60,33 @@ def _lib() -> ctypes.CDLL:
         ptr,
     ]
     lib.spa_layer_launch.restype = i32
+    lib.spa_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.spa_launches.restype = i32
+    lib.spa_reset_launches.argtypes = []
+    lib.spa_reset_launches.restype = i32
     return lib
+
+
+def device_launches() -> tuple[int, int]:
+    """(launches of both entries, the part made by ``spa_layer``) of the
+    kernel on the current card since its library was loaded or
+    ``reset_device_launches()``, counted by the kernel itself (one thread
+    of its first block adds one), so the launches a CUDA graph replays
+    count too.  Synchronises the card."""
+    n = (ctypes.c_ulonglong * 2)()
+    err = _lib().spa_launches(n)
+    if err != 0:
+        raise RuntimeError(f"spa_checknode: reading the launch counts failed "
+                           f"with CUDA error {err}")
+    return n[0] + n[1], n[1]
+
+
+def reset_device_launches() -> None:
+    """Set ``device_launches()`` to (0, 0).  Synchronises the card."""
+    err = _lib().spa_reset_launches()
+    if err != 0:
+        raise RuntimeError(f"spa_checknode: resetting the launch counts "
+                           f"failed with CUDA error {err}")
 
 
 def smem_bytes(dc: int, q: int, fused: bool = False) -> int:

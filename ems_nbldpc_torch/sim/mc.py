@@ -1,10 +1,12 @@
 """Monte-Carlo FER/BER harness on torch tensors.
 
-Port of ``ems_nbldpc_tpu/sim/mc.py``'s split step: per batch, codeword +
-channel generation on the device, the host-loop decoder, then the error
-counters; the host accumulates scalar counters and applies the
-stop-at-K-erroneous-frames rule (reference ``NB_LDPC.c:250-511``).  The
-JAX package's fused single-program step has no counterpart here.
+Port of ``ems_nbldpc_tpu/sim/mc.py``: per batch, codeword + channel
+generation on the device, the decode, then the error counters; the host
+accumulates scalar counters and applies the stop-at-K-erroneous-frames rule
+(reference ``NB_LDPC.c:250-511``).  With the default ``loop="device"`` the
+decode is one replay of a captured CUDA graph (``decoder/device_loop``),
+the counterpart of the JAX package's fused batch step; generation and
+counting stay eager, so each batch keeps its own seeded generators.
 
 Randomness: batch ``b`` draws its info bits and its noise from two
 ``torch.Generator``s on the device, seeded from ``(SimConfig.seed, b)``
@@ -57,7 +59,8 @@ class SimResult:
     n: int = 0
     k: int = 0
     logq: int = 0
-    decoder_steps: int = 0         # host-loop steps, summed over batches
+    decoder_steps: int = 0         # decoder steps (a batch's largest
+    #                                iteration count), summed over batches
 
     @property
     def fer(self) -> float:
@@ -110,6 +113,10 @@ def config_key(cfg: SimConfig) -> str:
             f":er{ch.erasure_prob:g}:{ch.labeling}")
     dec = (f"{d.schedule}:{d.cn}:{d.cn_impl}:nm{d.nm}:off{d.offset:g}"
            f":op{d.nboper}:it{d.max_iters}:{d.storage}:{d.dtype}")
+    if d.cn == "syndrome":
+        dec += (f":syn{d.syn_ncv},{d.syn_d},{d.syn_shape},"
+                f"{d.syn_max_configs},{int(d.syn_bayes)},"
+                f"{int(d.syn_presort)},{d.syn_sat}")
     return (f"{chan}|{dec}|stop{cfg.stop_errors}|bch{cfg.fake_bch_t}"
             f"|enc:{cfg.encode}|col{COLORING_VERSION}")
 
@@ -159,17 +166,21 @@ def make_codeword_fn(code: NBCode, cfg: SimConfig,
         enc = gaussian_elimination(code)
     pmat_np = np.asarray(enc.bit_generator, np.uint8)
     perm = torch.as_tensor(np.asarray(enc.perm, np.int64))
+    perms = {}      # device -> perm there: a copy from host memory waits
+    #                 for the device, so it is made once, not per batch
 
     def encode_bits(info_bits, pmat):
         """info_bits: [F, k*logq] 0/1 (any dtype) -> codeword [F, N]."""
         dev = pmat.device
+        if dev not in perms:
+            perms[dev] = perm.to(dev)
         fb = info_bits.shape[0]
         bits = info_bits.to(device=dev, dtype=torch.float32)
         par_bits = torch.matmul(bits, pmat).to(torch.int64) & 1
         shifts = torch.arange(logq, device=dev)
         par_syms = (par_bits.reshape(fb, m, logq) << shifts).sum(-1)
         info_syms = (bits.to(torch.int64).reshape(fb, k, logq) << shifts).sum(-1)
-        p = perm.to(dev)
+        p = perms[dev]
         cw = torch.zeros((fb, n), dtype=torch.int64, device=dev)
         cw[:, p[:m]] = par_syms
         cw[:, p[m:]] = info_syms
@@ -184,8 +195,10 @@ def make_codeword_fn(code: NBCode, cfg: SimConfig,
 
 
 class MonteCarlo:
-    """Host-side accumulation loop with early stopping over the split step:
-    ``gen`` (codewords + channel), ``decode`` (host loop), ``count``."""
+    """Host-side accumulation loop with early stopping over the batch step:
+    ``gen`` (codewords + channel), ``decode``, ``count``.  Every batch
+    decodes under one device-loop key, so one capture serves every batch
+    and every Eb/N0 point of a sweep (``decoder/device_loop``)."""
 
     def __init__(self, code: NBCode, cfg: SimConfig,
                  enc: Optional[Encoder] = None, *, device):
@@ -217,7 +230,8 @@ class MonteCarlo:
         bit_err = _popcount(diff).sum(dim=1)
         frame_err = bit_err > self.cfg.fake_bch_t
         counters = torch.stack([
-            torch.tensor(decide.shape[0], device=decide.device),
+            torch.full((), decide.shape[0], dtype=torch.int64,
+                       device=decide.device),
             frame_err.sum(), bit_err.sum(), (frame_err & conv).sum(),
             iters.sum().to(torch.int64), iters.max().to(torch.int64),
         ])

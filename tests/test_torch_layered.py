@@ -178,11 +178,10 @@ def test_compressed_topk_decode_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("change", [
-    dict(loop="device"), dict(dtype="bfloat16"), dict(cn="syndrome"),
+    dict(dtype="bfloat16"), dict(cn="syndrome"),
     dict(cn_impl="bubble"), dict(schedule="flooding", cn="syndrome"),
     dict(schedule="flooding", cn_impl="bubble"),
     dict(schedule="flooding", cn_impl="lbubble"),
-    dict(schedule="flooding", loop="device"),
 ])
 def test_unported_branches_raise(change):
     jc = jrandom_regular(24, 12, 16, seed=2)
