@@ -12,10 +12,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles both CUDA kernels and the device loop's graph helper
-   with nvcc (sm_90a), one nvcc per source, started together; prints the
-   times and ptxas' register / shared-memory report; then builds the
-   full-width code;
+2. build: compiles the three CUDA kernels and the device loop's graph
+   helper with nvcc (sm_90a), one nvcc per source, started together;
+   prints the times and ptxas' register / shared-memory report; then
+   builds the full-width code;
 3. EMS kernel against plain, bit for bit (``torch.equal``): the bare
    ``ops/cuda_cn.fb_checknode`` against ``minconv.fb_checknode_topk`` on
    truncated rows, and the fused step ``ops/cuda_cn.ems_rows`` against
@@ -57,6 +57,17 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    by band; times the fused step, the pre-fusion route, the plain step and
    the bare kernel in turns at F = 16 and 128 beside the fused step's
    bound, and the bare kernel against its plain version;
+3c. syndrome kernel against plain, bit for bit (``torch.equal``):
+   ``ops/cuda_syndrome.syndrome_rows`` against ``syndrome_rows_plain`` on
+   min-normalised unrotated rows at the main paths' shapes (layered
+   [F·1350, 4, 256] with G = 1350 and flooding [F·4050, 4, 256] with
+   G = 4050, F = 16 and 128; the default table from the decoder's own
+   cache, C = 993, nm = 32, bayes and presort on) and at odd shapes with
+   padding slots (q = 16 / 64 / 256, dc = 3 / 4 / 6 / 12, nm = q, bayes
+   and presort off, the median saturation, the full / 2dev / bordered
+   tables), on continuous and "ties" inputs; times the kernel and the
+   plain version in turns at the layered and flooding F = 128 shapes
+   beside the bound;
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -87,15 +98,27 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    F = 128, 256 frames, device loop; checks EMS kernel launches = 1 per
    step (one call on all F·M = 518,400 rows), no SPA launch, avg_it < 20,
    FER <= 0.25;
+4e. syndrome chain at full width: layered ``cn="syndrome"`` with the
+   ``DecoderConfig`` defaults (nm = 0, i.e. 32; n_cv = 45; trapeze (40, 15,
+   5) capped at 1000 configs, C = 993; bayes; presort; the k-th
+   saturation), offset 0.3, 10 iterations, dense f32, 1.8 dB, F = 128, 256
+   frames, device loop; checks syndrome kernel launches = 3 per step
+   (counted on the card, none eager), no other kernel, avg_it < 10, FER <=
+   0.25;
+5g. syndrome decode both ways (host loop): 16 frames through the kernel
+   (3 launches per step) and through its plain version (``plain``, no
+   launch): identical decisions, iterations and convergence;
 6. the device loop against the host loop at full width, after each chain
    on one batch of its intrinsics (F = 128): layered EMS through K1,
    layered SPA through ``spa_layer``, list-EMS (plain torch), flooding EMS
    through K1 and flooding SPA through the bare K2 (on the flooding
-   chain's batch).  A fresh loop decodes (its capture), then decodes
+   chain's batch), layered syndrome and flooding syndrome (20 iterations)
+   through the syndrome kernel (on the syndrome chain's batch).  A fresh loop decodes (its capture), then decodes
    again after every table cache was emptied and the freed memory
    refilled (the graph reads the tables its loop keeps), then the host
    loop: decisions, iterations and convergence bit-equal; the loop's
-   launches per step 3, 3, 0, 1 and 1; the replay makes no eager launch
+   launches per step 3, 3, 0, 1, 1, 3 and 1; the replay makes no eager
+   launch
    and the kernels count per step x steps on the card, as under the host
    loop; prints one decode's wall time under each loop, and the memory
    each loop's decode holds: its live peak and the allocator's reserved
@@ -106,7 +129,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 5e. flooding SPA decode both ways: the same 16 frames through the SPA
    kernel's bare entry (launches = 1 per step) and through its plain
    version
-   (``plain_spa``): identical decisions and convergence, iteration counts
+   (``plain``): identical decisions and convergence, iteration counts
    within 1 (differences printed);
 5f. the plain dense min-conv CN, the compressed dense-CN decoder and
    min-sum through the EMS kernel on the card: random_regular(96, 48, 16),
@@ -124,7 +147,8 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 7. the CLI at full width: the code written as a UBS file with
    ``models/tools.write_ubs``, then ``cli.main`` with the SPA row's
    settings (``--cn spa --iters 20 --batch 128 --max-frames 256 --ebn0
-   1.8``, defaults otherwise: device loop, on the card) against
+   1.8``, defaults otherwise: device loop, on the card) and with
+   ``--cn syndrome --iters 10`` (the syndrome chain's), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
    file: frames, frame errors, bit errors and iteration sum equal.
 
@@ -132,7 +156,8 @@ Each chain runs once to warm up (under the device loop: its capture),
 then once timed with the launch counts set to 0 just before and read just
 after; both sides of 5d and 5e are counted the same way.  Two counts are
 kept: the wrappers' eager launches (``cuda_cn.launches``,
-``cuda_spa.launches``) and the launches each kernel counts itself on the
+``cuda_spa.launches``, ``cuda_syndrome.launches``) and the launches each
+kernel counts itself on the
 card (``device_launches()``), which a graph's replays move too; a
 host-loop run must show the same numbers in both.  After its timed run
 each chain times two more batches untraced (``batch_split``): each
@@ -171,8 +196,9 @@ from ems_nbldpc_torch import cli
 from ems_nbldpc_torch.decoder import device_loop
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
 from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
+                                               _syndrome_tables,
                                                decode_flooding_hostloop,
-                                               syndrome_ok)
+                                               syn_key, syndrome_ok)
 from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
                                             rotation_table)
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
@@ -182,7 +208,7 @@ from ems_nbldpc_torch.models import tools
 from ems_nbldpc_torch.models.code import load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
-from ems_nbldpc_torch.ops import cuda_cn, cuda_spa
+from ems_nbldpc_torch.ops import cuda_cn, cuda_spa, cuda_syndrome
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
 from ems_nbldpc_torch.ops.cuda_spa import spa_layer, spa_layer_plain
@@ -234,6 +260,18 @@ SPA_LAYER_ODD = [          # (F, G, dc, q, padded slots) of spa_layer on
     (7, 30, 4, 32, 2),
 ]
 SPA_COST_ATOL, SPA_COST_MAX, SPA_PROB_ATOL = 1e-3, 8.0, 1e-5
+SYN_ODD = [                # (T, G, dc, q, nm, table settings, bayes,
+    # presort) of syndrome_rows beside the main paths' shapes; all with
+    # padding slots and valid
+    (1000, 50, 3, 16, 16, dict(shape="full", d1=8, d2=4, d3=2), True, True),
+    (333, 111, 6, 64, 12, dict(n_cv=20, shape="bordered", d1=9, d2=4),
+     False, True),
+    (90, 9, 12, 16, 8, dict(shape="2dev", d1=7, sat_rule="median"), True,
+     False),
+    (96, 8, 6, 64, 64, dict(sat_rule="median"), False, False),
+    (400, 20, 4, 256, 32, dict(), True, False),
+    (77, 11, 12, 256, 32, dict(shape="bordered", d1=31, d2=15), True, True),
+]
 LAYERS = 3
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
 
@@ -720,12 +758,102 @@ def check_spa_kernel(graph):
     return max(worst, layer_err), times, layer_times
 
 
+def syn_bound_ms(t, g, dc, q, table):
+    """The least time of one ``syndrome_rows`` call on an H100: its bytes
+    (rows in and out once, the uint8 rotation tables, valid and the config
+    table once) at 3.35 TB/s against the operations these tables need a
+    row, at 67 T/s: the config sums and XORs (C dc each), and per edge
+    position about six integer steps per deviation-free config (its key,
+    bucket minimum, two histogram counts, second minimum) and ten per
+    bucket (bayes, key, rank), plus the rotations (2 dc q).  Returns (ms,
+    "bytes" or "operations")."""
+    c = table.shape[0]
+    masked = int((table == 0).sum())
+    nbytes = 2 * 4 * t * dc * q + 2 * g * dc * q + g * dc + c * dc + 4 * dc
+    ops = t * (2 * c * dc + 6 * masked + 10 * dc * q + 2 * dc * q)
+    return bound(nbytes, ops)
+
+
+def check_syndrome_kernel(graph):
+    """3c: the syndrome kernel against its plain version, bit for bit, at
+    the main paths' shapes (layered and flooding, F = 16 and 128, with
+    G = 1350 and 4050; the default table, nm = 32) and at odd shapes; then
+    its times at the layered and flooding F = 128 shapes.  Returns the
+    largest error and {(path, T): times}."""
+    phase("3c syndrome kernel against plain")
+    worst = 0.0
+    layer = _layer_plan(graph, "cuda")[0]
+    rows = _cn_row_tables(graph, "cuda")
+    main = {"layered": (layer["rot_in8"], layer["rot_out8"], layer["valid"]),
+            "flooding": (rows["rot_in"], rows["rot_out"], rows["valid"])}
+    cases = [(path, f * main[path][0].shape[0], *main[path], 32, {}, True,
+              True) for path, f in (("layered", 16), ("layered", 128),
+                                    ("flooding", 16), ("flooding", 128))]
+    for i, (t, g, dc, q, nm, kw, bayes, presort) in enumerate(SYN_ODD):
+        cases.append(("odd", t, *odd_tables(g, dc, q, seed=700 + i), nm, kw,
+                      bayes, presort))
+    for i, (path, t, rin, rout, valid, nm, kw, bayes, presort) in enumerate(
+            cases):
+        _, dc, q = rin.shape
+        tabs = _syndrome_tables(dc, nm, syn_key(kw), "cuda")
+        table, kth = tabs["table"], tabs["kth"]
+        for kind in KINDS:
+            x = rows_input(t, dc, q, kind, seed=800 + i)
+            got = cuda_syndrome.syndrome_rows(x, rin, rout, valid, table, kth,
+                                              nm, OFFSET, bayes, presort)
+            want = cuda_syndrome.syndrome_rows_plain(
+                x, rin, rout, valid, table, kth, nm, OFFSET, bayes, presort)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            exact = torch.equal(got, want)
+            pad = 0 if valid is None else int((~valid).sum())
+            print(f"syndrome_rows {path} T={t} G={rin.shape[0]} dc={dc} q={q} "
+                  f"nm={nm} C={table.shape[0]} {kw or 'default table'} "
+                  f"bayes={bayes} presort={presort} padding slots={pad} "
+                  f"{kind}: bit-exact={exact} max_abs_err={err}", flush=True)
+            check(exact, f"syndrome_rows != plain at {path} T={t} {kind}")
+            worst = max(worst, err)
+            del x, got, want
+        torch.cuda.empty_cache()
+    times = {}
+    tabs = _syndrome_tables(4, 32, syn_key({}), "cuda")
+    table, kth = tabs["table"], tabs["kth"]
+    for path, t, rin, rout, valid, nm, *_ in (cases[1], cases[3]):
+        x = rows_input(t, 4, 256, "uniform", seed=7)
+        fns = {
+            "kernel": lambda: cuda_syndrome.syndrome_rows(
+                x, rin, rout, valid, table, kth, nm, OFFSET, True, True),
+            "plain": lambda: cuda_syndrome.syndrome_rows_plain(
+                x, rin, rout, valid, table, kth, nm, OFFSET, True, True),
+        }
+        reps = {"kernel": 10, "plain": 2}
+        got = collections.defaultdict(list)
+        # in turns, compared within one call only
+        for name in ("plain", "kernel", "kernel", "plain"):
+            got[name].append(time_ms(fns[name], reps[name]))
+        g = rin.shape[0]
+        b_ms, b_by = syn_bound_ms(t, g, 4, 256, table)
+        times[(path, t)] = dict({k: sum(v) / 2 for k, v in got.items()},
+                                bound=b_ms, bound_by=b_by)
+        print(f"syndrome_rows {path} T={t} G={g} dc=4 q=256 nm={nm} "
+              f"C={table.shape[0]}: kernel "
+              + " / ".join(f"{v:.4f}" for v in got["kernel"])
+              + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+              + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / times[(path, t)]['kernel']:.2f}% of it",
+              flush=True)
+        del x, fns
+        torch.cuda.empty_cache()
+    return worst, times
+
+
 def profile_batch(mc, tag, out_dir="profile_out"):
     """Trace one Monte-Carlo batch, after an untraced one (which holds the
     device loop's capture if the loop is new); print the device busy share
     and the device time by kernel (from the exported chrome trace).
     Returns them with the batch's decoder steps and the number of
-    ``ems_rows_kernel`` and ``spa_row_kernel`` launches in the trace."""
+    ``ems_rows_kernel``, ``spa_row_kernel`` and ``syndrome_rows_kernel``
+    launches in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     phase(f"profile one batch: {tag}")
@@ -765,7 +893,8 @@ def profile_batch(mc, tag, out_dir="profile_out"):
     for name, us in by_name.most_common(15):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     traced = {k: sum(1 for e in kernels if k in e["name"])
-              for k in ("ems_rows_kernel", "spa_row_kernel")}
+              for k in ("ems_rows_kernel", "spa_row_kernel",
+                        "syndrome_rows_kernel")}
     print(f"decoder steps {int(counters[5])}; kernels in the trace {traced}",
           flush=True)
     return {"wall_ms": round(wall_us / 1e3, 3),
@@ -910,8 +1039,10 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
 def reset_launches():
     """Set both kinds of launch counts to 0 (synchronises the card)."""
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
+    cuda_syndrome.launches = 0
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
+    cuda_syndrome.reset_device_launches()
 
 
 def read_launches() -> dict:
@@ -920,14 +1051,16 @@ def read_launches() -> dict:
     kernel's launches made by its fused entry."""
     spa, layer = cuda_spa.device_launches()
     return {"fb_checknode": cuda_cn.device_launches(),
-            "spa_checknode": spa, "spa_layer": layer}
+            "spa_checknode": spa, "spa_layer": layer,
+            "syndrome_checknode": cuda_syndrome.device_launches()}
 
 
 def read_eager() -> dict:
     """The wrappers' eager launches, by kernel as in ``read_launches``."""
     return {"fb_checknode": cuda_cn.launches,
             "spa_checknode": cuda_spa.launches,
-            "spa_layer": cuda_spa.layer_launches}
+            "spa_layer": cuda_spa.layer_launches,
+            "syndrome_checknode": cuda_syndrome.launches}
 
 
 def read_host_launches(what) -> dict:
@@ -976,7 +1109,8 @@ def check_small_card_decodes():
         check(same, f"{name}: card and CPU decodes differ")
         check(steps > 1, f"{name}: uninformative batch")
         check(launches == {"fb_checknode": per_step * steps,
-                           "spa_checknode": 0, "spa_layer": 0},
+                           "spa_checknode": 0, "spa_layer": 0,
+                           "syndrome_checknode": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -1007,7 +1141,8 @@ def check_loops(path, graph, intr, dec, per_step):
     replay's and the host loop's), and each loop's memory: the live peak
     and the reserved growth of its first decode (state, the step's
     temporaries, and for the device loop its graph pool, reserved bytes
-    apart).  Returns the steps."""
+    apart).  Returns the steps and the replay's launches as the kernels
+    counted them on the card."""
     phase(f"6 device loop vs host loop: {path}")
     device_loop.clear()
     gc.collect()
@@ -1080,7 +1215,7 @@ def check_loops(path, graph, intr, dec, per_step):
     check(counts["device"] == (want, none)
           and counts["host"] == (want, want),
           f"{path}: launches {counts} for {steps} steps")
-    return steps
+    return steps, counts["device"][0]
 
 
 def check_odd_batches(code, decs):
@@ -1100,8 +1235,8 @@ def check_odd_batches(code, decs):
         for label, intr, steps in (("no frame converges", noise,
                                     dec.max_iters),
                                    ("all converge at init", clean, 0)):
-            got = check_loops(f"6b {path}, {label}", graph, intr, dec,
-                              per_step)
+            got, _ = check_loops(f"6b {path}, {label}", graph, intr, dec,
+                                 per_step)
             check(got == steps, f"6b {path} {label}: {got} steps, "
                   f"expected {steps}")
     device_loop.clear()
@@ -1109,9 +1244,10 @@ def check_odd_batches(code, decs):
 
 def check_cli(code):
     """7: the CLI at full width on the code written as a UBS file, with the
-    SPA row's settings, against ``MonteCarlo.run`` of the same config and
-    seed on ``load`` of that file: frames, frame errors, bit errors and
-    iteration sum equal."""
+    SPA row's settings and with the syndrome chain's (``--cn syndrome``,
+    the ``DecoderConfig`` defaults), each against ``MonteCarlo.run`` of the
+    same config and seed on ``load`` of that file: frames, frame errors,
+    bit errors and iteration sum equal."""
     phase("7 CLI at full width")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "code_N8100_GF256.txt")
@@ -1120,34 +1256,38 @@ def check_cli(code):
             [code.row_cols[r, :d] for r, d in enumerate(code.row_deg)],
             [code.row_coefs[r, :d] for r, d in enumerate(code.row_deg)]),
             path)
-        out = os.path.join(tmp, "out")
-        t0 = time.perf_counter()
-        rc = cli.main(["--matrix", path, "--cn", "spa", "--iters", "20",
-                       "--batch", "128", "--max-frames", "256", "--ebn0",
-                       "1.8", "--out", out, "--quiet"])
-        seconds = time.perf_counter() - t0
-        with open(os.path.join(out, "results.jsonl")) as f:
-            (rec,) = [json.loads(line) for line in f]
-        device_loop.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
-        cfg = SimConfig(ebn0_db=1.8, frames_per_batch=128, max_frames=256,
-                        decoder=DecoderConfig(max_iters=20, cn="spa"))
-        loaded = load(path, name=path)
-        mc = MonteCarlo(loaded, cfg, device="cuda")
-        res = mc.run()
-        text = os.path.exists(os.path.join(out, result_filename(loaded,
-                                                                cfg)))
-        free(mc)
-    cli_counts = (rec["frames"], rec["frame_errors"], rec["bit_errors"],
-                  round(rec["avg_iters"] * rec["frames"]))
-    mc_counts = (res.frames, res.frame_errors, res.bit_errors, res.iter_sum)
-    print(f"cli rc {rc} in {seconds:.1f} s (load, encoder, capture and 256 "
-          f"frames): frames, frame errors, bit errors, iteration sum "
-          f"{cli_counts}; MonteCarlo.run {mc_counts}; text result file "
-          f"{text}", flush=True)
-    check(rc == 0 and text and cli_counts == mc_counts,
-          "the CLI's run differs from MonteCarlo.run")
+        for cn, iters in (("spa", 20), ("syndrome", 10)):
+            out = os.path.join(tmp, f"out_{cn}")
+            t0 = time.perf_counter()
+            rc = cli.main(["--matrix", path, "--cn", cn, "--iters",
+                           str(iters), "--batch", "128", "--max-frames",
+                           "256", "--ebn0", "1.8", "--out", out, "--quiet"])
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(out, "results.jsonl")) as f:
+                (rec,) = [json.loads(line) for line in f]
+            device_loop.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = SimConfig(ebn0_db=1.8, frames_per_batch=128,
+                            max_frames=256,
+                            decoder=DecoderConfig(max_iters=iters, cn=cn))
+            loaded = load(path, name=path)
+            mc = MonteCarlo(loaded, cfg, device="cuda")
+            res = mc.run()
+            text = os.path.exists(os.path.join(out, result_filename(loaded,
+                                                                    cfg)))
+            free(mc)
+            cli_counts = (rec["frames"], rec["frame_errors"],
+                          rec["bit_errors"],
+                          round(rec["avg_iters"] * rec["frames"]))
+            mc_counts = (res.frames, res.frame_errors, res.bit_errors,
+                         res.iter_sum)
+            print(f"cli --cn {cn}: rc {rc} in {seconds:.1f} s (load, "
+                  f"encoder, capture and 256 frames): frames, frame errors, "
+                  f"bit errors, iteration sum {cli_counts}; MonteCarlo.run "
+                  f"{mc_counts}; text result file {text}", flush=True)
+            check(rc == 0 and text and cli_counts == mc_counts,
+                  f"the CLI's --cn {cn} run differs from MonteCarlo.run")
 
 
 def main(argv) -> int:
@@ -1170,17 +1310,17 @@ def main(argv) -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
-                  for mod in (cuda_cn, cuda_spa, device_loop)}
+                  for mod in (cuda_cn, cuda_spa, cuda_syndrome, device_loop)}
         for name, fut in builds.items():
             _, seconds, log = fut.result()
             print(f"nvcc {name} {seconds:.2f} s")
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"all three built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all four built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     code = random_regular(8100, 4050, 256, dv=2, seed=0)
@@ -1195,13 +1335,17 @@ def main(argv) -> int:
 
     max_err, k_times = check_kernel(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
+    syn_err, syn_times = check_syndrome_kernel(graph)
+    syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
+    syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
     k_flood = k_times[("flooding", 128 * CODE_ROWS)]
     spa_main = layer_times[128]                         # layered, F = 128
     spa_flood = spa_times[SPA_SHAPES[2][0]]             # flooding, F = 16
 
     phase("4 EMS chain")
-    paths = {"fb_checknode": {}, "spa_checknode": {}}
+    paths = {"fb_checknode": {}, "spa_checknode": {},
+             "syndrome_checknode": {}}
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1274,7 +1418,7 @@ def main(argv) -> int:
     for plain in (False, True):
         reset_launches()
         d, it, conv = decode_layered_hostloop(graph, intr16, 20, cn="spa",
-                                              plain_spa=plain)
+                                              plain=plain)
         outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
                        read_host_launches("5b"))
     (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
@@ -1362,7 +1506,7 @@ def main(argv) -> int:
     for plain in (False, True):
         reset_launches()
         d, it, conv = decode_flooding_hostloop(graph, intr16, 20, cn="spa",
-                                               plain_spa=plain)
+                                               plain=plain)
         outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
                        read_host_launches("5e"))
     (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
@@ -1389,6 +1533,59 @@ def main(argv) -> int:
               "torch.topk kernels in the flooding EMS profile")
         check_traced(SUMMARY["flooding EMS"][-1]["profile"],
                      "ems_rows_kernel", 1, "flooding EMS trace")
+    free(mc)
+    del mc, intr16
+
+    phase("4e syndrome chain")
+    syn_dec = DecoderConfig(max_iters=10, schedule="layered", cn="syndrome",
+                            nm=0, offset=0.3, storage="dense",
+                            dtype="float32")
+    mc, syn_res, syn_launches = run_chain("syndrome", code, enc, syn_dec, 1.8)
+    check(syn_launches["syndrome_checknode"]
+          == n_layers * syn_res.decoder_steps > 0
+          and sum(syn_launches.values()) == syn_launches["syndrome_checknode"],
+          f"launches {syn_launches} for {syn_res.decoder_steps} decoder steps")
+    paths["syndrome_checknode"]["layered syndrome"] = syn_launches[
+        "syndrome_checknode"]
+    intr = mc.gen(0)[1]
+    check_loops("layered syndrome", graph, intr, syn_dec,
+                {"syndrome_checknode": n_layers})
+    fl_syn = dataclasses.replace(syn_dec, schedule="flooding", max_iters=20)
+    _, replay = check_loops("flooding syndrome", graph, intr, fl_syn,
+                            {"syndrome_checknode": 1})
+    paths["syndrome_checknode"]["flooding syndrome"] = replay[
+        "syndrome_checknode"]
+    device_loop.clear()
+    del intr
+
+    phase("5g syndrome kernel vs plain decode at full width")
+    intr16 = mc.gen(0)[1][:16].contiguous()
+    outs = {}
+    for plain in (False, True):
+        reset_launches()
+        d, it, conv = decode_layered_hostloop(graph, intr16, 10, offset=0.3,
+                                              cn="syndrome", plain=plain)
+        outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
+                       read_host_launches("5g"))
+    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+    same = (torch.equal(d_k, d_p) and torch.equal(it_k, it_p)
+            and torch.equal(c_k, c_p))
+    print(f"F=16: identical decisions/iterations/convergence: {same}; iters "
+          f"{it_k.tolist()}; launches kernel {l_k}, plain {l_p}", flush=True)
+    check(same, "syndrome kernel and plain decodes differ")
+    check(l_k["syndrome_checknode"] == n_layers * int(it_k.max()) > 0
+          and sum(l_k.values()) == l_k["syndrome_checknode"]
+          and sum(l_p.values()) == 0,
+          f"syndrome launches {l_k} (plain {l_p}) for {int(it_k.max())} "
+          f"steps")
+    if "--profile" in argv:
+        prof = profile_batch(mc, "syndrome")
+        prof.pop("spa_kernels")
+        check(prof["topk_kernels"] == 0,
+              "torch.topk kernels in the syndrome chain's profile")
+        check_traced(prof, "syndrome_rows_kernel", n_layers,
+                     "syndrome trace")
+        SUMMARY["syndrome"][-1]["profile"] = prof
     free(mc)
     del mc, intr16
 
@@ -1432,6 +1629,21 @@ def main(argv) -> int:
         "bound_by": spa_main["bound_by"], "library_ms": None,
         "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": spa_flood[0],
         "flooding_plain_ms": spa_flood[1], "flooding_bound_ms": spa_flood[2],
+    }, {
+        "name": "syndrome_checknode", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/syndrome_checknode.cu",
+        "replaces": "ems_nbldpc_tpu/ops/syndrome_cn.py:240",
+        "entry_points": ["syndrome_rows"],
+        "launches": sum(paths["syndrome_checknode"].values()),
+        "paths": list(paths["syndrome_checknode"]),
+        "launches_by_path": paths["syndrome_checknode"],
+        "max_abs_err": syn_err, "rows": 128 * SLICE_ROWS,
+        "ms": syn_main["kernel"], "plain_ms": syn_main["plain"],
+        "bound_ms": syn_main["bound"], "bound_by": syn_main["bound_by"],
+        "library_ms": None, "flooding_rows": 128 * CODE_ROWS,
+        "flooding_ms": syn_flood["kernel"],
+        "flooding_plain_ms": syn_flood["plain"],
+        "flooding_bound_ms": syn_flood["bound"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

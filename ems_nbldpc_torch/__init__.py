@@ -17,6 +17,9 @@ host loop, with
 - SPA via the Walsh-Hadamard transform, dense f32 storage, through the
   hand-written CUDA SPA kernel (``ops/cuda_spa.py``) on the card: on the
   layered schedule the whole super-layer step in one launch;
+- the syndrome-EMS check node (``cn="syndrome"``), dense f32 storage,
+  its whole check-node step in one launch of a hand-written CUDA kernel
+  (``ops/cuda_syndrome.py``) on the card;
 - layered compressed CtoV storage, f32 or bf16: the dense-CN decoder and
   the truncated-list EMS path.
 """

@@ -7,8 +7,11 @@ JAX package's does.  Ported so far:
 * both schedules (``"layered"``, ``"flooding"``) with dense float32
   storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
   hand-written CUDA EMS check node on the card; topk | auto | dense |
-  list: the plain torch F/B check nodes, as ``use_topk`` picks) or
-  ``cn="spa"`` (the hand-written CUDA SPA check node on the card);
+  list: the plain torch F/B check nodes, as ``use_topk`` picks),
+  ``cn="spa"`` (the hand-written CUDA SPA check node on the card) or
+  ``cn="syndrome"`` (the syndrome-EMS check node with the ``syn_*``
+  settings, as JAX's ``syn`` dict; the hand-written CUDA kernel on the
+  card, its plain version on the CPU; it reads no ``cn_impl``, as in JAX);
 * layered compressed storage, float32 or bfloat16: the dense-CN decoder
   for ``cn_impl="topk"``, the truncated-list EMS CN for any other value.
 
@@ -18,8 +21,9 @@ schedule eagerly on the CPU (``device_loop``); ``loop="host"`` polls
 convergence on the host once per step.  The compressed dense-CN decoder
 (``cn_impl="topk"``) runs the host loop whatever ``loop`` says, as in JAX.
 
-Dense bfloat16 storage, ``cn="syndrome"`` and ``cn_impl`` bubble | lbubble
-raise ``NotImplementedError`` naming their ROADMAP item.
+Dense bfloat16 storage and ``cn_impl`` bubble | lbubble raise
+``NotImplementedError`` naming their ROADMAP item.  As in JAX, compressed
+storage ignores ``cn`` and runs EMS, ``cn="syndrome"`` included.
 """
 from __future__ import annotations
 
@@ -39,21 +43,24 @@ class DecoderConfig:
     max_iters: int = 10
     schedule: str = "layered"   # "layered" | "flooding"
     cn: str = "ems"             # "minsum" (dense exact) | "ems" (nm-truncated)
-    #                             | "spa" | "syndrome" (not ported yet)
+    #                             | "spa" | "syndrome" (syn_* below)
     nm: int = 0                 # 0 -> no truncation (pure min-sum)
     offset: float = 0.3         # saturation offset (reference arg 6)
     nboper: int = 0             # elementary-step candidate budget (reference
     #                             arg 7); read by the list CN only
     cn_impl: str = "auto"       # dense | topk | list | pallas (the
     #                             hand-written CUDA CN, ops/cuda_cn.py) |
-    #                             auto; bubble | lbubble are not ported yet.
+    #                             auto; bubble | lbubble are not ported yet;
+    #                             cn="spa" and "syndrome" read none.
     #                             Compressed storage runs the dense-CN
     #                             decoder for topk, the list CN otherwise
     loop: str = "device"        # device (captured CUDA graph) | host
     storage: str = "dense"      # dense | compressed (nm-truncated CtoV,
     #                             layered only)
-    syn_ncv: int = 45           # syndrome-CN family parameters (cn=
-    syn_d: tuple = (40, 15, 5)  # "syndrome", not ported yet)
+    syn_ncv: int = 45           # syndrome-CN parameters (cn="syndrome"):
+    syn_d: tuple = (40, 15, 5)  # the reference main's setup (NB_LDPC.c:
+    #                             188-200): n_cv, trapeze d1/d2/d3, the
+    #                             1000-config cap, bayes, presorting
     syn_shape: str = "trapeze"
     syn_max_configs: int = 1000
     syn_bayes: bool = True
@@ -100,9 +107,16 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
         run = decode_layered_list if on_device else decode_layered_list_hostloop
         return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
                    nboper=cfg.nboper, dtype=cfg.torch_dtype())
+    syn = None
+    if cfg.cn == "syndrome":
+        syn = dict(
+            n_cv=cfg.syn_ncv, d1=cfg.syn_d[0], d2=cfg.syn_d[1],
+            d3=cfg.syn_d[2], shape=cfg.syn_shape,
+            max_configs=cfg.syn_max_configs, use_bayes=cfg.syn_bayes,
+            presort=cfg.syn_presort, sat_rule=cfg.syn_sat)
     if cfg.schedule == "flooding":
         run = decode_flooding if on_device else decode_flooding_hostloop
     else:
         run = decode_layered if on_device else decode_layered_hostloop
     return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-               cn=cfg.cn, cn_impl=cfg.cn_impl, nboper=cfg.nboper)
+               cn=cfg.cn, cn_impl=cfg.cn_impl, syn=syn, nboper=cfg.nboper)

@@ -28,8 +28,9 @@ overwrites the buffers.
 
 Kernel launches: a replay runs the captured kernels without their Python
 wrappers, so the wrappers' eager counts (``ops/cuda_cn.launches``,
-``ops/cuda_spa.launches``) do not move; the kernels count their own
-launches on the card (``device_launches()`` of each wrapper module).  The
+``ops/cuda_spa.launches``, ``ops/cuda_syndrome.launches``) do not move;
+the kernels count their own launches on the card (``device_launches()``
+of each wrapper module).  The
 capture leaves the eager counts as it found them and records each
 kernel's launches per step (``DeviceLoop.per_step``).
 
@@ -49,7 +50,7 @@ import weakref
 
 import torch
 
-from ..ops import _build, cuda_cn, cuda_spa
+from ..ops import _build, cuda_cn, cuda_spa, cuda_syndrome
 from .graph import keep_tables
 
 MAX_CACHED = 2                   # loops kept by the cache
@@ -57,7 +58,8 @@ MAX_CACHED = 2                   # loops kept by the cache
 # kernel -> (module, counter) of the wrappers' eager launch counts
 _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "spa_checknode": (cuda_spa, "launches"),
-             "spa_layer": (cuda_spa, "layer_launches")}
+             "spa_layer": (cuda_spa, "layer_launches"),
+             "syndrome_checknode": (cuda_syndrome, "launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

@@ -17,19 +17,27 @@ first syndrome-zero iteration, converged frames keep their CtoV, and the
 loop stops when every frame has converged or the iteration budget is
 spent: ``host_loop`` (shared with layered.py) polls on the host,
 ``decode_flooding`` runs ``device_loop``'s captured graph.
+
+The syndrome CN's settings (``syn``), tables and call
+(``syndrome_step``) live here too; the layered schedule shares them.
 """
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
 
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
+from ..ops.cuda_syndrome import (check_fits, syndrome_rows,
+                                 syndrome_rows_plain)
 from ..ops.fht import (position_tables, spa_checknode_plain,
                        transpose_perm_tables)
 from ..ops.minconv import (delta_message, ems_input_truncate,
                            ems_output_saturate, fb_checknode_dense,
                            fb_checknode_topk)
+from ..ops.syndrome_cn import syndrome_checknode, syndrome_tables
 from . import device_loop
 from .graph import (DeviceGraph, device_tables, rotate, rotation_table,
                     upload)
@@ -69,14 +77,81 @@ def truncates(cn: str, nm: int, q: int) -> bool:
     return cn == "ems" and 0 < nm < q
 
 
-def check_supported(nm: int, q: int, cn: str, cn_impl: str) -> None:
+def syn_settings(syn) -> dict:
+    """The syndrome CN's parameters: ``syn`` (the dict ``decode`` builds
+    from ``DecoderConfig``'s ``syn_*`` fields, or None) over the defaults
+    of ``syndrome_cn.syndrome_checknode``, whose keyword parameters they
+    are (but ``offset``, which the decoder passes itself), as JAX passes
+    ``**syn`` to it."""
+    params = inspect.signature(syndrome_checknode).parameters
+    defaults = {k: p.default for k, p in params.items()
+                if p.default is not p.empty and k != "offset"}
+    unknown = set(syn or {}) - set(defaults)
+    if unknown:
+        raise ValueError(f"syn: unknown parameters {sorted(unknown)}")
+    return {**defaults, **(syn or {})}
+
+
+def syn_key(syn) -> tuple:
+    """``syn_settings(syn)`` as a hashable key (of table caches and device
+    loops)."""
+    return tuple(sorted(syn_settings(syn).items()))
+
+
+def syn_nm(nm: int, q: int) -> int:
+    """The syndrome CN's list length: nm, or JAX's ``min(q, 32)`` for 0."""
+    return nm if nm > 0 else min(q, 32)
+
+
+def _syn_host_tables(dc: int, nm: int, key: tuple):
+    s = dict(key)
+    return syndrome_tables(dc, nm, s["n_cv"], s["d1"], s["d2"], s["d3"],
+                           s["shape"], s["max_configs"], s["sat_rule"])
+
+
+@device_tables
+def _syndrome_tables(dc: int, nm: int, key: tuple, device: str) -> dict:
+    """The syndrome CN's config table [C, dc] uint8 and saturation ranks
+    [dc] int32 (``syndrome_cn.syndrome_tables``) on ``device``."""
+    cfg, kth = _syn_host_tables(dc, nm, key)
+    return dict(table=torch.as_tensor(cfg.astype(np.uint8), device=device),
+                kth=torch.as_tensor(kth.astype(np.int32), device=device))
+
+
+def syndrome_step(x, rot_in, rot_out, valid, nm: int, offset: float, syn,
+                  plain: bool = False):
+    """The syndrome CN step (``ops/cuda_syndrome.syndrome_rows``) on rows x
+    [T, dc, q] with the decoder's nm and ``syn``; ``plain`` runs its plain
+    version on any device."""
+    dc, q = x.shape[1:]
+    s = syn_settings(syn)
+    nm = syn_nm(nm, q)
+    tabs = _syndrome_tables(dc, nm, syn_key(syn), str(x.device))
+    run = syndrome_rows_plain if plain else syndrome_rows
+    return run(x, rot_in, rot_out, valid, tabs["table"], tabs["kth"], nm,
+               offset, s["use_bayes"], s["presort"])
+
+
+def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
+                    dc: int | None = None) -> None:
     """Raise for a CN configuration the port does not run (either
-    schedule): the syndrome and bubble CNs are not ported yet, and an
-    nm-truncated CN needs 1 <= nm <= q."""
+    schedule): the bubble CNs are not ported yet, an nm-truncated CN needs
+    1 <= nm <= q, and the syndrome CN (which reads no ``cn_impl``, as in
+    JAX) needs 0 <= nm <= q and, given the rows' ``dc``, tables that its
+    kernel holds (``cuda_syndrome.check_fits``; ``ValueError``)."""
     if cn == "syndrome":
-        raise NotImplementedError(
-            "cn='syndrome' is not ported yet (ROADMAP Queue 1: the syndrome "
-            "CN)")
+        if not 0 <= nm <= q:
+            raise ValueError(f"cn='syndrome' needs 0 <= nm <= q, got nm={nm},"
+                             f" q={q}")
+        if dc is not None:
+            s = syn_settings(syn)
+            cfg, kth = _syn_host_tables(dc, syn_nm(nm, q), syn_key(syn))
+            if (kth < 0).any():
+                raise ValueError(f"cn='syndrome': n_cv={s['n_cv']} gives a "
+                                 f"negative saturation rank")
+            check_fits(dc, q, syn_nm(nm, q), cfg.shape[0], s["presort"],
+                       "cn='syndrome'")
+        return
     if cn_impl in ("bubble", "lbubble"):
         raise NotImplementedError(
             f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1: exact "
@@ -166,33 +241,41 @@ def _edges_from_rows(g: DeviceGraph, x_rows):
 
 
 def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
-              cn_impl: str = "auto", plain_spa: bool = False):
+              cn_impl: str = "auto", plain: bool = False, syn=None):
     """The CN step of every row at once: rotate in, F/B CN, rotate out.
 
     vtoc: [F, E, q] min-normalized variable-to-check messages.  Returns
     mcv [F, E, q], min-normalized.  ``cn="spa"`` runs the hand-written
     CUDA SPA check node (``ops/cuda_spa.spa_checknode``; its plain version
-    on CPU tensors, or on any device with ``plain_spa``).  Otherwise
-    ``cn_impl="pallas"`` runs the whole step (truncation, rotations,
-    padding mask, CN, saturation, normalisation) in the hand-written CUDA
-    EMS check node on the unrotated rows (``ops/cuda_cn.ems_rows``; its
-    plain version on CPU tensors), and the rest the plain torch
-    ``fb_checknode_topk`` or ``fb_checknode_dense`` as ``use_topk`` picks.
+    on CPU tensors, or on any device with ``plain``).  ``cn="syndrome"``
+    runs the whole syndrome-EMS step (rotations, padding, lists, CN,
+    normalisation) in its hand-written CUDA kernel on the unrotated rows
+    (``syndrome_step`` with ``syn``; its plain version on CPU tensors, or
+    on any device with ``plain``).  Otherwise ``cn_impl="pallas"`` runs the
+    whole step (truncation, rotations, padding mask, CN, saturation,
+    normalisation) in the hand-written CUDA EMS check node on the unrotated
+    rows (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors), and
+    the rest the plain torch ``fb_checknode_topk`` or
+    ``fb_checknode_dense`` as ``use_topk`` picks.
     """
     q = g.q
     f = vtoc.shape[0]
     dev = vtoc.device
     t = upload(g, str(dev))
-    if cn != "spa" and cn_impl == "pallas":
+    if cn == "syndrome" or cn != "spa" and cn_impl == "pallas":
         r = _cn_row_tables(g, str(dev))
         # a padding slot reads edge E, which the mask replaces
         src = vtoc if g.regular else torch.cat(
             [vtoc, vtoc.new_zeros((f, 1, q))], dim=1)
         rows = _rows_from_edges(g, src)                  # [F, M, dc, q]
         fm, m, dc = rows.shape[:3]
-        out = ems_rows(rows.reshape(fm * m, dc, q), r["rot_in"],
-                       r["rot_out"], r["valid"], nm, offset,
-                       truncates(cn, nm, q))
+        x = rows.reshape(fm * m, dc, q)
+        if cn == "syndrome":
+            out = syndrome_step(x, r["rot_in"], r["rot_out"], r["valid"], nm,
+                                offset, syn, plain)
+        else:
+            out = ems_rows(x, r["rot_in"], r["rot_out"], r["valid"], nm,
+                           offset, truncates(cn, nm, q))
         return _edges_from_rows(g, out.reshape(rows.shape))
     if truncates(cn, nm, q):
         vtoc = ems_input_truncate(vtoc, nm)
@@ -202,7 +285,7 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
         vt_pad = torch.cat([vtoc, vtoc.new_zeros((f, 1, q))], dim=1)
         rows = _rows_from_edges(g, vt_pad)               # [F, M, dc, q]
         s = _spa_tables(g, str(dev))
-        if plain_spa:
+        if plain:
             mcv_rows = spa_checknode_plain(rows, s["t_in"], s["t_out"])
         else:
             fm, m, dc = rows.shape[:3]
@@ -234,17 +317,19 @@ def make_flooding_stepper(
     offset: float = 0.0,
     cn: str = "minsum",
     cn_impl: str = "auto",
-    plain_spa: bool = False,
+    plain: bool = False,
+    syn=None,
 ):
     """Stepped flooding decoder: ``state = init_fn(intrinsic)``, ``state =
     step_fn(state)``; state = (intrinsic, ctov_pad, decide, conv, iters).
     The intrinsic rides along unchanged (the JAX loop closes over it);
     ``init_fn(intrinsic, state)`` resets ``state`` in place, copying the
     intrinsic into its buffer (the device loop's); ``step_fn`` updates
-    ctov_pad in place.  ``plain_spa`` is internal: it runs the SPA CN's
-    plain version on the card, for holding the kernel against it.
+    ctov_pad in place.  ``syn``: the syndrome CN's parameters (JAX's dict;
+    ``syn_settings``).  ``plain`` is internal: it runs the SPA and syndrome
+    CNs' plain versions on the card, for holding the kernels against them.
     """
-    check_supported(nm, g.q, cn, cn_impl)
+    check_supported(nm, g.q, cn, cn_impl, syn, g.code.dc_max)
     e = g.n_edges
 
     def decisions(intrinsic, ctov_pad):
@@ -271,7 +356,7 @@ def make_flooding_stepper(
         vtoc = tot[:, edge_col] - ctov_pad[:, :e]
         del tot
         vtoc = vtoc - vtoc.min(dim=-1, keepdim=True).values
-        mcv = checknode(g, vtoc, nm, offset, cn, cn_impl, plain_spa)
+        mcv = checknode(g, vtoc, nm, offset, cn, cn_impl, plain, syn)
         del vtoc
         active = ~conv
         # converged frames keep their CtoV; the padding edge stays 0
@@ -302,12 +387,12 @@ def host_loop(init_fn, step_fn, intrinsic, max_iters):
 
 def decode_flooding_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
                              cn="minsum", cn_impl="auto", syn=None, nboper=0,
-                             plain_spa=False):
+                             plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
-    ``syn`` and ``nboper`` are read by the syndrome and bubble CNs only,
+    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only,
     which raise (not ported yet)."""
     return host_loop(
-        *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain, syn),
         intrinsic, max_iters)
 
 
@@ -318,7 +403,8 @@ def decode_flooding(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
     the card (``device_loop``; the intrinsic is copied into the loop's own
     buffer, which every step reads).  Returns (decide [F, N] int64, iters
     [F] int32, converged [F] bool)."""
+    key = syn_key(syn) if cn == "syndrome" else None
     return device_loop.run(
-        ("flooding", g, nm, offset, cn, cn_impl),
-        lambda: make_flooding_stepper(g, nm, offset, cn, cn_impl),
+        ("flooding", g, nm, offset, cn, cn_impl, key),
+        lambda: make_flooding_stepper(g, nm, offset, cn, cn_impl, syn=syn),
         intrinsic, max_iters)

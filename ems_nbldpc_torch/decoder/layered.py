@@ -2,8 +2,8 @@
 
 Port of the host-loop paths of ``ems_nbldpc_tpu/decoder/layered.py``:
 the dense-storage sweep (``_layer_plan``, ``_make_dense_iteration`` with
-its SPA branch and, through ``_make_rotated_cn``, its EMS (``cn_impl``
-pallas / topk) and dense min-conv branches,
+its SPA and syndrome branches and, through ``_make_rotated_cn``, its EMS
+(``cn_impl`` pallas / topk) and dense min-conv branches,
 ``make_layered_stepper``, ``decode_layered_hostloop``), the same sweep
 with nm-compressed CtoV storage (``make_layered_compressed_stepper``,
 ``decode_layered_compressed``), and the truncated-list EMS sweep with
@@ -27,7 +27,9 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
                                        rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
 For ``cn="spa"`` on the card the whole of it is one kernel launch
-(``ops/cuda_spa.spa_layer``), with no [F, G, dc, q] temporaries.
+(``ops/cuda_spa.spa_layer``), with no [F, G, dc, q] temporaries; for
+``cn="syndrome"`` the CN (rotations, lists, syndromes, normalisation) is
+one launch of ``ops/cuda_syndrome.syndrome_rows``.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            mask_invalid, scatter_topk_dense, topk_message)
 from . import device_loop
 from .flooding import (check_supported, decision_buffers, host_loop,
-                       syndrome_ok, truncates, use_topk)
+                       syn_key, syndrome_ok, syndrome_step, truncates,
+                       use_topk)
 from .graph import DeviceGraph, device_tables, rotate, rotation_table
 
 
@@ -124,14 +127,19 @@ def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
 
 
 def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
-                          plain_spa=False):
+                          plain=False, syn=None):
     """The per-iteration CN sweep over all super-layers, dense CtoV:
     ``one_iteration(app, ctov, active)`` updates the state in place.
     ``cn="spa"``: one ``ops/cuda_spa.spa_layer`` call per super-layer, the
     whole step (gathers, normalisation, check node, freeze, write-back) in
     one hand-written CUDA kernel launch (its plain version
-    ``spa_layer_plain`` on CPU tensors); ``plain_spa`` runs the plain
-    version on any device, for comparing the two.
+    ``spa_layer_plain`` on CPU tensors); ``plain`` runs the plain version
+    on any device, for comparing the two.
+    ``cn="syndrome"``: the hand-written CUDA kernel does the whole CN step,
+    normalisation included (``flooding.syndrome_step`` with ``syn``, one
+    ``ops/cuda_syndrome.syndrome_rows`` call per super-layer; its plain
+    version on CPU tensors, or on any device with ``plain``); no output
+    saturation, as in JAX.
     ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
     CUDA kernel does the whole CN step, normalisation included
     (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); other
@@ -139,10 +147,10 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     normalisation.
     """
     q = g.q
-    check_supported(nm, q, cn, cn_impl)
+    check_supported(nm, q, cn, cn_impl, syn, g.code.dc_max)
 
     if cn == "spa":
-        layer_step = spa_layer_plain if plain_spa else spa_layer
+        layer_step = spa_layer_plain if plain else spa_layer
 
         def spa_iteration(app, ctov, active):
             for p in _layer_plan(g, str(app.device)):
@@ -152,12 +160,18 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
         return spa_iteration
 
     truncate = truncates(cn, nm, q)
-    fused = cn_impl == "pallas"                   # ems_rows normalises
+    # the kernels' steps normalise
+    fused = cn == "syndrome" or cn_impl == "pallas"
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
-        out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
-                       p["rot_out8"], p["valid"], nm, offset, truncate)
+        x = mvc.reshape(f * gdim, dcdim, q)
+        if cn == "syndrome":
+            out = syndrome_step(x, p["rot_in8"], p["rot_out8"], p["valid"],
+                                nm, offset, syn, plain)
+        else:
+            out = ems_rows(x, p["rot_in8"], p["rot_out8"], p["valid"], nm,
+                           offset, truncate)
         return out.reshape(mvc.shape)
 
     if fused:
@@ -217,18 +231,21 @@ def make_layered_stepper(
     offset: float = 0.0,
     cn: str = "minsum",
     cn_impl: str = "auto",
-    plain_spa: bool = False,
+    plain: bool = False,
+    syn=None,
 ):
     """Stepped decoder: ``state = init_fn(intrinsic)``, ``state =
     step_fn(state)``; state = (app, ctov, decide, conv, iters).
     ``init_fn(intrinsic, state)`` resets ``state`` in place (the device
     loop's buffers); ``step_fn`` updates app and ctov in place and returns
-    the new state.  ``plain_spa`` is internal: it runs the SPA CN's plain
-    version on the card, for holding the kernel against it.
+    the new state.  ``syn``: the syndrome CN's parameters (JAX's dict;
+    ``flooding.syn_settings``).  ``plain`` is internal: it runs the SPA and
+    syndrome CNs' plain versions on the card, for holding the kernels
+    against them.
     """
     q, e = g.q, g.n_edges
-    one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl,
-                                          plain_spa)
+    one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl, plain,
+                                          syn)
 
     def init_fn(intrinsic, state=None):
         if state is None:
@@ -251,12 +268,12 @@ def make_layered_stepper(
 
 def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
                             cn="minsum", cn_impl="auto", syn=None, nboper=0,
-                            plain_spa=False):
+                            plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
-    ``syn`` and ``nboper`` are read by the syndrome and bubble CNs only,
+    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only,
     which raise (not ported yet)."""
     return host_loop(
-        *make_layered_stepper(g, nm, offset, cn, cn_impl, plain_spa),
+        *make_layered_stepper(g, nm, offset, cn, cn_impl, plain, syn),
         intrinsic, max_iters)
 
 
@@ -266,9 +283,10 @@ def decode_layered(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
     ``decode_layered_hostloop``, as one replay of a captured CUDA graph on
     the card (``device_loop``).  Returns (decide [F, N] int64, iters [F]
     int32, converged [F] bool)."""
+    key = syn_key(syn) if cn == "syndrome" else None
     return device_loop.run(
-        ("layered", g, nm, offset, cn, cn_impl),
-        lambda: make_layered_stepper(g, nm, offset, cn, cn_impl),
+        ("layered", g, nm, offset, cn, cn_impl, key),
+        lambda: make_layered_stepper(g, nm, offset, cn, cn_impl, syn=syn),
         intrinsic, max_iters)
 
 

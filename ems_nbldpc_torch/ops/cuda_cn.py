@@ -109,26 +109,26 @@ def _check(x: torch.Tensor, nm: int, name: str) -> None:
                          f"{smem_bytes(dc, q, nm)} B of shared memory")
 
 
-def _table_rows(x, rot_in, rot_out, valid) -> int:
+def _table_rows(x, rot_in, rot_out, valid, name: str = "ems_rows") -> int:
     """Check the per-position tables against rows ``x`` [T, dc, q] and
-    return their row count G."""
+    return their row count G (``name``: the caller, for the errors)."""
     _, dc, q = x.shape
     tables = [(n, t) for n, t in (("rot_in", rot_in), ("rot_out", rot_out),
                                   ("valid", valid)) if t is not None]
     if rot_in is None or rot_out is None:
-        raise ValueError("ems_rows: rot_in and rot_out are required")
+        raise ValueError(f"{name}: rot_in and rot_out are required")
     g = rot_in.shape[0]
-    for name, t in tables:
-        want = (g, dc) if name == "valid" else (g, dc, q)
-        dtype = torch.bool if name == "valid" else torch.uint8
+    for tab, t in tables:
+        want = (g, dc) if tab == "valid" else (g, dc, q)
+        dtype = torch.bool if tab == "valid" else torch.uint8
         if tuple(t.shape) != want or t.dtype != dtype:
-            raise ValueError(f"ems_rows: {name} must be {dtype} {want}, got "
+            raise ValueError(f"{name}: {tab} must be {dtype} {want}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"ems_rows: {name} must be contiguous on "
+            raise ValueError(f"{name}: {tab} must be contiguous on "
                              f"{x.device}")
     if g < 1 or x.shape[0] % g:
-        raise ValueError(f"ems_rows: T={x.shape[0]} rows are not a multiple "
+        raise ValueError(f"{name}: T={x.shape[0]} rows are not a multiple "
                          f"of the tables' G={g} rows")
     return g
 

@@ -238,6 +238,6 @@ def test_flooding_kernels_match_plain_on_card():
     kern = flooding.decode_flooding_hostloop(g, x, 15, cn="spa")
     assert cuda_spa.launches - before == int(kern[1].max()) > 0
     plain = flooding.decode_flooding_hostloop(g, x, 15, cn="spa",
-                                              plain_spa=True)
+                                              plain=True)
     assert torch.equal(kern[0], plain[0]) and torch.equal(kern[2], plain[2])
     assert int((kern[1] - plain[1]).abs().max()) <= 1

@@ -178,8 +178,8 @@ def test_compressed_topk_decode_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("change", [
-    dict(dtype="bfloat16"), dict(cn="syndrome"),
-    dict(cn_impl="bubble"), dict(schedule="flooding", cn="syndrome"),
+    dict(dtype="bfloat16"), dict(cn_impl="lbubble"),
+    dict(cn_impl="bubble"), dict(schedule="flooding", dtype="bfloat16"),
     dict(schedule="flooding", cn_impl="bubble"),
     dict(schedule="flooding", cn_impl="lbubble"),
 ])

@@ -221,14 +221,14 @@ def test_state_after_one_step_matches_jax(name):
 
 
 def test_plain_spa_argument_runs_the_same_decode():
-    """``plain_spa`` (the card's comparison path) is the CPU path: the same
+    """``plain`` (the card's comparison path) is the CPU path: the same
     decisions, and the same state up to ``assert_costs_close``."""
     jc = CODES["irregular"]()
     intr = torch.from_numpy(zero_word_frames(jc, 8, 0.0, seed=11))
     g = DeviceGraph.from_code(from_jax_code(jc))
     states = []
     for plain in (False, True):
-        init, step = make_layered_stepper(g, 0, 0.0, "spa", plain_spa=plain)
+        init, step = make_layered_stepper(g, 0, 0.0, "spa", plain=plain)
         states.append(step(step(init(intr.clone()))))
     for i, (a, b) in enumerate(zip(*states)):
         if i < 2:                                   # app, ctov
