@@ -57,17 +57,27 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    by band; times the fused step, the pre-fusion route, the plain step and
    the bare kernel in turns at F = 16 and 128 beside the fused step's
    bound, and the bare kernel against its plain version;
-3c. syndrome kernel against plain, bit for bit (``torch.equal``):
-   ``ops/cuda_syndrome.syndrome_rows`` against ``syndrome_rows_plain`` on
-   min-normalised unrotated rows at the main paths' shapes (layered
-   [F·1350, 4, 256] with G = 1350 and flooding [F·4050, 4, 256] with
-   G = 4050, F = 16 and 128; the default table from the decoder's own
-   cache, C = 993, nm = 32, bayes and presort on) and at odd shapes with
-   padding slots (q = 16 / 64 / 256, dc = 3 / 4 / 6 / 12, nm = q, bayes
-   and presort off, the median saturation, the full / 2dev / bordered
-   tables), on continuous and "ties" inputs; times the kernel and the
+3c. syndrome kernel against plain, both entries, bit for bit
+   (``torch.equal``).  The bare ``ops/cuda_syndrome.syndrome_rows``
+   against ``syndrome_rows_plain`` on min-normalised unrotated rows at the
+   main paths' shapes (layered [F·1350, 4, 256] with G = 1350 and flooding
+   [F·4050, 4, 256] with G = 4050, F = 16 and 128; the default table from
+   the decoder's own cache, C = 993, nm = 32, bayes and presort on) and at
+   odd shapes with padding slots (q = 16 / 64 / 256, dc = 3 / 4 / 6 / 12,
+   nm = q, bayes and presort off, the median saturation, the full / 2dev /
+   bordered tables), on continuous and "ties" inputs, timed against the
    plain version in turns at the layered and flooding F = 128 shapes
-   beside the bound;
+   beside the bound.  The fused super-layer step
+   ``cuda_syndrome.syndrome_layer`` against ``syndrome_layer_plain``
+   everywhere (frozen frames, untouched rows and the padding column and
+   edge included) and against the pre-fusion route (torch gathers,
+   normalisation, freeze and scatters around ``syndrome_rows``) on the
+   real columns and edges, on the real code's three layer plans at F = 16
+   and 128 and on odd random layers with padded slots (the odd shapes'
+   tables), from decoder-like and "ties" states with about a quarter of
+   the frames frozen; then timed at F = 128 in turns with the pre-fusion
+   route, its plain version and the bare entry on the same rows, beside
+   its bound (``--only-3c``: phases 1, 2 and 3c alone, no result line);
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -103,17 +113,19 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    5) capped at 1000 configs, C = 993; bayes; presort; the k-th
    saturation), offset 0.3, 10 iterations, dense f32, 1.8 dB, F = 128, 256
    frames, device loop; checks syndrome kernel launches = 3 per step
-   (counted on the card, none eager), no other kernel, avg_it < 10, FER <=
-   0.25;
+   (counted on the card, none eager), all of them ``syndrome_layer``, no
+   other kernel, avg_it < 10, FER <= 0.25;
 5g. syndrome decode both ways (host loop): 16 frames through the kernel
-   (3 launches per step) and through its plain version (``plain``, no
-   launch): identical decisions, iterations and convergence;
+   (3 ``syndrome_layer`` launches per step) and through its plain version
+   (``plain``, no launch): identical decisions, iterations and
+   convergence;
 6. the device loop against the host loop at full width, after each chain
    on one batch of its intrinsics (F = 128): layered EMS through K1,
    layered SPA through ``spa_layer``, list-EMS (plain torch), flooding EMS
    through K1 and flooding SPA through the bare K2 (on the flooding
-   chain's batch), layered syndrome and flooding syndrome (20 iterations)
-   through the syndrome kernel (on the syndrome chain's batch).  A fresh loop decodes (its capture), then decodes
+   chain's batch), layered syndrome (through ``syndrome_layer``) and
+   flooding syndrome (20 iterations, through the bare ``syndrome_rows``)
+   on the syndrome chain's batch.  A fresh loop decodes (its capture), then decodes
    again after every table cache was emptied and the freed memory
    refilled (the graph reads the tables its loop keeps), then the host
    loop: decisions, iterations and convergence bit-equal; the loop's
@@ -170,7 +182,9 @@ are a compact JSON record of each chain's timed runs (and its profile with
 ``--profile``, which traces a device-loop batch, counts its kernels
 against the loop's launches per step times the batch's steps, and fails
 the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel,
-or the SPA trace a kernel other than the fused SPA step's or none),
+or the SPA trace a kernel other than the fused SPA step's or none, or the syndrome trace a syndrome kernel
+other than the fused step's, none, or more than 3% of its kernel time in
+torch's index kernels),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes beside its plain version's and
@@ -758,28 +772,217 @@ def check_spa_kernel(graph):
     return max(worst, layer_err), times, layer_times
 
 
-def syn_bound_ms(t, g, dc, q, table):
-    """The least time of one ``syndrome_rows`` call on an H100: its bytes
-    (rows in and out once, the uint8 rotation tables, valid and the config
-    table once) at 3.35 TB/s against the operations these tables need a
-    row, at 67 T/s: the config sums and XORs (C dc each), and per edge
-    position about six integer steps per deviation-free config (its key,
-    bucket minimum, two histogram counts, second minimum) and ten per
-    bucket (bayes, key, rank), plus the rotations (2 dc q).  Returns (ms,
-    "bytes" or "operations")."""
+def syn_ops(t, dc, q, table):
+    """The operations one row batch of the syndrome CN needs with these
+    tables: the config sums and XORs (C dc each), and per edge position
+    about six integer steps per deviation-free config (its key, bucket
+    minimum, saturation count, second minimum) and ten per bucket (bayes,
+    key, rank), plus the rotations (2 dc q)."""
     c = table.shape[0]
     masked = int((table == 0).sum())
-    nbytes = 2 * 4 * t * dc * q + 2 * g * dc * q + g * dc + c * dc + 4 * dc
-    ops = t * (2 * c * dc + 6 * masked + 10 * dc * q + 2 * dc * q)
-    return bound(nbytes, ops)
+    return t * (2 * c * dc + 6 * masked + 10 * dc * q + 2 * dc * q)
+
+
+def syn_bound_ms(t, g, dc, q, table):
+    """The least time of one ``syndrome_rows`` call on an H100: its bytes
+    (rows in and out once, the uint8 rotation tables, valid, the config
+    table and its position lists once) at 3.35 TB/s against ``syn_ops`` at
+    67 T/s.  Returns (ms, "bytes" or "operations")."""
+    c = table.shape[0]
+    masked = int((table == 0).sum())
+    nbytes = (2 * 4 * t * dc * q + 2 * g * dc * q + g * dc + c * dc + 4 * dc
+              + 2 * masked + 4 * (dc + 1))
+    return bound(nbytes, syn_ops(t, dc, q, table))
+
+
+def syn_layer_bound_ms(f_active, g, dc, q, table):
+    """The least time of one ``syndrome_layer`` call on an H100: the APP
+    and CtoV rows of the active frames read once and written once, the
+    layer's index, rotation and valid tables and the CN's tables once, at
+    3.35 TB/s, against ``syn_ops`` and the step's own four operations a
+    symbol (extrinsic, its min and normalisation, APP sum) at 67 T/s.
+    Returns (ms, "bytes" or "operations")."""
+    t = f_active * g
+    c = table.shape[0]
+    masked = int((table == 0).sum())
+    nbytes = (4 * 4 * t * dc * q + 2 * 4 * g * dc + 2 * g * dc * q + g * dc
+              + c * dc + 4 * dc + 2 * masked + 4 * (dc + 1))
+    return bound(nbytes, syn_ops(t, dc, q, table) + 4 * t * dc * q)
+
+
+def syn_state(f, n1, e1, q, cols, edges, kind, seed):
+    """A layered state for ``syndrome_layer``: "decoder" as ``spa_state``;
+    "ties": APP and CtoV of integer levels (0..5, APP = X + CtoV on the
+    layer's slots), so that equal values are common in the lists, the
+    buckets and the selections; the same frozen frames."""
+    app, ctov, active = spa_state(f, n1, e1, q, cols, edges, seed)
+    if kind == "ties":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        app = torch.randint(0, 6, (f, n1, q), generator=gen,
+                            device="cuda").float()
+        ctov = torch.randint(0, 6, (f, e1, q), generator=gen,
+                             device="cuda").float()
+        app[:, -1] = 0
+        ctov[:, -1] = 0
+        app[:, cols.long()] += ctov[:, edges.long()]
+    return app, ctov, active
+
+
+def syn_old_route(app, ctov, active, cols, edges, rin, rout, valid, *cn):
+    """The layered syndrome super-layer before the fused kernel: torch
+    gathers, normalisation, freeze and scatters around ``syndrome_rows``
+    (padded slots write their CN output to the padding column and edge)."""
+    act = active[:, None, None, None]
+    app_rows = app[:, cols]
+    ctov_rows = ctov[:, edges]
+    mvc = app_rows - ctov_rows
+    mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+    f, g, dc, q = mvc.shape
+    mcv = cuda_syndrome.syndrome_rows(mvc.reshape(f * g, dc, q), rin, rout,
+                                      valid, *cn).reshape(mvc.shape)
+    mcv = torch.where(act, mcv, ctov_rows)
+    new_app = torch.where(act, mvc + mcv, app_rows)
+    ctov[:, edges] = mcv
+    app[:, cols] = new_app
+
+
+def check_syn_layer_case(label, state, layer, cn, lists, kind):
+    """One ``syndrome_layer`` call against ``syndrome_layer_plain`` and the
+    pre-fusion route on clones of ``state``: the kernel equals the plain
+    version bit for bit everywhere (frozen frames, untouched rows and the
+    padding column and edge included), and both equal the pre-fusion
+    route on the real columns and edges.  Returns the largest error."""
+    app, ctov, active = state
+    cols, edges, rin, rout, valid = layer
+    out = {}
+    for name, fn in (("fused", lambda *a: cuda_syndrome.syndrome_layer(
+                          *a, lists)),
+                     ("plain", cuda_syndrome.syndrome_layer_plain),
+                     ("old", lambda *a: syn_old_route(
+                          *a[:3], a[3].long(), a[4].long(), *a[5:]))):
+        a, c = app.clone(), ctov.clone()
+        fn(a, c, active, cols, edges, rin, rout, valid, *cn)
+        out[name] = (a, c)
+    torch.cuda.synchronize()
+    (a_k, c_k), (a_p, c_p), (a_o, c_o) = out["fused"], out["plain"], \
+        out["old"]
+    real = torch.ones(cols.shape, dtype=torch.bool, device="cuda") \
+        if valid is None else valid
+    own_c, own_e = cols[real].long(), edges[real].long()
+    exact = torch.equal(a_k, a_p) and torch.equal(c_k, c_p)
+    old_same = (torch.equal(a_o[:, own_c], a_p[:, own_c])
+                and torch.equal(c_o[:, own_e], c_p[:, own_e]))
+    frozen = ~active
+    kept = (torch.equal(a_k[frozen], app[frozen])
+            and torch.equal(c_k[frozen], ctov[frozen])
+            and bool((a_k[:, -1] == 0).all() and (c_k[:, -1] == 0).all()))
+    err = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
+    f, (g, dc), q = app.shape[0], cols.shape, app.shape[2]
+    print(f"syndrome_layer {label} F={f} G={g} dc={dc} q={q} nm={cn[2]} "
+          f"C={cn[0].shape[0]} bayes={cn[4]} presort={cn[5]} frozen "
+          f"{int(frozen.sum())} padding slots={int((~real).sum())} {kind}: "
+          f"bit-exact={exact} max_abs_err={err}; old route on real slots "
+          f"{old_same}; frozen/padding untouched {kept}", flush=True)
+    check(exact and old_same and kept,
+          f"syndrome_layer != plain / old route at {label} {kind}")
+    return err
+
+
+def check_syn_layer(graph):
+    """3c, the fused entry: ``syndrome_layer`` against its plain version
+    and the pre-fusion route on the real code's three layer plans at F = 16
+    and 128 (the default table) and on odd random layers with padded slots
+    (SYN_ODD's shapes and tables), each from a decoder-like or "ties" state
+    with about a quarter of the frames frozen; then its times at F = 128
+    against the old route, the plain version and the bare entry on the
+    same rows.  Returns (largest error, times)."""
+    worst = 0.0
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1 = code.n + 1, graph.n_edges + 1
+    tabs = _syndrome_tables(4, 32, syn_key({}), "cuda")
+    cn = (tabs["table"], tabs["kth"], 32, OFFSET, True, True)
+    for f in (16, 128):
+        for k, p in enumerate(plans):
+            kind = KINDS[k % 2]
+            state = syn_state(f, n1, e1, code.q, p["cols"], p["edge_ids"],
+                              kind, seed=900 + f + k)
+            worst = max(worst, check_syn_layer_case(
+                f"layer {k}", state, (p["cols32"], p["edge_ids32"],
+                                      p["rot_in8"], p["rot_out8"],
+                                      p["valid"]), cn, tabs["lists"], kind))
+            del state
+    for i, (t, g, dc, q, nm, kw, bayes, presort) in enumerate(SYN_ODD):
+        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, q, 3, seed=950 + i)
+        gf = get_gf(q)
+        coefs_np = coefs.cpu().numpy()
+        rin, rout = (torch.as_tensor(
+            rotation_table(coefs_np, gf, d).reshape(g, dc, q)
+            .astype(np.uint8), device="cuda") for d in ("in", "out"))
+        t_odd = _syndrome_tables(dc, nm, syn_key(kw), "cuda")
+        cn_odd = (t_odd["table"], t_odd["kth"], nm, OFFSET, bayes, presort)
+        for kind in ("decoder", "ties"):
+            state = syn_state(t // g, n1o, e1o, q, cols, edges, kind,
+                              seed=960 + i)
+            worst = max(worst, check_syn_layer_case(
+                "odd", state, (cols, edges, rin, rout, coefs != 0), cn_odd,
+                t_odd["lists"], kind))
+    times = {}
+    p = plans[0]
+    layer = (p["cols32"], p["edge_ids32"], p["rot_in8"], p["rot_out8"],
+             p["valid"])
+    cols64, edges64 = p["cols"], p["edge_ids"]
+    g, dc = p["cols32"].shape
+    q = code.q
+    f = 128
+    app, ctov, _ = spa_state(f, n1, e1, q, cols64, edges64, seed=7)
+    active = torch.ones(f, dtype=torch.bool, device="cuda")
+    copies = {k: (app.clone(), ctov.clone()) for k in ("fused", "old",
+                                                      "plain")}
+    mvc = app[:, cols64] - ctov[:, edges64]
+    mvc = (mvc - mvc.min(dim=-1, keepdim=True).values).reshape(-1, dc, q)
+    fns = {
+        "fused": lambda: cuda_syndrome.syndrome_layer(
+            *copies["fused"], active, *layer, *cn, tabs["lists"]),
+        "old": lambda: syn_old_route(*copies["old"], active, cols64, edges64,
+                                     *layer[2:], *cn, tabs["lists"]),
+        "plain": lambda: cuda_syndrome.syndrome_layer_plain(
+            *copies["plain"], active, *layer, *cn),
+        "bare": lambda: cuda_syndrome.syndrome_rows(
+            mvc, *layer[2:], *cn, tabs["lists"]),
+    }
+    reps = {"fused": 10, "bare": 10, "old": 3, "plain": 2}
+    got = collections.defaultdict(list)
+    # in turns, compared within one call only
+    for name in ("plain", "old", "fused", "bare", "bare", "fused", "old",
+                 "plain"):
+        got[name].append(time_ms(fns[name], reps[name]))
+    b_ms, b_by = syn_layer_bound_ms(f, g, dc, q, tabs["table"])
+    fused = sum(got["fused"]) / 2
+    times = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                 bound_by=b_by)
+    print(f"syndrome_layer F={f} G={g} dc={dc} q={q} C="
+          f"{tabs['table'].shape[0]}: fused "
+          + " / ".join(f"{v:.4f}" for v in got["fused"])
+          + " ms, old route " + " / ".join(f"{v:.4f}" for v in got["old"])
+          + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+          + " ms, bare syndrome_rows "
+          + " / ".join(f"{v:.4f}" for v in got["bare"])
+          + f" ms per call; bound {b_ms:.4f} ms ({b_by}), fused at "
+          f"{100 * b_ms / fused:.2f}% of it", flush=True)
+    del app, ctov, copies, mvc, fns
+    torch.cuda.empty_cache()
+    return worst, times
 
 
 def check_syndrome_kernel(graph):
-    """3c: the syndrome kernel against its plain version, bit for bit, at
-    the main paths' shapes (layered and flooding, F = 16 and 128, with
-    G = 1350 and 4050; the default table, nm = 32) and at odd shapes; then
-    its times at the layered and flooding F = 128 shapes.  Returns the
-    largest error and {(path, T): times}."""
+    """3c: the syndrome kernel's two entries against their plain versions,
+    bit for bit.  ``syndrome_rows`` at the main paths' shapes (layered and
+    flooding, F = 16 and 128, with G = 1350 and 4050; the default table,
+    nm = 32) and at odd shapes, then its times at the layered and flooding
+    F = 128 shapes; ``syndrome_layer`` as ``check_syn_layer``.  Returns the
+    largest error, {(path, T): times} and the fused entry's times."""
     phase("3c syndrome kernel against plain")
     worst = 0.0
     layer = _layer_plan(graph, "cuda")[0]
@@ -796,19 +999,18 @@ def check_syndrome_kernel(graph):
             cases):
         _, dc, q = rin.shape
         tabs = _syndrome_tables(dc, nm, syn_key(kw), "cuda")
-        table, kth = tabs["table"], tabs["kth"]
+        cn = (tabs["table"], tabs["kth"], nm, OFFSET, bayes, presort)
         for kind in KINDS:
             x = rows_input(t, dc, q, kind, seed=800 + i)
-            got = cuda_syndrome.syndrome_rows(x, rin, rout, valid, table, kth,
-                                              nm, OFFSET, bayes, presort)
-            want = cuda_syndrome.syndrome_rows_plain(
-                x, rin, rout, valid, table, kth, nm, OFFSET, bayes, presort)
+            got = cuda_syndrome.syndrome_rows(x, rin, rout, valid, *cn,
+                                              tabs["lists"])
+            want = cuda_syndrome.syndrome_rows_plain(x, rin, rout, valid, *cn)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             exact = torch.equal(got, want)
             pad = 0 if valid is None else int((~valid).sum())
             print(f"syndrome_rows {path} T={t} G={rin.shape[0]} dc={dc} q={q} "
-                  f"nm={nm} C={table.shape[0]} {kw or 'default table'} "
+                  f"nm={nm} C={cn[0].shape[0]} {kw or 'default table'} "
                   f"bayes={bayes} presort={presort} padding slots={pad} "
                   f"{kind}: bit-exact={exact} max_abs_err={err}", flush=True)
             check(exact, f"syndrome_rows != plain at {path} T={t} {kind}")
@@ -817,14 +1019,14 @@ def check_syndrome_kernel(graph):
         torch.cuda.empty_cache()
     times = {}
     tabs = _syndrome_tables(4, 32, syn_key({}), "cuda")
-    table, kth = tabs["table"], tabs["kth"]
-    for path, t, rin, rout, valid, nm, *_ in (cases[1], cases[3]):
+    cn = (tabs["table"], tabs["kth"], 32, OFFSET, True, True)
+    for path, t, rin, rout, valid, *_ in (cases[1], cases[3]):
         x = rows_input(t, 4, 256, "uniform", seed=7)
         fns = {
             "kernel": lambda: cuda_syndrome.syndrome_rows(
-                x, rin, rout, valid, table, kth, nm, OFFSET, True, True),
+                x, rin, rout, valid, *cn, tabs["lists"]),
             "plain": lambda: cuda_syndrome.syndrome_rows_plain(
-                x, rin, rout, valid, table, kth, nm, OFFSET, True, True),
+                x, rin, rout, valid, *cn),
         }
         reps = {"kernel": 10, "plain": 2}
         got = collections.defaultdict(list)
@@ -832,11 +1034,11 @@ def check_syndrome_kernel(graph):
         for name in ("plain", "kernel", "kernel", "plain"):
             got[name].append(time_ms(fns[name], reps[name]))
         g = rin.shape[0]
-        b_ms, b_by = syn_bound_ms(t, g, 4, 256, table)
+        b_ms, b_by = syn_bound_ms(t, g, 4, 256, tabs["table"])
         times[(path, t)] = dict({k: sum(v) / 2 for k, v in got.items()},
                                 bound=b_ms, bound_by=b_by)
-        print(f"syndrome_rows {path} T={t} G={g} dc=4 q=256 nm={nm} "
-              f"C={table.shape[0]}: kernel "
+        print(f"syndrome_rows {path} T={t} G={g} dc=4 q=256 nm=32 "
+              f"C={tabs['table'].shape[0]}: kernel "
               + " / ".join(f"{v:.4f}" for v in got["kernel"])
               + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
               + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
@@ -844,7 +1046,8 @@ def check_syndrome_kernel(graph):
               flush=True)
         del x, fns
         torch.cuda.empty_cache()
-    return worst, times
+    layer_err, layer_times = check_syn_layer(graph)
+    return max(worst, layer_err), times, layer_times
 
 
 def profile_batch(mc, tag, out_dir="profile_out"):
@@ -894,14 +1097,23 @@ def profile_batch(mc, tag, out_dir="profile_out"):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     traced = {k: sum(1 for e in kernels if k in e["name"])
               for k in ("ems_rows_kernel", "spa_row_kernel",
-                        "syndrome_rows_kernel")}
-    print(f"decoder steps {int(counters[5])}; kernels in the trace {traced}",
+                        "syndrome_kernel")}
+    # torch's index kernels (gathers, index_put scatters)
+    index_us = sum(e["dur"] for e in kernels
+                   if any(w in e["name"].lower()
+                          for w in ("index", "gather", "scatter")))
+    print(f"decoder steps {int(counters[5])}; kernels in the trace {traced}; "
+          f"index/gather/scatter kernels {index_us / 1e3:.3f} ms = "
+          f"{100 * index_us / max(total, 1):.2f}% of kernel time",
           flush=True)
     return {"wall_ms": round(wall_us / 1e3, 3),
             "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
             "steps": int(counters[5]), "traced": traced,
+            "index_pct": round(100 * index_us / max(total, 1), 2),
             "spa_kernels": sorted({e["name"] for e in kernels
-                                   if "spa_" in e["name"]})}
+                                   if "spa_" in e["name"]}),
+            "syn_kernels": sorted({e["name"] for e in kernels
+                                   if "syndrome_kernel" in e["name"]})}
 
 
 def check_traced(prof, kernel, per_step, what):
@@ -1039,7 +1251,7 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
 def reset_launches():
     """Set both kinds of launch counts to 0 (synchronises the card)."""
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
-    cuda_syndrome.launches = 0
+    cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
     cuda_syndrome.reset_device_launches()
@@ -1047,12 +1259,14 @@ def reset_launches():
 
 def read_launches() -> dict:
     """Kernel launches by kernel, counted by the kernels themselves on the
-    card (a graph's replays included); "spa_layer" is the part of the SPA
-    kernel's launches made by its fused entry."""
+    card (a graph's replays included); "spa_layer" and "syndrome_layer"
+    are the parts of the SPA and syndrome kernels' launches made by their
+    fused entries."""
     spa, layer = cuda_spa.device_launches()
+    syn, syn_layer = cuda_syndrome.device_launches()
     return {"fb_checknode": cuda_cn.device_launches(),
             "spa_checknode": spa, "spa_layer": layer,
-            "syndrome_checknode": cuda_syndrome.device_launches()}
+            "syndrome_checknode": syn, "syndrome_layer": syn_layer}
 
 
 def read_eager() -> dict:
@@ -1060,7 +1274,8 @@ def read_eager() -> dict:
     return {"fb_checknode": cuda_cn.launches,
             "spa_checknode": cuda_spa.launches,
             "spa_layer": cuda_spa.layer_launches,
-            "syndrome_checknode": cuda_syndrome.launches}
+            "syndrome_checknode": cuda_syndrome.launches,
+            "syndrome_layer": cuda_syndrome.layer_launches}
 
 
 def read_host_launches(what) -> dict:
@@ -1110,7 +1325,7 @@ def check_small_card_decodes():
         check(steps > 1, f"{name}: uninformative batch")
         check(launches == {"fb_checknode": per_step * steps,
                            "spa_checknode": 0, "spa_layer": 0,
-                           "syndrome_checknode": 0},
+                           "syndrome_checknode": 0, "syndrome_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -1333,9 +1548,13 @@ def main(argv) -> int:
           and code.m_rows == CODE_ROWS, "unexpected layer sizes")
     graph = DeviceGraph.from_code(code)
 
+    if "--only-3c" in argv:
+        check_syndrome_kernel(graph)
+        print("--only-3c: the other phases were not run", flush=True)
+        return 0
     max_err, k_times = check_kernel(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
-    syn_err, syn_times = check_syndrome_kernel(graph)
+    syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
@@ -1379,6 +1598,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         SUMMARY["EMS"][-1]["profile"] = profile_batch(mc, "ems")
         SUMMARY["EMS"][-1]["profile"].pop("spa_kernels")
+        SUMMARY["EMS"][-1]["profile"].pop("syn_kernels")
         check(SUMMARY["EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the EMS chain's profile")
         check_traced(SUMMARY["EMS"][-1]["profile"], "ems_rows_kernel",
@@ -1437,6 +1657,7 @@ def main(argv) -> int:
           f"steps")
     if "--profile" in argv:
         prof = profile_batch(mc, "spa")
+        prof.pop("syn_kernels")
         names = prof.pop("spa_kernels")
         print(f"SPA kernels in the trace: {names}", flush=True)
         check(names and all("spa_row_kernel<8, true>" in n for n in names),
@@ -1461,6 +1682,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         SUMMARY["list-EMS"][-1]["profile"] = profile_batch(mc, "list")
         SUMMARY["list-EMS"][-1]["profile"].pop("spa_kernels")
+        SUMMARY["list-EMS"][-1]["profile"].pop("syn_kernels")
     free(mc)
     del mc
 
@@ -1529,6 +1751,7 @@ def main(argv) -> int:
         SUMMARY["flooding EMS"][-1]["profile"] = profile_batch(mc,
                                                                "flooding")
         SUMMARY["flooding EMS"][-1]["profile"].pop("spa_kernels")
+        SUMMARY["flooding EMS"][-1]["profile"].pop("syn_kernels")
         check(SUMMARY["flooding EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the flooding EMS profile")
         check_traced(SUMMARY["flooding EMS"][-1]["profile"],
@@ -1541,15 +1764,16 @@ def main(argv) -> int:
                             nm=0, offset=0.3, storage="dense",
                             dtype="float32")
     mc, syn_res, syn_launches = run_chain("syndrome", code, enc, syn_dec, 1.8)
-    check(syn_launches["syndrome_checknode"]
+    check(syn_launches["syndrome_checknode"] == syn_launches["syndrome_layer"]
           == n_layers * syn_res.decoder_steps > 0
-          and sum(syn_launches.values()) == syn_launches["syndrome_checknode"],
+          and sum(syn_launches.values())
+          == 2 * syn_launches["syndrome_checknode"],
           f"launches {syn_launches} for {syn_res.decoder_steps} decoder steps")
     paths["syndrome_checknode"]["layered syndrome"] = syn_launches[
         "syndrome_checknode"]
     intr = mc.gen(0)[1]
     check_loops("layered syndrome", graph, intr, syn_dec,
-                {"syndrome_checknode": n_layers})
+                {"syndrome_checknode": n_layers, "syndrome_layer": n_layers})
     fl_syn = dataclasses.replace(syn_dec, schedule="flooding", max_iters=20)
     _, replay = check_loops("flooding syndrome", graph, intr, fl_syn,
                             {"syndrome_checknode": 1})
@@ -1573,18 +1797,29 @@ def main(argv) -> int:
     print(f"F=16: identical decisions/iterations/convergence: {same}; iters "
           f"{it_k.tolist()}; launches kernel {l_k}, plain {l_p}", flush=True)
     check(same, "syndrome kernel and plain decodes differ")
-    check(l_k["syndrome_checknode"] == n_layers * int(it_k.max()) > 0
-          and sum(l_k.values()) == l_k["syndrome_checknode"]
+    check(l_k["syndrome_checknode"] == l_k["syndrome_layer"]
+          == n_layers * int(it_k.max()) > 0
+          and sum(l_k.values()) == 2 * l_k["syndrome_checknode"]
           and sum(l_p.values()) == 0,
           f"syndrome launches {l_k} (plain {l_p}) for {int(it_k.max())} "
           f"steps")
     if "--profile" in argv:
         prof = profile_batch(mc, "syndrome")
         prof.pop("spa_kernels")
+        names = prof.pop("syn_kernels")
+        print(f"syndrome kernels in the trace: {names}", flush=True)
         check(prof["topk_kernels"] == 0,
               "torch.topk kernels in the syndrome chain's profile")
-        check_traced(prof, "syndrome_rows_kernel", n_layers,
-                     "syndrome trace")
+        check(names and all("syndrome_kernel<8, true>" in n for n in names),
+              f"the syndrome trace holds other syndrome kernels than the "
+              f"fused step: {names}")
+        # the sweep gathered and scattered [F, 1350, 4, 256] f32 blocks
+        # (21% of the batch); what is left is the decisions' and the
+        # syndrome check's small gathers
+        check(prof["index_pct"] < 3.0,
+              f"the syndrome trace spends {prof['index_pct']}% in index "
+              f"kernels: the sweep still gathers")
+        check_traced(prof, "syndrome_kernel", n_layers, "syndrome trace")
         SUMMARY["syndrome"][-1]["profile"] = prof
     free(mc)
     del mc, intr16
@@ -1633,13 +1868,16 @@ def main(argv) -> int:
         "name": "syndrome_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/syndrome_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/syndrome_cn.py:240",
-        "entry_points": ["syndrome_rows"],
+        "entry_points": ["syndrome_layer", "syndrome_rows"],
         "launches": sum(paths["syndrome_checknode"].values()),
         "paths": list(paths["syndrome_checknode"]),
         "launches_by_path": paths["syndrome_checknode"],
         "max_abs_err": syn_err, "rows": 128 * SLICE_ROWS,
-        "ms": syn_main["kernel"], "plain_ms": syn_main["plain"],
-        "bound_ms": syn_main["bound"], "bound_by": syn_main["bound_by"],
+        "ms": syn_layer["fused"], "plain_ms": syn_layer["plain"],
+        "old_route_ms": syn_layer["old"], "bare_ms": syn_main["kernel"],
+        "bare_plain_ms": syn_main["plain"],
+        "bound_ms": syn_layer["bound"], "bound_by": syn_layer["bound_by"],
+        "bare_bound_ms": syn_main["bound"],
         "library_ms": None, "flooding_rows": 128 * CODE_ROWS,
         "flooding_ms": syn_flood["kernel"],
         "flooding_plain_ms": syn_flood["plain"],

@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Time design variants of the SPA kernel against its committed source, on
-one CUDA card.
+"""Time design variants of the SPA and syndrome kernels against their
+committed sources, on one CUDA card.
 
-    python3 chip_variants.py             # every variant, from the repo root
-    python3 chip_variants.py NAME ...    # some of them
+    python3 chip_variants.py                       # every SPA variant
+    python3 chip_variants.py NAME ...              # some of them
+    python3 chip_variants.py --syndrome [NAME ...] # the syndrome kernel's
+    python3 chip_variants.py --syndrome --build    # build them, time none
+    python3 chip_variants.py --syndrome --source PATH [NAME ...]
+                                       # variants of another version of it
 
-A variant is ``ems_nbldpc_torch/csrc/spa_checknode.cu`` with a few text
+A variant is a kernel source of ``ems_nbldpc_torch/csrc/`` with a few text
 substitutions, written to a temporary directory, built by ``ops/_build.py``
 (into ``ems_nbldpc_torch/build/``, named by its digest) and loaded in place
-of the committed library.  All variants are timed in one process, in
-turns, forward then backward: the fused ``spa_layer`` on the first
-super-layer of the full-width code (random_regular(8100, 4050, 256, dv=2),
-1350 rows, dc = 4) at F = 128 with every frame active, and the bare
-``spa_checknode`` on the same 172,800 gathered rows, 20 calls each by CUDA
-events.  Each variant's ``spa_layer`` output is held against
-``spa_layer_plain`` (exp(-cost) error; the real variants must stay within
-chip_smoke.py's 1e-5).  "design" variants are alternatives the kernel
-does not take; "diagnostic" ones drop work (their results are wrong) to
-show what the time is spent on.  Prints one line per variant, the card's
-name and power limit, and a JSON record.  No JAX is imported.
+of the committed library.  All variants of a kernel are timed in one
+process, in turns, forward then backward, on the first super-layer of the
+full-width code (random_regular(8100, 4050, 256, dv=2), 1350 rows,
+dc = 4) at F = 128 with every frame active, 20 calls each by CUDA events:
+
+* SPA: the fused ``spa_layer`` and the bare ``spa_checknode`` on the same
+  172,800 gathered rows; each variant's ``spa_layer`` output is held
+  against ``spa_layer_plain`` (exp(-cost) error; the real variants must
+  stay within chip_smoke.py's 1e-5).
+* syndrome (the default table, C = 993, nm = 32, bayes and presort on):
+  the fused ``syndrome_layer`` and the bare ``syndrome_rows`` on the same
+  gathered rows; each variant's ``syndrome_layer`` output is held against
+  ``syndrome_layer_plain`` (the real variants must equal it bit for bit).
+  The variants are built in parallel.
+
+"design" variants are alternatives the kernel does not take; "diagnostic"
+ones drop work (their results are wrong) to show what the time is spent
+on.  Prints one line per variant, the card's name and power limit, and a
+JSON record.  No JAX is imported.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import functools
 import json
 import os
@@ -32,10 +45,11 @@ import tempfile
 import torch
 
 import chip_smoke as cs
+from ems_nbldpc_torch.decoder.flooding import _syndrome_tables, syn_key
 from ems_nbldpc_torch.decoder.graph import DeviceGraph
 from ems_nbldpc_torch.decoder.layered import _layer_plan
 from ems_nbldpc_torch.models.code import random_regular
-from ems_nbldpc_torch.ops import _build, cuda_spa
+from ems_nbldpc_torch.ops import _build, cuda_spa, cuda_syndrome
 
 EXP = ("x[j] = expf(-fminf(x[j], kLogEps));", "x[j] = -fminf(x[j], kLogEps);")
 LOG = ("y[j] = -logf(fmaxf(fmaxf(y[j] * invq, kOutFloor), kPFloor));",
@@ -100,11 +114,166 @@ def build_variant(name, source, root):
         cuda_spa._lib.cache_clear()
 
 
+SYN_G0 = ("const unsigned g0 = LA[et * p.nm].y;",
+          "const unsigned g0 = LA[et * p.nm].y & (q - 1);")
+SYN_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
+    "committed": ("design", []),
+    # the list selections from the lanes' smallest up, not from their
+    # second smallest when that holds at most nm - 1 keys
+    "no_list_floor": ("design", [("  if (k < 32) {", "  if (false) {")]),
+    # 8 or 32 masked configs a lane in registers, not 16 (8: the rest of
+    # the default table's 489 spill to shared memory)
+    "regs_8": ("design", [("constexpr int REG_CFG = 16;",
+                           "constexpr int REG_CFG = 8;")]),
+    "regs_32": ("design", [("constexpr int REG_CFG = 16;",
+                            "constexpr int REG_CFG = 32;")]),
+    # at most 102 registers a thread, so that 20 warps fit an SM's
+    "regs_cap": ("design", [
+        ("__global__ void syndrome_kernel(const Params p) {",
+         "__global__ void __launch_bounds__(128, 5)\n"
+         "    syndrome_kernel(const Params p) {")]),
+    # plain stores for the write-back, not streaming ones
+    "plain_stores": ("design", [
+        ("#include <stdint.h>\n",
+         "#include <stdint.h>\n#define __stcs(p, v) (*(p) = (v))\n")]),
+    # what the time is spent on (diagnostics that leave list entries
+    # unset keep the bucket ids in range: the first row finds shared
+    # memory as it was left)
+    "no_sat_keep_selections": ("diagnostic", [
+        ("const unsigned sb = warp_search(lo, top, k,",
+         "const unsigned sb = warp_search(lo, lo, k,"),
+        ("thr = warp_search(lo, top, keep - 1,",
+         "thr = warp_search(lo, lo, keep - 1,")]),
+    "no_list_ranks": ("diagnostic", [
+        ("#pragma unroll 4\n    for (int i = 0; i < nm; ++i) {",
+         "    for (int i = 0; i < 0; ++i) {"),
+        ("      rank[u] = 0;",
+         "      rank[u] = min(j0 + 32 * u, dc * nm - 1) % nm;"), SYN_G0]),
+    "no_bucket_passes": ("diagnostic", [
+        ("    if (kc[j] != NONE) atomicMin(&B1[bb[j]], kc[j]);", "    ;"),
+        ("  if (p.bayes) {\n    unsigned m[REG_CFG];",
+         "  if (false) {\n    unsigned m[REG_CFG];")]),
+    "no_positions": ("diagnostic", [
+        ("    for (int t = 0; t < dc; ++t)\n      position<",
+         "    for (int t = 0; t < 0; ++t)\n      position<")]),
+}
+
+
+def variant_source(name, variants, source, root, file):
+    """Write ``variants[name]``'s source under ``root``; returns its path."""
+    src = source
+    for old, new in variants[name][1]:
+        if old not in src:
+            raise SystemExit(f"FAIL: variant {name}: {old!r} not in source")
+        src = src.replace(old, new)
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    path = os.path.join(d, file)
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+def layer_kernel_report(log):
+    """ptxas' spill and register lines of syndrome_kernel<8, true> (the
+    layered call's instance) from a verbose build's log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "ILi8ELb1E" in line:
+            return "; ".join(x.split(":", 1)[-1].strip()
+                             for x in lines[i + 1:i + 4]
+                             if "spill" in x or "registers" in x)
+    return "not found"
+
+
+def syndrome_main(names) -> int:
+    """Time the syndrome kernel's variants ``names`` (see the module
+    docstring); with ``--build`` first, build them only (in parallel: the
+    digest-named libraries then serve later runs of the same call)."""
+    build_only = names[:1] == ["--build"]
+    names = names[1:] if build_only else names
+    file = "syndrome_checknode.cu"
+    base = os.path.join(_build.CSRC, file)
+    if names[:1] == ["--source"]:
+        base, names = names[1], names[2:]
+    names = names or list(SYN_VARIANTS)
+    unknown = [n for n in names if n not in SYN_VARIANTS]
+    if unknown:
+        raise SystemExit(f"FAIL: unknown syndrome variants {unknown}")
+    with open(base) as f:
+        source = f.read()
+    print(f"variants of {base}", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        paths = {n: variant_source(n, SYN_VARIANTS, source, root, file)
+                 for n in names}
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            built = {n: pool.submit(_build.build, "syndrome_checknode", True,
+                                    paths[n]) for n in names}
+            built = {n: fut.result() for n, fut in built.items()}
+    for n, (_, seconds, log) in built.items():
+        print(f"built {n} in {seconds:.1f} s; syndrome_kernel<8, true>: "
+              f"{layer_kernel_report(log)}", flush=True)
+    if build_only:
+        return 0
+    libs = {n: cuda_syndrome.bind(built[n][0]) for n in names}
+    graph = DeviceGraph.from_code(random_regular(8100, 4050, 256, dv=2,
+                                                 seed=0))
+    p = _layer_plan(graph, "cuda")[0]
+    layer = (p["cols32"], p["edge_ids32"], p["rot_in8"], p["rot_out8"],
+             p["valid"])
+    tabs = _syndrome_tables(4, 32, syn_key({}), "cuda")
+    cn = (tabs["table"], tabs["kth"], 32, cs.OFFSET, True, True)
+    app, ctov, _ = cs.spa_state(128, graph.code.n + 1, graph.n_edges + 1,
+                                256, p["cols"], p["edge_ids"], seed=7)
+    active = torch.ones(128, dtype=torch.bool, device="cuda")
+    mvc = app[:, p["cols"]] - ctov[:, p["edge_ids"]]
+    mvc = (mvc - mvc.min(dim=-1, keepdim=True).values).reshape(-1, 4, 256)
+    want = app.clone(), ctov.clone()
+    cuda_syndrome.syndrome_layer_plain(*want, active, *layer, *cn)
+    exact, times = {}, collections.defaultdict(list)
+    for order in (names, names[::-1]):
+        for name in order:
+            cuda_syndrome._lib = functools.lru_cache(None)(
+                lambda lib=libs[name]: lib)
+            a, c = app.clone(), ctov.clone()
+            cuda_syndrome.syndrome_layer(a, c, active, *layer, *cn,
+                                         tabs["lists"])
+            torch.cuda.synchronize()
+            exact[name] = torch.equal(a, want[0]) and torch.equal(c, want[1])
+            print(f"{name}: ran, bit-exact vs plain {exact[name]}",
+                  flush=True)
+            fused = cs.time_ms(lambda: cuda_syndrome.syndrome_layer(
+                a, c, active, *layer, *cn, tabs["lists"]), REPS)
+            bare = cs.time_ms(lambda: cuda_syndrome.syndrome_rows(
+                mvc, *layer[2:], *cn, tabs["lists"]), REPS)
+            times[name].append((fused, bare))
+            del a, c
+    for name in names:
+        f, b = zip(*times[name])
+        print(f"{name:18s} {SYN_VARIANTS[name][0]:10s} syndrome_layer F=128 "
+              + " / ".join(f"{v:.4f}" for v in f) + " ms; syndrome_rows "
+              "T=172800 " + " / ".join(f"{v:.4f}" for v in b)
+              + f" ms; bit-exact vs plain {exact[name]}", flush=True)
+    for name in names:
+        if SYN_VARIANTS[name][0] == "design" and not exact[name]:
+            raise SystemExit(f"FAIL: design variant {name} disagrees with "
+                             f"the plain version")
+    print(cs.card_line())
+    print(json.dumps({"syndrome_variants": {n: {
+        "kind": SYN_VARIANTS[n][0],
+        "syndrome_layer_ms": [t[0] for t in times[n]],
+        "syndrome_rows_ms": [t[1] for t in times[n]],
+        "bit_exact": exact[n]} for n in names}}))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this run needs a "
               "CUDA card", file=sys.stderr)
         return 1
+    if argv[:1] == ["--syndrome"]:
+        return syndrome_main(argv[1:])
     names = argv or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

@@ -1,15 +1,29 @@
-// The whole syndrome-EMS check-node step of a batch of rows, one block per
-// row.
+// The syndrome-EMS check node, one warp per row, and the whole layered
+// syndrome super-layer step around it in one launch.
 //
 // Replaces the XLA sorts of ems_nbldpc_tpu/ops/syndrome_cn.py
 // (syndrome_checknode, :240), with the top-k selection and the rotations
-// around its call sites (decoder/layered.py:138-150, 170-172, 196 and
-// decoder/flooding.py:118-130, 163-170).  For every row t of x [T, dc, q]
-// (unrotated, min-normalised VN-to-CN messages), with g = t % G indexing the
-// per-position tables rot_in, rot_out [G, dc, q] (uint8) and the optional
-// valid [G, dc], and with the config table [C, dc] (uint8, entry k: the k-th
-// best entry of that edge) and the saturation ranks kth [dc] (per presorted
-// edge position) shared by all rows, it computes
+// around its call sites (decoder/layered.py:138-150, 170-172, 196-203 and
+// decoder/flooding.py:118-130, 163-170).  Two entry points share one
+// device-side row routine:
+//
+// * syndrome_layer_launch: one super-layer of the layered sweep, in place on
+//   the decoder state APP [F, N+1, q] and CtoV [F, E+1, q] (f32):
+//     for each frame f with active[f], each row r < G of the layer:
+//       mvc_i = APP[f, cols[r,i]] - CtoV[f, edges[r,i]];  mvc_i -= min mvc_i
+//       mcv   = CN(mvc) (below, with the tables of row r)
+//       for each real slot i (valid[r,i]):
+//         CtoV[f, edges[r,i]] = mcv_i;  APP[f, cols[r,i]] = mvc_i + mcv_i
+//   Frozen frames are neither read nor written, and padded slots write
+//   nothing, so the padding column N and edge E keep their zeros.
+// * syndrome_rows_launch: CN on rows x [T, dc, q] -> out [T, dc, q], row t
+//   with the tables of row t % G (the flooding schedule).
+//
+// CN of one row x [dc, q] (unrotated, min-normalised VN-to-CN messages),
+// with the per-position tables rot_in, rot_out [G, dc, q] (uint8) and the
+// optional valid [G, dc], the config table [C, dc] (uint8, entry k: the
+// k-th best entry of that edge) and the saturation ranks kth [dc] (per
+// presorted edge position) shared by all rows:
 //   1. rotate in: vr[u] = x[rot_in[u]]; invalid slots become the delta
 //      message (0 at symbol 0, INF elsewhere);
 //   2. per edge, the nm smallest (value, GF id) pairs, ascending, lower id
@@ -22,7 +36,8 @@
 //      t ("masked"), with vbits = bf16 bits of min(llr, INF) and the bucket
 //      b = gf ^ (t's best id):
 //        sat   = the kth[t]-th smallest vbits, counted with multiplicity;
-//        v1, v2 = the smallest and second smallest vbits of each bucket;
+//        v1, v2 = the smallest vbits of each bucket (ties: the lowest
+//                config) and the smallest of the bucket's other configs;
 //        comb  = bayes(v1, v2) (v1 * a factor of v2 - v1) or v1, rounded
 //                to bf16 again (cbits);
 //        the buckets ranked by (cbits << 8) | b keep their value when among
@@ -32,28 +47,54 @@
 //   6. rotate out: y[c] = out[rot_out[c]], and subtract the message minimum.
 // Every step is integer or bf16-key logic but for the config sums, the bayes
 // multiply and sat + offset, each one f32 operation in the plain version's
-// order, so the result equals ops/cuda_syndrome.syndrome_rows_plain (the
-// JAX version's sort-based form) bit for bit.
+// order, so the result equals ops/cuda_syndrome.syndrome_rows_plain and
+// syndrome_layer_plain (the JAX version's sort-based form) bit for bit.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32).  At the layered
-// call [172,800, 4, 256] it must read and write 1.42 GB (0.42 ms); its
-// operations are a few thousand integer and shared-memory steps a row (C =
-// 993 configs, each summed over dc edges and passed twice per edge), about
-// 2 G in all: memory bounds the work, instruction issue and block barriers
-// bound this design.  The JAX form sorts [rows, C] int32 keys three times
-// per edge; here a row's C syndromes (11 bytes each), its lists and its q
-// buckets sit in one block's shared memory and the sorts become
-//   * bucket minima by a 32-bit shared atomicMin of (vbits << 16) | c, and
-//     a second pass for the smallest vbits of the bucket's other configs;
-//   * selections by 8-bit radix passes: a shared histogram, one warp finds
-//     the digit of the k-th key by a prefix scan (two passes for the 16-bit
-//     saturation key, three for the 24-bit bucket ranks, only when more
-//     buckets lie at or below sat than are kept);
-//   * each edge's top-nm list by a 32-step warp bisection on order-
-//     preserving float keys (as ops/cuda_cn's kernel), then a rank count
-//     among the nm survivors.
-// A simple design: one block of 256 threads per row, no persistence, the
-// row staged with coalesced loads.
+// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32).  The layered call
+// [F = 128, 1350 rows, dc = 4, q = 256] must read the APP and CtoV rows once
+// and write both once, 2.83 GB: 0.846 ms.  Its operations are a few
+// thousand integer and shared-memory steps a row (C = 993 configs summed
+// over dc edges, ~489 masked configs a position passed twice, four list
+// selections of ~25 counting steps over 8 keys a lane), about 2 G in all:
+// memory bounds the work, instruction issue bounds this design.  The JAX
+// form sorts [rows, C] int32 keys three times per edge; the design before
+// this one (one 256-thread block per row, 8-bit radix selections through
+// contended shared histograms, 25-60 block barriers a row) took 9.09 ms for
+// the CN alone, with the sweep's torch passes around it besides.
+//
+// What this design does about it.
+// * One warp per row, no block barrier: every step is warp-synchronous
+//   (shuffles, ballots, __reduce_*_sync, __syncwarp).  A warp's shared
+//   memory is 12,192 bytes at the default configuration (the staged row
+//   4 KB, the config syndromes 4 KB, lists and scratch 2 KB, buckets
+//   2 KB), so 18 rows are in flight on an SM; a persistent grid walks the
+//   active rows.
+// * The per-position lists of masked configs are built once on the host
+//   (uint16, ops/cuda_syndrome.position_lists), which also checks every
+//   deviation against nm and every kth[t] against its position's count, so
+//   the kernel walks ~489 configs a position, not 993, and needs no trap.
+// * Selections by halving an interval over keys held in registers (a
+//   position's masked configs 16 a lane, more spill to a shared array; a
+//   list's 8 symbols a lane; the buckets' rank keys 8 a lane), one
+//   compare and one predicated add a key and one __reduce_add_sync a
+//   step, not shared histograms.  The interval comes from each lane's two
+//   smallest keys (rank_bounds): at most 32 keys lie below the smallest
+//   second-smallest, at least 32 (64) at or below the largest smallest
+//   (second-smallest), which narrows the saturation search from 16 bits
+//   to ~8 and the `keep` search to a few more.
+// * Bucket minima by a 32-bit shared atomicMin of (vbits << 16) | c over
+//   the q buckets of the warp (scattered keys: little contention), the
+//   loads of a position's configs all issued before their first use.
+// * The row is staged once (all edges' loads issued before the VN
+//   extrinsic's normalisation) and rotated on read; each position's output
+//   is rotated (its table loaded when the position starts), normalised and
+//   written back as soon as it is known, with streaming stores (the state
+//   is read again only a super-layer later).
+// Where it stands (chip_smoke.py 3c and chip_variants.py --syndrome, NVIDIA
+// H100 80GB HBM3, 700 W): 5.08 ms per layered call at F = 128, 16.6% of
+// the bound (the torch passes around the bare entry: 12.5 ms), 4.87 ms for
+// the bare entry at T = 172,800.  The four positions take ~60% of it, the
+// lists ~25%.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,32 +103,82 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned NONE = 0xffffffffu;
 constexpr float INF_COST = 1e9f;        // ops/minconv.INF
-constexpr int NT = 256;                 // threads per block (>= q)
-constexpr int NW = NT / 32;
-constexpr int MAX_DC = 32;              // the deviation mask is 32 bits
+constexpr int REG_CFG = 16;             // masked configs a lane holds
+constexpr int kSmemLimit = 232448;      // shared memory a block may use
+constexpr int kMaxWarps = 16;           // warps per block to try
 
-// Launches of syndrome_rows_kernel on this device, counted by the kernel
-// itself, so that the launches a CUDA graph replays count too.
-__device__ unsigned long long g_launches = 0;
+// Launches on this device, [0] of syndrome_rows_launch and [1] of
+// syndrome_layer_launch, counted by the kernel itself, so that the
+// launches a CUDA graph replays count too (syndrome_launches).
+__device__ unsigned long long g_launches[2] = {0, 0};
 
 struct Params {
-  const float* x;
-  float* out;
-  long long T, G;
-  int dc, q, nm, C;
-  const uint8_t* rot_in;
+  float* app;                  // layer: state [F, N+1, q]
+  float* ctov;                 // layer: state [F, E+1, q]
+  long long app_frame;         // floats per frame of app, ctov
+  long long ctov_frame;
+  const uint8_t* active;       // layer: [F] (0 = frozen)
+  const int* cols;             // layer: [G, dc] columns of APP
+  const int* edges;            // layer: [G, dc] edges of CtoV
+  const float* x;              // rows: [T, dc, q] input rows
+  float* out;                  // rows: [T, dc, q] output rows
+  long long T;                 // rows (layer: F * G)
+  int G, dc, q, nm, C;
+  const uint8_t* rot_in;       // [G, dc, q]
   const uint8_t* rot_out;
-  const uint8_t* valid;
-  const uint8_t* table;
-  const int* kth;
+  const uint8_t* valid;        // [G, dc] (0 = padding slot) or null
+  const uint8_t* table;        // [C, dc] deviations, each < nm
+  const int* kth;              // [dc], kth[t] < count of position t
+  const int* pos_off;          // [dc + 1] offsets into pos_cfg
+  const uint16_t* pos_cfg;     // per position, its masked configs
+  int max_masked;              // the largest count of a position
   int bayes, presort;
   float offset;
 };
+
+__host__ __device__ constexpr long long align16(long long b) {
+  return (b + 15) / 16 * 16;
+}
+
+// Shared memory of one warp, carved in this order (ops/cuda_syndrome.py
+// smem_bytes mirrors it): the staged row S [dc, q] f32; the lists LA
+// [dc, nm] (value bits, id); the scratch U (at least 256 bytes): the
+// lists' candidates [dc, nm] (8-byte keys), then the presorted lists, then
+// per position the gathered saturation keys and the output [q];
+// the config syndromes W [C] ((vbits << 16) | gf); the buckets B1, B2 [q];
+// the edge order [dc]; the masked keys past the registers' 32 * REG_CFG.
+struct Layout {
+  long long S, LA, U, W, B1, B2, ORD, VB, total;
+};
+
+__host__ __device__ Layout layout(int dc, int q, int nm, int C,
+                                  int max_masked) {
+  Layout l;
+  long long o = 0;
+  const long long lists = 8LL * dc * nm;
+  const long long spill = max_masked - 32LL * REG_CFG;
+  l.S = o;   o += align16(4LL * dc * q);
+  l.LA = o;  o += align16(lists);
+  const long long scratch = lists > 4LL * q ? lists : 4LL * q;
+  l.U = o;   o += align16(scratch > 256 ? scratch : 256);
+  l.W = o;   o += align16(4LL * C);
+  l.B1 = o;  o += align16(4LL * q);
+  l.B2 = o;  o += align16(4LL * q);
+  l.ORD = o; o += align16(4LL * dc);
+  l.VB = o;  o += align16(spill > 0 ? 2 * spill : 0);
+  l.total = o;
+  return l;
+}
 
 // Order-preserving unsigned key of a float (-0 maps to +0's key).
 __device__ __forceinline__ unsigned fkey(float f) {
   const unsigned b = __float_as_uint(f == 0.0f ? 0.0f : f);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The float of a key (+0 for the key of -0).
+__device__ __forceinline__ unsigned fkey_bits(unsigned k) {
+  return (k & 0x80000000u) ? (k & 0x7fffffffu) : ~k;
 }
 
 // bf16 bits of a finite float, rounded to nearest even (c10::BFloat16's
@@ -101,391 +192,618 @@ __device__ __forceinline__ float bf16_value(unsigned bits) {
   return __uint_as_float(bits << 16);
 }
 
-__host__ __device__ constexpr long long align16(long long b) {
-  return (b + 15) / 16 * 16;
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
 }
 
-// Shared memory of one block (ops/cuda_syndrome.smem_bytes mirrors it):
-// staged row / output and rotated row (2 dc q f32), sorted and candidate
-// lists (4 dc nm words), per config llr, deviation mask, vbits and gf
-// (11 bytes), two bucket arrays (2 q words), two histograms of 256 words,
-// the edge order and a few scalars.
-__host__ __device__ long long smem_bytes(int dc, int q, int nm, int C) {
-  return 2 * align16(4LL * dc * q) + 4 * align16(4LL * dc * nm) +
-         2 * align16(4LL * C) + align16(2LL * C) + align16(1LL * C) +
-         2 * align16(4LL * q) + 2 * 4 * 256 + align16(4 * MAX_DC) + 64;
-}
-
-// Warp 0: the digit d of the k-th smallest (0-based, with multiplicity)
-// key of a 256-bin histogram and k's rank among the keys of digit d, into
-// sh[0], sh[1].  Traps if the histogram holds k or fewer keys.
-__device__ __forceinline__ void select_digit(const unsigned* hist,
-                                             unsigned k, int lane,
-                                             unsigned* sh) {
-  unsigned h[8], s = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    h[i] = hist[lane * 8 + i];
-    s += h[i];
-  }
-  unsigned inc = s;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const unsigned n = __shfl_up_sync(FULL, inc, off);
-    if (lane >= off) inc += n;
-  }
-  const unsigned exc = inc - s;
-  const bool mine = exc <= k && k < inc;
-  if (!__any_sync(FULL, mine)) __trap();
-  if (mine) {
-    unsigned acc = exc;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (k < acc + h[i]) {
-        sh[0] = lane * 8 + i;
-        sh[1] = k - acc;
-        break;
-      }
-      acc += h[i];
-    }
-  }
-}
-
-// One warp: the nm smallest (value, id) pairs of message v [q], ascending,
-// lower id first among equal values, into lv / lg; tv / tg are scratch of
-// nm entries.  Lane l owns symbols l + 32 i.
+// The symbol lane `lane` holds in register i (q < 32: every lane holds
+// one, lanes >= q duplicates).
 template <int PER>
-__device__ __forceinline__ void top_list(const float* v, int q, int nm,
-                                         int lane, float* tv, int* tg,
-                                         float* lv, int* lg) {
-  int s[PER];
-  unsigned key[PER];
-  const bool on = lane < q;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    s[i] = PER == 1 ? (lane & (q - 1)) : lane + 32 * i;
-    key[i] = on ? fkey(v[s[i]]) : ~0u;
-  }
-  // the nm-th smallest key: the largest r with #(key < r) < nm
-  unsigned r = 0;
-  const unsigned n = static_cast<unsigned>(nm);
+__device__ __forceinline__ int sym(int lane, int i, int q) {
+  return PER == 1 ? (lane & (q - 1)) : lane + 32 * i;
+}
+
+// c + (key < t): one compare and one predicated add.
+__device__ __forceinline__ unsigned count_lt(unsigned c, unsigned key,
+                                             unsigned t) {
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.u32 p, %1, %2;\n\t"
+      "@p add.u32 %0, %0, 1;\n\t}"
+      : "+r"(c) : "r"(key), "r"(t));
+  return c;
+}
+
+// The largest x in [a, b] whose warp-wide count(x) is at most k, given
+// count(a) <= k, by halving the interval (not a bit at a time, so that a
+// narrow interval takes few steps wherever it lies).
+template <class Count>
+__device__ __forceinline__ unsigned warp_search(unsigned a, unsigned b,
+                                                unsigned k, Count count) {
 #pragma unroll 1
-  for (int b = 31; b >= 0; --b) {
-    const unsigned t = r | (1u << b);
+  while (a < b) {
+    const unsigned mid = a + (b - a + 1) / 2;
+    if (__reduce_add_sync(FULL, count(mid)) <= k)
+      a = mid;
+    else
+      b = mid - 1;
+  }
+  return a;
+}
+
+// Per lane, the smallest and second smallest of its keys (absent keys are
+// ~0u), folded in one at a time.
+__device__ __forceinline__ void two_smallest(unsigned v, unsigned& m1,
+                                             unsigned& m2) {
+  m2 = min(m2, max(m1, v));
+  m1 = min(m1, v);
+}
+
+// The interval [a, b] that holds the k-th smallest key (0-based, with
+// multiplicity) of the warp, from each lane's two smallest keys (m1 <= m2)
+// and the warp's largest key hi: below the smallest m2 lie at most 32 keys
+// (a lane's m1 only), and at or below the largest m1 (m2) at least 32 (64).
+__device__ __forceinline__ void rank_bounds(unsigned m1, unsigned m2,
+                                            unsigned hi, unsigned k,
+                                            unsigned& a, unsigned& b) {
+  a = k >= 32 ? __reduce_min_sync(FULL, m2) : __reduce_min_sync(FULL, m1);
+  b = k < 32 ? __reduce_max_sync(FULL, m1)
+      : k < 64 ? __reduce_max_sync(FULL, m2) : hi;
+  b = min(b, hi);
+}
+
+// The first row at or after t (stride nw) of an active frame.
+template <bool LAYER>
+__device__ __forceinline__ long long next_active(const Params& p,
+                                                 long long t, int nw) {
+  if (LAYER)
+    while (t < p.T && !__ldg(p.active + t / p.G)) t += nw;
+  return t;
+}
+
+// The nm smallest (key, id) of one edge whose keys a lane holds in key[]
+// (~0u: none) with ids id[], in the order key[0] of every lane, key[1] of
+// every lane, ... which is the ids' order; into cand [nm] as
+// (key << 8) | id, unordered: halving an interval finds the nm-th smallest
+// key, a ballot takes the keys below it and the ties in id order.
+template <int N>
+__device__ __forceinline__ void take_list(const unsigned (&key)[N],
+                                          const unsigned (&id)[N], int nm,
+                                          int lane,
+                                          unsigned long long* cand) {
+  unsigned m1 = ~0u, m2 = ~0u, hi = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    two_smallest(key[i], m1, m2);
+    if (key[i] != ~0u) hi = max(hi, key[i]);
+  }
+  unsigned lo, top;
+  const unsigned k = static_cast<unsigned>(nm - 1);
+  rank_bounds(m1, m2, __reduce_max_sync(FULL, hi), k, lo, top);
+  auto count = [&](unsigned t) {
     unsigned c = 0;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) c += key[i] < t;
-    if (__reduce_add_sync(FULL, c) < n) r = t;
+    for (int i = 0; i < N; ++i) c = count_lt(c, key[i], t);
+    return c;
+  };
+  if (k < 32) {
+    // below the smallest m2 lie at most 32 keys: often no more than k
+    const unsigned a2 = __reduce_min_sync(FULL, m2);
+    if (a2 > lo && a2 <= top && __reduce_add_sync(FULL, count(a2)) <= k)
+      lo = a2;
   }
-  // the entries below it, then those equal to it in id order up to nm
+  const unsigned r = warp_search(lo, top, k, count);
   const unsigned below = (1u << lane) - 1u;
-  unsigned bl[PER], be[PER];
+  unsigned bl[N], be[N];
   int nless = 0;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    bl[i] = __ballot_sync(FULL, on && key[i] < r);
-    be[i] = __ballot_sync(FULL, on && key[i] == r);
+  for (int i = 0; i < N; ++i) {
+    bl[i] = __ballot_sync(FULL, key[i] < r);
+    be[i] = __ballot_sync(FULL, key[i] == r);
     nless += __popc(bl[i]);
   }
   const int need = nm - nless;
   int bless = 0, beq = 0;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
+  for (int i = 0; i < N; ++i) {
     int slot = -1;
     if (bl[i] >> lane & 1u) {
       slot = bless + __popc(bl[i] & below);
     } else if (be[i] >> lane & 1u) {
-      const int e = beq + __popc(be[i] & below);
-      if (e < need) slot = nless + e;
+      const int eq = beq + __popc(be[i] & below);
+      if (eq < need) slot = nless + eq;
     }
-    if (slot >= 0) {
-      tv[slot] = v[s[i]];
-      tg[slot] = s[i];
-    }
+    if (slot >= 0)
+      cand[slot] = static_cast<unsigned long long>(key[i]) << 8 | id[i];
     bless += __popc(bl[i]);
     beq += __popc(be[i]);
   }
-  __syncwarp();
-  // order the nm survivors by (key, id): each one's rank is its slot
-  for (int j = lane; j < nm; j += 32) {
-    const unsigned kj = fkey(tv[j]);
-    const int gj = tg[j];
-    int rank = 0;
-    for (int i = 0; i < nm; ++i) {
-      const unsigned ki = fkey(tv[i]);
-      rank += ki < kj || (ki == kj && tg[i] < gj);
-    }
-    lv[rank] = tv[j];
-    lg[rank] = gj;
-  }
-  __syncwarp();
 }
 
+// 1-2: the nm best (value, id) of each rotated edge of the staged row S,
+// ascending, lower id first among equal values, into LA [dc, nm]; U is
+// scratch.  A rank count orders the nm taken.
 template <int PER>
-__global__ void __launch_bounds__(NT)
-    syndrome_rows_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dc = p.dc, q = p.q, nm = p.nm, C = p.C;
-  const int n = dc * q;
-  const long long row = blockIdx.x;
-  const long long g = row % p.G;
-
-  unsigned char* base = smem_raw;
-  auto take = [&](long long bytes) {
-    unsigned char* at = base;
-    base += align16(bytes);
-    return at;
-  };
-  float* R = reinterpret_cast<float*>(take(4LL * n));     // row, then output
-  float* X = reinterpret_cast<float*>(take(4LL * n));     // rotated row
-  float* Lv = reinterpret_cast<float*>(take(4LL * dc * nm));
-  int* Lg = reinterpret_cast<int*>(take(4LL * dc * nm));
-  float* Tv = reinterpret_cast<float*>(take(4LL * dc * nm));
-  int* Tg = reinterpret_cast<int*>(take(4LL * dc * nm));
-  float* llr = reinterpret_cast<float*>(take(4LL * C));
-  unsigned* dmask = reinterpret_cast<unsigned*>(take(4LL * C));
-  uint16_t* vbs = reinterpret_cast<uint16_t*>(take(2LL * C));
-  uint8_t* gfc = reinterpret_cast<uint8_t*>(take(1LL * C));
-  unsigned* bkt1 = reinterpret_cast<unsigned*>(take(4LL * q));
-  unsigned* bkt2 = reinterpret_cast<unsigned*>(take(4LL * q));
-  unsigned* hA = reinterpret_cast<unsigned*>(take(4 * 256));
-  unsigned* hB = reinterpret_cast<unsigned*>(take(4 * 256));
-  int* order = reinterpret_cast<int*>(take(4 * MAX_DC));
-  unsigned* sh = reinterpret_cast<unsigned*>(take(64));
-
-  // 1. stage the row (coalesced), then rotate in and mask
-  const float* src = p.x + row * n;
-  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int i = tid; i < n / 4; i += NT)
-      reinterpret_cast<float4*>(R)[i] =
-          __ldg(reinterpret_cast<const float4*>(src) + i);
-  } else {
-    for (int i = tid; i < n; i += NT) R[i] = __ldg(src + i);
-  }
-  __syncthreads();
-  for (int i = tid; i < n; i += NT) {
-    const int k = i / q, u = i - k * q;
-    const bool ok = !p.valid || p.valid[g * dc + k];
-    float v;
-    if (ok)
-      v = R[k * q + (p.rot_in ? __ldg(p.rot_in + g * n + i) : u)];
-    else
-      v = u == 0 ? 0.0f : INF_COST;
-    X[i] = v;
-  }
-  __syncthreads();
-
-  // 2. the lists, one warp per edge
-  for (int k = warp; k < dc; k += NW)
-    top_list<PER>(X + k * q, q, nm, lane, Tv + k * nm, Tg + k * nm,
-                  Lv + k * nm, Lg + k * nm);
-  __syncthreads();
-
-  // 3. presort (stable insertion sorts)
-  if (tid == 0) {
-    for (int k = 0; k < dc; ++k) order[k] = k;
-    if (p.presort) {
-      for (int k = 1; k < dc; ++k) {
-        const int e = order[k];
-        const float v = Lv[e * nm + 1];
-        int j = k;
-        for (; j > 0 && Lv[order[j - 1] * nm + 1] > v; --j)
-          order[j] = order[j - 1];
-        order[j] = e;
-      }
-      const int border = min(4, dc);
-      for (int k = 1; k < border; ++k) {
-        const int e = order[k];
-        const float v = Lv[e * nm + 2];
-        int j = k;
-        for (; j > 0 && Lv[order[j - 1] * nm + 2] > v; --j)
-          order[j] = order[j - 1];
-        order[j] = e;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. config syndromes
-  for (int c = tid; c < C; c += NT) {
-    float s = 0.0f;
-    unsigned x = 0, dm = 0;
-    for (int j = 0; j < dc; ++j) {
-      const unsigned e = __ldg(p.table + static_cast<long long>(c) * dc + j);
-      if (e >= static_cast<unsigned>(nm)) __trap();
-      const int at = order[j] * nm + e;
-      s = __fadd_rn(s, Lv[at]);
-      x ^= static_cast<unsigned>(Lg[at]);
-      dm |= static_cast<unsigned>(e != 0) << j;
-    }
-    llr[c] = s;
-    gfc[c] = static_cast<uint8_t>(x);
-    dmask[c] = dm;
-  }
-
-  // 5. per presorted edge position
-  const float sat_off = p.offset;
-  for (int t = 0; t < dc; ++t) {
-    for (int b = tid; b < q; b += NT) bkt1[b] = bkt2[b] = NONE;
-    for (int i = tid; i < 256; i += NT) hA[i] = hB[i] = 0;
-    __syncthreads();
-    const int et = order[t];
-    const unsigned g0 = static_cast<unsigned>(Lg[et * nm]);
-    const unsigned k = static_cast<unsigned>(p.kth[t]);
-    const unsigned keep = min(static_cast<unsigned>(C),
-                              min(k + 1, static_cast<unsigned>(q)));
-    // bucket minima and the saturation key's high byte
-    for (int c = tid; c < C; c += NT) {
-      if (dmask[c] >> t & 1u) continue;
-      const unsigned vb = bf16_bits(fminf(llr[c], INF_COST));
-      vbs[c] = static_cast<uint16_t>(vb);
-      atomicMin(&bkt1[gfc[c] ^ g0], vb << 16 | static_cast<unsigned>(c));
-      atomicAdd(&hA[vb >> 8], 1u);
-    }
-    __syncthreads();
-    if (warp == 0) select_digit(hA, k, lane, sh);
-    __syncthreads();
-    const unsigned hi = sh[0], k_lo = sh[1];
-    // the buckets' second smallest and the saturation key's low byte
-    for (int c = tid; c < C; c += NT) {
-      if (dmask[c] >> t & 1u) continue;
-      const unsigned vb = vbs[c];
-      const unsigned b = gfc[c] ^ g0;
-      if (p.bayes && (bkt1[b] & 0xffffu) != static_cast<unsigned>(c))
-        atomicMin(&bkt2[b], vb);
-      if (vb >> 8 == hi) atomicAdd(&hB[vb & 255u], 1u);
-    }
-    __syncthreads();
-    if (warp == 0) select_digit(hB, k_lo, lane, sh + 2);
-    __syncthreads();
-    const float sat = bf16_value(hi << 8 | sh[2]);
-
-    // each bucket's combined value; rank keys of those at or below sat
-    unsigned key2 = NONE;
-    float kv = INF_COST;
-    if (tid < q) {
-      const unsigned b1 = bkt1[tid];
-      if (b1 != NONE) {
-        const float v1 = bf16_value(b1 >> 16);
-        float comb = v1;
-        if (p.bayes) {
-          const unsigned b2 = bkt2[tid];
-          const float v2 = b2 != NONE ? bf16_value(b2) : INF_COST;
-          const float dif = __fsub_rn(v2, v1);
-          const float f = dif < 0.1f ? 0.5f
-                          : dif < 0.2f ? 0.75f
-                          : dif < 1.0f ? 0.825f
-                          : dif < 2.0f ? 0.9375f
-                                       : 1.0f;
-          const bool finite =
-              (__float_as_uint(v2) & 0x7f800000u) != 0x7f800000u;
-          if (finite && v2 < 5e8f) comb = __fmul_rn(v1, f);
-        }
-        const unsigned cb = bf16_bits(fminf(comb, INF_COST));
-        kv = bf16_value(cb);
-        if (!(kv > sat)) key2 = cb << 8 | static_cast<unsigned>(tid);
-      }
-    }
-    const unsigned nle = __syncthreads_count(key2 != NONE);
-    // buckets at or below sat rank before all others: when more of them
-    // than `keep`, only the `keep` smallest keys stay (thr = the largest)
-    unsigned thr = NONE;
-    if (nle > keep) {
-      unsigned pre = 0, kk = keep - 1;
-      for (int shift = 16; shift >= 0; shift -= 8) {
-        for (int i = tid; i < 256; i += NT) hA[i] = 0;
-        __syncthreads();
-        if (key2 != NONE && key2 >> (shift + 8) == pre)
-          atomicAdd(&hA[key2 >> shift & 255u], 1u);
-        __syncthreads();
-        if (warp == 0) select_digit(hA, kk, lane, sh + 4);
-        __syncthreads();
-        pre = pre << 8 | sh[4];
-        kk = sh[5];
-      }
-      thr = pre;
-    }
-    if (tid < q) {
-      const float o = key2 != NONE && key2 <= thr ? kv : INF_COST;
-      R[et * q + tid] = o > sat ? __fadd_rn(sat, sat_off) : o;
-    }
-    __syncthreads();
-  }
-
-  // 6. rotate out, normalise, store: one warp per edge
-  float* y = p.out + row * n;
+__device__ __forceinline__ void build_lists(const Params& p, const float* S,
+                                            long long g, int lane,
+                                            unsigned long long* U,
+                                            uint2* LA) {
+  const int dc = p.dc, q = p.q, nm = p.nm;
   const bool on = lane < q;
-  for (int k = warp; k < dc; k += NW) {
-    float v[PER];
-    float mn = __int_as_float(0x7f800000);
+  for (int k = 0; k < dc; ++k) {
+    const bool ok = !p.valid || __ldg(p.valid + g * dc + k);
+    const uint8_t* rin = p.rot_in + (g * dc + k) * q;
+    unsigned key[PER], id[PER];
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int u = PER == 1 ? (lane & (q - 1)) : lane + 32 * i;
-      const int c = p.rot_out ? __ldg(p.rot_out + g * n + k * q + u) : u;
-      v[i] = R[k * q + c];
-      if (on) mn = fminf(mn, v[i]);
+      const int s = sym<PER>(lane, i, q);
+      const float sv = S[k * q + __ldg(rin + s)];
+      const float v = ok ? sv : (s == 0 ? 0.0f : INF_COST);
+      key[i] = on ? fkey(v) : ~0u;
+      id[i] = static_cast<unsigned>(s);
+    }
+    take_list<PER>(key, id, nm, lane, U + static_cast<long long>(k) * nm);
+  }
+  __syncwarp();
+  // order each edge's nm candidates by (key, id): a rank is a slot; a lane
+  // ranks entries of all edges, four counts side by side
+  for (int j0 = lane; j0 < dc * nm; j0 += 128) {
+    unsigned long long cj[4];
+    const unsigned long long* cand[4];
+    int rank[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = min(j0 + 32 * u, dc * nm - 1);
+      cand[u] = U + j / nm * nm;
+      cj[u] = U[j];
+      rank[u] = 0;
+    }
+#pragma unroll 4
+    for (int i = 0; i < nm; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) rank[u] += cand[u][i] < cj[u];
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mn = fminf(mn, __shfl_xor_sync(FULL, mn, off));
-    if (on) {
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + 32 * u;
+      if (j < dc * nm)
+        LA[j / nm * nm + rank[u]] =
+            make_uint2(fkey_bits(static_cast<unsigned>(cj[u] >> 8)),
+                       static_cast<unsigned>(cj[u] & 0xffu));
+    }
+  }
+  __syncwarp();
+}
+
+// 3: the edge order into ord [dc] (stable ranks; lane k owns edge k).
+__device__ __forceinline__ void presort_edges(const Params& p, const uint2* LA,
+                                              int* ord, int lane) {
+  const int dc = p.dc, nm = p.nm;
+  if (!p.presort) {
+    if (lane < dc) ord[lane] = lane;
+    __syncwarp();
+    return;
+  }
+  const float v1 = lane < dc ? __uint_as_float(LA[lane * nm + 1].x) : 0.0f;
+  int rank = 0;
+  for (int j = 0; j < dc; ++j) {
+    const float vj = __shfl_sync(FULL, v1, j);
+    rank += vj < v1 || (vj == v1 && j < lane);
+  }
+  if (lane < dc) ord[rank] = lane;
+  __syncwarp();
+  const int border = min(4, dc);
+  const int e = lane < border ? ord[lane] : 0;
+  const float v2 = lane < border ? __uint_as_float(LA[e * nm + 2].x) : 0.0f;
+  rank = 0;
+  for (int j = 0; j < border; ++j) {
+    const float vj = __shfl_sync(FULL, v2, j);
+    rank += vj < v2 || (vj == v2 && j < lane);
+  }
+  __syncwarp();
+  if (lane < border) ord[rank] = e;
+  __syncwarp();
+}
+
+// 4: the presorted lists into Lp, then each config's (vbits << 16) | gf
+// into W.
+__device__ __forceinline__ void config_syndromes(const Params& p,
+                                                 const uint2* LA,
+                                                 const int* ord, uint2* Lp,
+                                                 unsigned* W, int lane) {
+  const int dc = p.dc, nm = p.nm;
+  for (int i = lane; i < dc * nm; i += 32) {
+    const int j = i / nm;
+    Lp[i] = LA[ord[j] * nm + (i - j * nm)];
+  }
+  __syncwarp();
+  if (dc == 4 && (reinterpret_cast<uintptr_t>(p.table) & 3) == 0) {
+    // one table word a config, four configs side by side
+    const unsigned* tw = reinterpret_cast<const unsigned*>(p.table);
+    for (int c0 = lane; c0 < p.C; c0 += 128) {
+      unsigned w[4], x[4];
+      float s[4];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int u = PER == 1 ? lane : lane + 32 * i;
-        y[k * q + u] = __fsub_rn(v[i], mn);
+      for (int u = 0; u < 4; ++u) {
+        w[u] = __ldg(tw + min(c0 + 32 * u, p.C - 1));
+        s[u] = 0.0f;
+        x[u] = 0;
+      }
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint2 v = Lp[h * nm + (w[u] >> (8 * h) & 0xffu)];
+          s[u] = __fadd_rn(s[u], __uint_as_float(v.x));
+          x[u] ^= v.y;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c0 + 32 * u < p.C)
+          W[c0 + 32 * u] = bf16_bits(fminf(s[u], INF_COST)) << 16 | x[u];
+    }
+  } else {
+    for (int c = lane; c < p.C; c += 32) {
+      const uint8_t* row = p.table + static_cast<long long>(c) * dc;
+      float s = 0.0f;
+      unsigned x = 0;
+      for (int j = 0; j < dc; ++j) {
+        const uint2 v = Lp[j * nm + __ldg(row + j)];
+        s = __fadd_rn(s, __uint_as_float(v.x));
+        x ^= v.y;
+      }
+      W[c] = bf16_bits(fminf(s, INF_COST)) << 16 | x;
+    }
+  }
+  __syncwarp();
+}
+
+// The bayes factor of a bucket's two best values, as bayes_combine.
+__device__ __forceinline__ float bayes(float v1, float v2) {
+  const float dif = __fsub_rn(v2, v1);
+  const float f = dif < 0.1f ? 0.5f
+                  : dif < 0.2f ? 0.75f
+                  : dif < 1.0f ? 0.825f
+                  : dif < 2.0f ? 0.9375f
+                               : 1.0f;
+  const bool finite = (__float_as_uint(v2) & 0x7f800000u) != 0x7f800000u;
+  return finite && v2 < 5e8f ? __fmul_rn(v1, f) : v1;
+}
+
+// 5-6 for presorted position t: the output of edge et = ord[t], rotated
+// out and normalised, written to out (rows) or to CtoV and APP (layer).
+template <int PER, bool LAYER>
+__device__ __forceinline__ void position(const Params& p, const float* S,
+                                         const uint2* LA, const unsigned* W,
+                                         unsigned* B1, unsigned* B2,
+                                         float* O, uint16_t* VB, int et,
+                                         int t, long long row, long long g,
+                                         int lane) {
+  const int q = p.q, C = p.C;
+  const bool on = lane < q;
+  const unsigned g0 = LA[et * p.nm].y;
+  const unsigned k = static_cast<unsigned>(__ldg(p.kth + t));
+  const unsigned keep = min(static_cast<unsigned>(C),
+                            min(k + 1, static_cast<unsigned>(q)));
+  const int beg = __ldg(p.pos_off + t);
+  const int cnt = __ldg(p.pos_off + t + 1) - beg;
+  const uint16_t* ml = p.pos_cfg + beg;
+  // the rotate-out table of the edge, loaded now, used last
+  const uint8_t* rout = p.rot_out + (g * p.dc + et) * q;
+  unsigned ro[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) ro[i] = __ldg(rout + sym<PER>(lane, i, q));
+  for (int b = lane; b < q; b += 32) B1[b] = B2[b] = NONE;
+  __syncwarp();
+
+  // the masked configs' keys (vbits << 16) | c and buckets stay in
+  // registers, the vbits of those past 32 * REG_CFG go to VB.  The loads
+  // are made for every slot (clamped ids), so that they all issue before
+  // the first is used
+  unsigned kc[REG_CFG], bb[REG_CFG];
+#pragma unroll
+  for (int j = 0; j < REG_CFG; ++j)
+    kc[j] = __ldg(ml + min(lane + 32 * j, cnt - 1));
+#pragma unroll
+  for (int j = 0; j < REG_CFG; ++j) {
+    const unsigned w = W[kc[j]];
+    const bool in = lane + 32 * j < cnt;
+    bb[j] = (w & 0xffu) ^ g0;
+    kc[j] = in ? (w & 0xffff0000u) | kc[j] : NONE;
+  }
+  for (int i = lane + 32 * REG_CFG; i < cnt; i += 32)
+    VB[i - 32 * REG_CFG] = static_cast<uint16_t>(W[__ldg(ml + i)] >> 16);
+  __syncwarp();
+
+  // sat: the k-th smallest vbits (with multiplicity), by halving the
+  // interval the lanes' two smallest bound (rank_bounds).  Keys:
+  // (vbits << 16) | c, and vbits < tt when the key is below tt << 16
+  unsigned m1 = 0xffffu, m2 = 0xffffu, hi = 0;
+#pragma unroll
+  for (int j = 0; j < REG_CFG; ++j) {
+    two_smallest(kc[j] >> 16, m1, m2);
+    if (kc[j] != NONE) hi = max(hi, kc[j] >> 16);
+  }
+  for (int i = lane + 32 * REG_CFG; i < cnt; i += 32) {
+    const unsigned v = VB[i - 32 * REG_CFG];
+    two_smallest(v, m1, m2);
+    hi = max(hi, v);
+  }
+  unsigned lo, top;
+  rank_bounds(m1, m2, __reduce_max_sync(FULL, hi), k, lo, top);
+  const unsigned sb = warp_search(lo, top, k, [&](unsigned tt) {
+    const unsigned key = tt << 16;
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < REG_CFG; ++j) c = count_lt(c, kc[j], key);
+    for (int i = lane + 32 * REG_CFG; i < cnt; i += 32)
+      c = count_lt(c, VB[i - 32 * REG_CFG], tt);
+    return c;
+  });
+  const float sat = bf16_value(sb);
+
+  // bucket minima
+#pragma unroll
+  for (int j = 0; j < REG_CFG; ++j)
+    if (kc[j] != NONE) atomicMin(&B1[bb[j]], kc[j]);
+  for (int i = lane + 32 * REG_CFG; i < cnt; i += 32) {
+    const unsigned c = __ldg(ml + i);
+    const unsigned w = W[c];
+    atomicMin(&B1[(w & 0xffu) ^ g0], (w & 0xffff0000u) | c);
+  }
+  __syncwarp();
+
+  // the buckets' second smallest: the smallest vbits of their other configs
+  if (p.bayes) {
+    unsigned m[REG_CFG];
+#pragma unroll
+    for (int j = 0; j < REG_CFG; ++j) m[j] = B1[bb[j]];
+#pragma unroll
+    for (int j = 0; j < REG_CFG; ++j)
+      if (kc[j] != NONE && (m[j] & 0xffffu) != (kc[j] & 0xffffu))
+        atomicMin(&B2[bb[j]], kc[j] >> 16);
+    for (int i = lane + 32 * REG_CFG; i < cnt; i += 32) {
+      const unsigned c = __ldg(ml + i);
+      const unsigned w = W[c];
+      const unsigned b = (w & 0xffu) ^ g0;
+      if ((B1[b] & 0xffffu) != c)
+        atomicMin(&B2[b], w >> 16);
+    }
+  }
+  __syncwarp();
+
+  // each bucket's combined value; rank keys of those at or below sat
+  unsigned key2[PER];
+  float kv[PER];
+  unsigned nle = 0, k1 = NONE, k2 = NONE, khi = 0;
+  unsigned b1[PER], b2[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    b1[i] = B1[sym<PER>(lane, i, q)];
+    b2[i] = B2[sym<PER>(lane, i, q)];
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int b = sym<PER>(lane, i, q);
+    key2[i] = NONE;
+    kv[i] = INF_COST;
+    if (on && b1[i] != NONE) {
+      const float v1 = bf16_value(b1[i] >> 16);
+      float comb = v1;
+      if (p.bayes)
+        comb = bayes(v1, b2[i] != NONE ? bf16_value(b2[i]) : INF_COST);
+      const unsigned cb = bf16_bits(fminf(comb, INF_COST));
+      kv[i] = bf16_value(cb);
+      if (!(kv[i] > sat)) {
+        key2[i] = cb << 8 | static_cast<unsigned>(b);
+        ++nle;
+        two_smallest(key2[i], k1, k2);
+        khi = max(khi, key2[i]);
       }
     }
   }
+  nle = __reduce_add_sync(FULL, nle);
+  // buckets at or below sat rank before all others: when more of them than
+  // `keep`, only the `keep` smallest keys stay (thr = the largest kept)
+  unsigned thr = NONE;
+  if (nle > keep) {
+    unsigned lo, top;
+    rank_bounds(k1, k2, __reduce_max_sync(FULL, khi), keep - 1, lo, top);
+    thr = warp_search(lo, top, keep - 1, [&](unsigned tt) {
+      unsigned c = 0;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) c = count_lt(c, key2[i], tt);
+      return c;
+    });
+  }
+  const float sat_off = __fadd_rn(sat, p.offset);
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float o = key2[i] != NONE && key2[i] <= thr ? kv[i] : INF_COST;
+      O[sym<PER>(lane, i, q)] = o > sat ? sat_off : o;
+    }
+  }
+  __syncwarp();
+
+  // rotate out, normalise, store
+  float y[PER];
+  float mn = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    y[i] = O[ro[i]];
+    if (on) mn = fminf(mn, y[i]);
+  }
+  mn = warp_min(mn);
+  if (on) {
+    if (LAYER) {
+      const long long r = g;
+      if (!p.valid || __ldg(p.valid + r * p.dc + et)) {
+        const long long f = row / p.G;
+        float* crow = p.ctov + f * p.ctov_frame +
+                      static_cast<long long>(__ldg(p.edges + r * p.dc + et)) * q;
+        float* arow = p.app + f * p.app_frame +
+                      static_cast<long long>(__ldg(p.cols + r * p.dc + et)) * q;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int c = sym<PER>(lane, i, q);
+          const float m = __fsub_rn(y[i], mn);
+          __stcs(crow + c, m);
+          __stcs(arow + c, __fadd_rn(S[et * q + c], m));
+        }
+      }
+    } else {
+      float* o = p.out + (row * p.dc + et) * q;
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        o[sym<PER>(lane, i, q)] = __fsub_rn(y[i], mn);
+    }
+  }
+  __syncwarp();
 }
 
-template <int PER>
+template <int PER, bool LAYER>
+__global__ void syndrome_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(&g_launches[LAYER ? 1 : 0], 1ULL);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const int dc = p.dc, q = p.q;
+  const bool on = lane < q;
+  const Layout L = layout(dc, q, p.nm, p.C, p.max_masked);
+  unsigned char* base = smem_raw + L.total * warp;
+  float* S = reinterpret_cast<float*>(base + L.S);
+  uint2* LA = reinterpret_cast<uint2*>(base + L.LA);
+  unsigned long long* U = reinterpret_cast<unsigned long long*>(base + L.U);
+  unsigned* W = reinterpret_cast<unsigned*>(base + L.W);
+  unsigned* B1 = reinterpret_cast<unsigned*>(base + L.B1);
+  unsigned* B2 = reinterpret_cast<unsigned*>(base + L.B2);
+  int* ord = reinterpret_cast<int*>(base + L.ORD);
+  uint16_t* VB = reinterpret_cast<uint16_t*>(base + L.VB);
+
+  const int nw = gridDim.x * wpb;
+  for (long long row = next_active<LAYER>(p, blockIdx.x * wpb + warp, nw);
+       row < p.T; row = next_active<LAYER>(p, row + nw, nw)) {
+    const long long g = row % p.G;
+    // stage the row: layer, mvc = APP - CtoV minus its min (real slots),
+    // the loads of all edges first, then the normalisation; rows, x as it is
+    if (LAYER) {
+      const long long f = row / p.G;
+#pragma unroll 4
+      for (int k = 0; k < dc; ++k) {
+        if (p.valid && !__ldg(p.valid + g * dc + k)) continue;
+        const float* arow =
+            p.app + f * p.app_frame +
+            static_cast<long long>(__ldg(p.cols + g * dc + k)) * q;
+        const float* crow =
+            p.ctov + f * p.ctov_frame +
+            static_cast<long long>(__ldg(p.edges + g * dc + k)) * q;
+        if (on) {
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            const int s = sym<PER>(lane, i, q);
+            S[k * q + s] = __fsub_rn(arow[s], crow[s]);
+          }
+        }
+      }
+      __syncwarp();
+      for (int k = 0; k < dc; ++k) {
+        if (p.valid && !__ldg(p.valid + g * dc + k)) continue;
+        float v[PER];
+        float mn = __int_as_float(0x7f800000);
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          v[i] = S[k * q + sym<PER>(lane, i, q)];
+          if (on) mn = fminf(mn, v[i]);
+        }
+        mn = warp_min(mn);
+        if (on) {
+#pragma unroll
+          for (int i = 0; i < PER; ++i)
+            S[k * q + sym<PER>(lane, i, q)] = __fsub_rn(v[i], mn);
+        }
+      }
+    } else if (on) {
+      for (int k = 0; k < dc; ++k) {
+        const float* src = p.x + (row * dc + k) * q;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int s = sym<PER>(lane, i, q);
+          S[k * q + s] = __ldg(src + s);
+        }
+      }
+    }
+    __syncwarp();
+    build_lists<PER>(p, S, g, lane, U, LA);
+    presort_edges(p, LA, ord, lane);
+    config_syndromes(p, LA, ord, reinterpret_cast<uint2*>(U), W, lane);
+    for (int t = 0; t < dc; ++t)
+      position<PER, LAYER>(p, S, LA, W, B1, B2, reinterpret_cast<float*>(U),
+                           VB, ord[t], t, row, g, lane);
+  }
+}
+
+template <int PER, bool LAYER>
 int launch(const Params& p, void* stream) {
-  const int smem = static_cast<int>(smem_bytes(p.dc, p.q, p.nm, p.C));
+  const long long warp_bytes =
+      layout(p.dc, p.q, p.nm, p.C, p.max_masked).total;
+  if (warp_bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = syndrome_kernel<PER, LAYER>;
   cudaError_t e = cudaFuncSetAttribute(
-      syndrome_rows_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(syndrome_rows_kernel<PER>,
+  e = cudaFuncSetAttribute(kern,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  syndrome_rows_kernel<PER><<<static_cast<unsigned>(p.T), NT, smem,
-                              static_cast<cudaStream_t>(stream)>>>(p);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the warps per block that let the most warps reside on an SM
+  int wpb = 1, per_sm = 1, best = 0;
+  for (int w = 1; w <= kMaxWarps; ++w) {
+    const long long smem = w * warp_bytes;
+    if (smem > kSmemLimit) break;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kern, 32 * w, static_cast<size_t>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks * w > best) {
+      best = blocks * w;
+      wpb = w;
+      per_sm = blocks;
+    }
+  }
+  if (best == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long need = (p.T + wpb - 1) / wpb;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const unsigned grid =
+      static_cast<unsigned>(need < resident ? need : resident);
+  kern<<<grid, 32 * wpb, static_cast<size_t>(wpb * warp_bytes),
+         static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory of one block (one row), in bytes.
-long long syndrome_rows_smem_bytes(int dc, int q, int nm, int C) {
-  return smem_bytes(dc, q, nm, C);
+template <bool LAYER>
+int dispatch(const Params& p, void* stream) {
+  if (p.T <= 0) return 0;
+  if (p.q <= 32) return launch<1, LAYER>(p, stream);
+  if (p.q == 64) return launch<2, LAYER>(p, stream);
+  if (p.q == 128) return launch<4, LAYER>(p, stream);
+  return launch<8, LAYER>(p, stream);
 }
 
-// x, out: device pointers to [T, dc, q] contiguous float32.  rot_in,
-// rot_out: [G, dc, q] uint8 or null (identity); valid: [G, dc] bytes (0 =
-// padding slot) or null; row t uses table row t % G.  table: [C, dc] uint8
-// deviations, each < nm (the kernel traps on one that is not); kth: [dc]
-// int32 saturation ranks, each below its position's count of configs with
-// no deviation there (else the kernel traps).  Requires q a power of two
-// <= 256, 2 <= dc <= 32, 1 <= nm <= q (3 <= nm with presort), 1 <= C <=
-// 65536, T < 2^31 and smem_bytes within the block limit.  Launches on
-// `stream`, does not synchronise, returns a CUDA error code (0 =
-// launched).
-int syndrome_rows_launch(const float* x, float* out, long long T, int dc,
-                         int q, int nm, const uint8_t* rot_in,
-                         const uint8_t* rot_out, const uint8_t* valid,
-                         long long G, const uint8_t* table, int C,
-                         const int* kth, int bayes, int presort, float offset,
-                         void* stream) {
-  if (T <= 0) return 0;
-  Params p;
-  p.x = x;
-  p.out = out;
-  p.T = T;
+Params tables(int G, int dc, int q, int nm, const uint8_t* rot_in,
+              const uint8_t* rot_out, const uint8_t* valid,
+              const uint8_t* table, int C, const int* kth, const int* pos_off,
+              const uint16_t* pos_cfg, int max_masked, int bayes,
+              int presort, float offset) {
+  Params p = {};
   p.G = G > 0 ? G : 1;
   p.dc = dc;
   p.q = q;
@@ -496,31 +814,95 @@ int syndrome_rows_launch(const float* x, float* out, long long T, int dc,
   p.valid = valid;
   p.table = table;
   p.kth = kth;
+  p.pos_off = pos_off;
+  p.pos_cfg = pos_cfg;
+  p.max_masked = max_masked;
   p.bayes = bayes;
   p.presort = presort;
   p.offset = offset;
-  if (q <= 32) return launch<1>(p, stream);
-  if (q == 64) return launch<2>(p, stream);
-  if (q == 128) return launch<4>(p, stream);
-  return launch<8>(p, stream);
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one warp (one row in flight), in bytes.
+long long syndrome_smem_bytes(int dc, int q, int nm, int C, int max_masked) {
+  return layout(dc, q, nm, C, max_masked).total;
+}
+
+// The CN on rows.  x, out: device pointers to [T, dc, q] contiguous
+// float32.  rot_in, rot_out: [G, dc, q] uint8; valid: [G, dc] bytes (0 =
+// padding slot) or null; row t uses table row t % G.  table: [C, dc] uint8
+// deviations, each < nm; kth: [dc] int32 saturation ranks; pos_off [dc + 1]
+// int32 and pos_cfg uint16: per position the configs with no deviation
+// there, ascending (ops/cuda_syndrome.position_lists, which checks the
+// deviations and that kth[t] is below position t's count), max_masked the
+// largest count.  Requires q a power of two <= 256, 2 <= dc <= 32,
+// 1 <= nm <= q (3 <= nm with presort), 1 <= C <= 65536 and one warp's
+// syndrome_smem_bytes within the block limit.  Launches on `stream`, does
+// not synchronise, returns a CUDA error code (0 = launched).
+int syndrome_rows_launch(const float* x, float* out, long long T, int dc,
+                         int q, int nm, const uint8_t* rot_in,
+                         const uint8_t* rot_out, const uint8_t* valid,
+                         int G, const uint8_t* table, int C, const int* kth,
+                         const int* pos_off, const uint16_t* pos_cfg,
+                         int max_masked, int bayes, int presort, float offset,
+                         void* stream) {
+  Params p = tables(G, dc, q, nm, rot_in, rot_out, valid, table, C, kth,
+                    pos_off, pos_cfg, max_masked, bayes, presort, offset);
+  p.x = x;
+  p.out = out;
+  p.T = T;
+  return dispatch<false>(p, stream);
+}
+
+// One layered super-layer, in place.  app: [F, app_rows, q] and ctov:
+// [F, ctov_rows, q] contiguous float32; active: [F] bytes (0 = frozen);
+// cols, edges: [G, dc] int32 APP columns and CtoV edges of the layer's
+// rows (distinct among the real slots); the other tables as for
+// syndrome_rows_launch, row r of the layer using row r of rot_in, rot_out
+// and valid.  Requires F * G < 2^62 besides.
+int syndrome_layer_launch(float* app, float* ctov, long long F,
+                          long long app_rows, long long ctov_rows,
+                          const uint8_t* active, const int* cols,
+                          const int* edges, int dc, int q, int nm,
+                          const uint8_t* rot_in, const uint8_t* rot_out,
+                          const uint8_t* valid, int G, const uint8_t* table,
+                          int C, const int* kth, const int* pos_off,
+                          const uint16_t* pos_cfg, int max_masked, int bayes,
+                          int presort, float offset, void* stream) {
+  Params p = tables(G, dc, q, nm, rot_in, rot_out, valid, table, C, kth,
+                    pos_off, pos_cfg, max_masked, bayes, presort, offset);
+  p.app = app;
+  p.ctov = ctov;
+  p.app_frame = app_rows * q;
+  p.ctov_frame = ctov_rows * q;
+  p.active = active;
+  p.cols = cols;
+  p.edges = edges;
+  p.T = F * p.G;
+  return dispatch<true>(p, stream);
 }
 
 // The kernel's launches on the current device since the library was loaded
-// or last reset, into *out (counted on the device, graph replays included).
+// or last reset: out[0] by syndrome_rows_launch, out[1] by
+// syndrome_layer_launch (counted on the device, graph replays included).
 // Synchronises the device.
-int syndrome_rows_launches(unsigned long long* out) {
+int syndrome_launches(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess)
     e = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
   return static_cast<int>(e);
 }
 
-// Set the count of syndrome_rows_launches to 0.  Synchronises the device.
-int syndrome_rows_reset_launches() {
-  const unsigned long long zero = 0;
+// Set both counts of syndrome_launches to 0.  Synchronises the device.
+int syndrome_reset_launches() {
+  const unsigned long long zero[2] = {0, 0};
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess)
-    e = cudaMemcpyToSymbol(g_launches, &zero, sizeof(zero));
+    e = cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
   return static_cast<int>(e);
 }
 

@@ -59,7 +59,8 @@ MAX_CACHED = 2                   # loops kept by the cache
 _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "spa_checknode": (cuda_spa, "launches"),
              "spa_layer": (cuda_spa, "layer_launches"),
-             "syndrome_checknode": (cuda_syndrome, "launches")}
+             "syndrome_checknode": (cuda_syndrome, "launches"),
+             "syndrome_layer": (cuda_syndrome, "layer_launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

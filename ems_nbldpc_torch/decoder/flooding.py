@@ -18,8 +18,9 @@ loop stops when every frame has converged or the iteration budget is
 spent: ``host_loop`` (shared with layered.py) polls on the host,
 ``decode_flooding`` runs ``device_loop``'s captured graph.
 
-The syndrome CN's settings (``syn``), tables and call
-(``syndrome_step``) live here too; the layered schedule shares them.
+The syndrome CN's settings (``syn``), tables (``syndrome_args``) and call
+on rows (``syndrome_step``) live here too; the layered schedule shares the
+settings and tables.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
-from ..ops.cuda_syndrome import (check_fits, syndrome_rows,
+from ..ops.cuda_syndrome import (check_fits, position_lists, syndrome_rows,
                                  syndrome_rows_plain)
 from ..ops.fht import (position_tables, spa_checknode_plain,
                        transpose_perm_tables)
@@ -111,11 +112,26 @@ def _syn_host_tables(dc: int, nm: int, key: tuple):
 
 @device_tables
 def _syndrome_tables(dc: int, nm: int, key: tuple, device: str) -> dict:
-    """The syndrome CN's config table [C, dc] uint8 and saturation ranks
-    [dc] int32 (``syndrome_cn.syndrome_tables``) on ``device``."""
+    """The syndrome CN's config table [C, dc] uint8, saturation ranks [dc]
+    int32 (``syndrome_cn.syndrome_tables``) and the kernel's per-position
+    lists of the configs with no deviation there
+    (``cuda_syndrome.position_lists``) on ``device``."""
     cfg, kth = _syn_host_tables(dc, nm, key)
     return dict(table=torch.as_tensor(cfg.astype(np.uint8), device=device),
-                kth=torch.as_tensor(kth.astype(np.int32), device=device))
+                kth=torch.as_tensor(kth.astype(np.int32), device=device),
+                lists=position_lists(cfg, kth, nm, device))
+
+
+def syndrome_args(dc: int, q: int, nm: int, offset: float, syn,
+                  device) -> tuple:
+    """The syndrome CN's trailing arguments of ``cuda_syndrome``'s entries
+    (table, kth, nm, offset, bayes, presort) for the decoder's nm and
+    ``syn``, and the position lists, from the cache on ``device``."""
+    s = syn_settings(syn)
+    nm = syn_nm(nm, q)
+    tabs = _syndrome_tables(dc, nm, syn_key(syn), str(device))
+    return ((tabs["table"], tabs["kth"], nm, offset, s["use_bayes"],
+             s["presort"]), tabs["lists"])
 
 
 def syndrome_step(x, rot_in, rot_out, valid, nm: int, offset: float, syn,
@@ -124,12 +140,10 @@ def syndrome_step(x, rot_in, rot_out, valid, nm: int, offset: float, syn,
     [T, dc, q] with the decoder's nm and ``syn``; ``plain`` runs its plain
     version on any device."""
     dc, q = x.shape[1:]
-    s = syn_settings(syn)
-    nm = syn_nm(nm, q)
-    tabs = _syndrome_tables(dc, nm, syn_key(syn), str(x.device))
-    run = syndrome_rows_plain if plain else syndrome_rows
-    return run(x, rot_in, rot_out, valid, tabs["table"], tabs["kth"], nm,
-               offset, s["use_bayes"], s["presort"])
+    args, lists = syndrome_args(dc, q, nm, offset, syn, x.device)
+    if plain:
+        return syndrome_rows_plain(x, rot_in, rot_out, valid, *args)
+    return syndrome_rows(x, rot_in, rot_out, valid, *args, lists)
 
 
 def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
@@ -138,7 +152,8 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
     schedule): the bubble CNs are not ported yet, an nm-truncated CN needs
     1 <= nm <= q, and the syndrome CN (which reads no ``cn_impl``, as in
     JAX) needs 0 <= nm <= q and, given the rows' ``dc``, tables that its
-    kernel holds (``cuda_syndrome.check_fits``; ``ValueError``)."""
+    kernel reads right and holds (``cuda_syndrome.position_lists`` and
+    ``check_fits``; ``ValueError``)."""
     if cn == "syndrome":
         if not 0 <= nm <= q:
             raise ValueError(f"cn='syndrome' needs 0 <= nm <= q, got nm={nm},"
@@ -146,11 +161,9 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
         if dc is not None:
             s = syn_settings(syn)
             cfg, kth = _syn_host_tables(dc, syn_nm(nm, q), syn_key(syn))
-            if (kth < 0).any():
-                raise ValueError(f"cn='syndrome': n_cv={s['n_cv']} gives a "
-                                 f"negative saturation rank")
+            lists = position_lists(cfg, kth, syn_nm(nm, q))
             check_fits(dc, q, syn_nm(nm, q), cfg.shape[0], s["presort"],
-                       "cn='syndrome'")
+                       "cn='syndrome'", max(lists.counts))
         return
     if cn_impl in ("bubble", "lbubble"):
         raise NotImplementedError(

@@ -26,10 +26,9 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
                                        F/B, rotate back, saturate; SPA:
                                        rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
-For ``cn="spa"`` on the card the whole of it is one kernel launch
-(``ops/cuda_spa.spa_layer``), with no [F, G, dc, q] temporaries; for
-``cn="syndrome"`` the CN (rotations, lists, syndromes, normalisation) is
-one launch of ``ops/cuda_syndrome.syndrome_rows``.
+For ``cn="spa"`` and ``cn="syndrome"`` on the card the whole of it is one
+kernel launch (``ops/cuda_spa.spa_layer``, ``ops/cuda_syndrome.
+syndrome_layer``), with no [F, G, dc, q] temporaries.
 """
 from __future__ import annotations
 
@@ -41,13 +40,14 @@ import torch
 from ..ops import listcn
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
+from ..ops.cuda_syndrome import syndrome_layer, syndrome_layer_plain
 from ..ops.fht import transpose_perm_tables
 from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            fb_checknode_dense, fb_checknode_topk,
                            mask_invalid, scatter_topk_dense, topk_message)
 from . import device_loop
 from .flooding import (check_supported, decision_buffers, host_loop,
-                       syn_key, syndrome_ok, syndrome_step, truncates,
+                       syn_key, syndrome_args, syndrome_ok, truncates,
                        use_topk)
 from .graph import DeviceGraph, device_tables, rotate, rotation_table
 
@@ -135,11 +135,11 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     one hand-written CUDA kernel launch (its plain version
     ``spa_layer_plain`` on CPU tensors); ``plain`` runs the plain version
     on any device, for comparing the two.
-    ``cn="syndrome"``: the hand-written CUDA kernel does the whole CN step,
-    normalisation included (``flooding.syndrome_step`` with ``syn``, one
-    ``ops/cuda_syndrome.syndrome_rows`` call per super-layer; its plain
-    version on CPU tensors, or on any device with ``plain``); no output
-    saturation, as in JAX.
+    ``cn="syndrome"``: one ``ops/cuda_syndrome.syndrome_layer`` call per
+    super-layer with the tables of ``syn`` (``flooding.syndrome_args``),
+    the whole step in one hand-written CUDA kernel launch (its plain
+    version ``syndrome_layer_plain`` on CPU tensors, or on any device with
+    ``plain``); no output saturation, as in JAX.
     ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
     CUDA kernel does the whole CN step, normalisation included
     (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); other
@@ -159,19 +159,29 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
 
         return spa_iteration
 
+    if cn == "syndrome":
+        dc = g.code.dc_max
+
+        def syndrome_iteration(app, ctov, active):
+            args, lists = syndrome_args(dc, q, nm, offset, syn, app.device)
+            for p in _layer_plan(g, str(app.device)):
+                layer = (app, ctov, active, p["cols32"], p["edge_ids32"],
+                         p["rot_in8"], p["rot_out8"], p["valid"], *args)
+                if plain:
+                    syndrome_layer_plain(*layer)
+                else:
+                    syndrome_layer(*layer, lists)
+
+        return syndrome_iteration
+
     truncate = truncates(cn, nm, q)
-    # the kernels' steps normalise
-    fused = cn == "syndrome" or cn_impl == "pallas"
+    # the kernel's step normalises
+    fused = cn_impl == "pallas"
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
-        x = mvc.reshape(f * gdim, dcdim, q)
-        if cn == "syndrome":
-            out = syndrome_step(x, p["rot_in8"], p["rot_out8"], p["valid"],
-                                nm, offset, syn, plain)
-        else:
-            out = ems_rows(x, p["rot_in8"], p["rot_out8"], p["valid"], nm,
-                           offset, truncate)
+        out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
+                       p["rot_out8"], p["valid"], nm, offset, truncate)
         return out.reshape(mvc.shape)
 
     if fused:

@@ -31,13 +31,15 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str, verbose: bool = False) -> tuple[str, float, str]:
-    """Compile ``csrc/<name>.cu`` if it is not built yet.
+def build(name: str, verbose: bool = False,
+          source: str | None = None) -> tuple[str, float, str]:
+    """Compile ``csrc/<name>.cu`` (or ``source``, a variant of it) if it is
+    not built yet.
 
     Returns (library path, seconds spent compiling, compiler output).
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills).
     """
-    source = os.path.join(CSRC, f"{name}.cu")
+    source = source or os.path.join(CSRC, f"{name}.cu")
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     # -Xptxas -v only reports; the library is the same, so is its name

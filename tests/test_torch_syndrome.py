@@ -227,7 +227,9 @@ def test_syndrome_rows_rejects_what_the_kernel_cannot_hold(bad):
     elif bad == "too_many_configs":
         table = torch.zeros((65537, dc), dtype=torch.uint8)
     elif bad == "over_shared_memory":
-        table = torch.zeros((30000, dc), dtype=torch.uint8)
+        # 40,000 configs, all with no deviation: 6 B each per warp (the
+        # syndromes, and the keys past the registers' 512 a position)
+        table = torch.zeros((40000, dc), dtype=torch.uint8)
     with pytest.raises(err):
         cuda_syndrome.syndrome_rows(x, tab, tab, None, table, kth, nm,
                                     OFFSET, True, presort)
