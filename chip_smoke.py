@@ -12,7 +12,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles the three CUDA kernels and the device loop's graph
+2. build: compiles the four CUDA kernels and the device loop's graph
    helper with nvcc (sm_90a), one nvcc per source, started together;
    prints the times and ptxas' register / shared-memory report; then
    builds the full-width code;
@@ -78,6 +78,20 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    the frames frozen; then timed at F = 128 in turns with the pre-fusion
    route, its plain version and the bare entry on the same rows, beside
    its bound (``--only-3c``: phases 1, 2 and 3c alone, no result line);
+3d. demap kernel (K8, ``ops/cuda_demap``) against its plain version
+   (``models/channels.demap_2d_plain`` / ``demap_4d_plain``), on one set of
+   draws made on the card and modulated, within 1e-6 of the row's largest
+   cost (the kernel rounds as the plain version does, so the run expects
+   0): at [128, 8100, 256] 256-QAM ``ref`` / ``gray`` / ``v2`` / rotated
+   under AWGN, Rayleigh, SSD, erasure 0.1 and Rayleigh + erasure 0.1, and
+   the 4-D channel under AWGN, SSD and SSD + erasure 0.1; at [128, 10800,
+   64] 64-QAM and 64-APSK ``ref`` / ``gray`` with Rayleigh; at [128,
+   16200, 16] 16-QAM; at F = 5, N = 37 with q = 4, 16 and 256 (4-D); SNRs
+   from 6 to 30 dB (costs up to O(10^4)).  Times K8, the plain version
+   and, for 4-D, JAX's form (two ``torch.matmul`` against the table) in
+   turns at [128, 8100, 256] (D = 2 and 4) and [128, 10800, 64] (APSK),
+   beside the bound, with each route's live peak (``--only-3d``: phases
+   1, 2 and 3d alone, no result line);
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -119,6 +133,27 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    (3 ``syndrome_layer`` launches per step) and through its plain version
    (``plain``, no launch): identical decisions, iterations and
    convergence;
+4f. QAM chain at full width: ``ChannelSpec(kind="qam", rayleigh=True,
+   sigma_convention="snr")`` (256-QAM, ``ref`` labeling) at ``QAM_SNR``,
+   layered SPA, 20 iterations, dense f32, F = 128, 256 frames, device
+   loop; checks K8 once a batch (on the card and eager: generation is
+   eager), 3 ``spa_layer`` a step, avg_it < 20, FER <= 0.25; with
+   ``--profile`` traces one batch: one ``demap_kernel``, its share of the
+   batch, and no torch op on an [F, N, q, 2] tensor;
+4g. 4-D chain at full width: ``ChannelSpec(kind="qam256_4d", ssd=True,
+   erasure_prob=0.1, sigma_convention="snr")`` (the reference's
+   ``ModelChannel_AWGN_256QAM_4D``) at ``D4_SNR``, layered EMS nm = 32,
+   offset 0.3, ``cn_impl="pallas"``, 10 iterations, F = 128, device loop;
+   checks K8 once a batch, 3 ``ems_rows`` a step, avg_it < 10, FER <= 0.25;
+5h. demapper both ways, after 4f and after 4g: 16 frames of the chain's
+   first batch, one set of draws, through K8 and through its plain version
+   on the card: equal intrinsics, and identical decisions, iterations and
+   convergence from the two host-loop decodes;
+5i. small codes, card against CPU: random_regular(96, 48, 16) with 16-QAM
+   and erasures 0.1 at 9 dB, random_regular(960, 480, 64) with 64-APSK
+   and Rayleigh at 13 dB, 64 frames drawn on the card and copied to the
+   CPU: the intrinsics of K8 on the card and of the plain version on the
+   CPU, and the layered EMS decodes (K1 on the card), equal;
 6. the device loop against the host loop at full width, after each chain
    on one batch of its intrinsics (F = 128): layered EMS through K1,
    layered SPA through ``spa_layer``, list-EMS (plain torch), flooding EMS
@@ -159,8 +194,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 7. the CLI at full width: the code written as a UBS file with
    ``models/tools.write_ubs``, then ``cli.main`` with the SPA row's
    settings (``--cn spa --iters 20 --batch 128 --max-frames 256 --ebn0
-   1.8``, defaults otherwise: device loop, on the card) and with
-   ``--cn syndrome --iters 10`` (the syndrome chain's), each against
+   1.8``, defaults otherwise: device loop, on the card), with
+   ``--cn syndrome --iters 10`` (the syndrome chain's) and with the QAM
+   chain's (``--channel qam --rayleigh --cn spa --iters 20`` at
+   ``QAM_SNR``), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
    file: frames, frame errors, bit errors and iteration sum equal.
 
@@ -168,7 +205,8 @@ Each chain runs once to warm up (under the device loop: its capture),
 then once timed with the launch counts set to 0 just before and read just
 after; both sides of 5d and 5e are counted the same way.  Two counts are
 kept: the wrappers' eager launches (``cuda_cn.launches``,
-``cuda_spa.launches``, ``cuda_syndrome.launches``) and the launches each
+``cuda_spa.launches``, ``cuda_syndrome.launches``, ``cuda_demap.launches``)
+and the launches each
 kernel counts itself on the
 card (``device_launches()``), which a graph's replays move too; a
 host-loop run must show the same numbers in both.  After its timed run
@@ -187,8 +225,8 @@ other than the fused step's, none, or more than 3% of its kernel time in
 torch's index kernels),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
-times at the layered and flooding shapes beside its plain version's and
-its bound), and ``{"ok": true, "device": {...}}``.  No JAX is imported.
+times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
+64-APSK shapes, beside its plain version's and its bound), and ``{"ok": true, "device": {...}}``.  No JAX is imported.
 """
 from __future__ import annotations
 
@@ -218,18 +256,19 @@ from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
                                               decode_layered_hostloop)
 from ems_nbldpc_torch.gf import get_gf
-from ems_nbldpc_torch.models import tools
+from ems_nbldpc_torch.models import channels, tools
+from ems_nbldpc_torch.models.channels import ChannelSpec
 from ems_nbldpc_torch.models.code import load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
-from ems_nbldpc_torch.ops import cuda_cn, cuda_spa, cuda_syndrome
+from ems_nbldpc_torch.ops import cuda_cn, cuda_demap, cuda_spa, cuda_syndrome
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
 from ems_nbldpc_torch.ops.cuda_spa import spa_layer, spa_layer_plain
 from ems_nbldpc_torch.ops.minconv import (ems_input_truncate,
                                           ems_output_saturate,
                                           fb_checknode_topk, mask_invalid)
-from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig
+from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig, batch_generators
 from ems_nbldpc_torch.sim.sweep import result_filename
 
 SLICE_ROWS = 1350          # rows per super-layer of the full-width code
@@ -286,8 +325,40 @@ SYN_ODD = [                # (T, G, dc, q, nm, table settings, bayes,
     (400, 20, 4, 256, 32, dict(), True, False),
     (77, 11, 12, 256, 32, dict(shape="bordered", d1=31, d2=15), True, True),
 ]
+DEMAP_CASES = [            # (F, N, q, kind, modifiers, SNR dB) of 3d
+    *[(128, 8100, 256, "qam", dict(lab, **mod), snr)
+      for lab in (dict(), dict(labeling="gray"), dict(labeling="v2"),
+                  dict(rotated=True))
+      for mod, snr in ((dict(), 30.0), (dict(rayleigh=True), 18.0),
+                       (dict(ssd=True), 12.0), (dict(erasure_prob=0.1), 30.0),
+                       (dict(rayleigh=True, erasure_prob=0.1), 18.0))],
+    (128, 8100, 256, "qam256_4d", dict(), 30.0),
+    (128, 8100, 256, "qam256_4d", dict(ssd=True), 12.0),
+    (128, 8100, 256, "qam256_4d", dict(ssd=True, erasure_prob=0.1), 12.0),
+    (128, 10800, 64, "qam", dict(rayleigh=True), 14.0),
+    (128, 10800, 64, "apsk64", dict(rayleigh=True), 14.0),
+    (128, 10800, 64, "apsk64", dict(rayleigh=True, labeling="gray"), 30.0),
+    (128, 16200, 16, "qam", dict(), 8.0),
+    (128, 16200, 16, "qam", dict(rayleigh=True, erasure_prob=0.1), 30.0),
+    (5, 37, 4, "qam", dict(erasure_prob=0.1), 6.0),
+    (5, 37, 16, "qam", dict(ssd=True), 30.0),
+    (5, 37, 256, "qam256_4d", dict(ssd=True, erasure_prob=0.1), 30.0),
+]
+DEMAP_TIMED = {            # label -> (F, N, q, kind, modifiers, SNR dB)
+    "2-D": (128, 8100, 256, "qam", dict(rayleigh=True), 18.0),
+    "4-D": (128, 8100, 256, "qam256_4d", dict(ssd=True, erasure_prob=0.1),
+            12.0),
+    "APSK": (128, 10800, 64, "apsk64", dict(rayleigh=True), 14.0),
+}
+DEMAP_RTOL = 1e-6          # K8 vs plain, relative to the largest cost
+QAM_SPEC = ChannelSpec(kind="qam", rayleigh=True, sigma_convention="snr")
+QAM_SNR = 17.0             # dB (Es/N0) of 4f, 5h and 7; see PERF.md §4
+D4_SPEC = ChannelSpec(kind="qam256_4d", ssd=True, erasure_prob=0.1,
+                      sigma_convention="snr")
+D4_SNR = 12.0              # dB of 4g and 5h; see PERF.md §4
 LAYERS = 3
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
+DEMAP_PATHS = {}           # chain -> K8 launches in its timed run
 
 
 def kernel_input(t, dc, q, nm, kind, seed):
@@ -1050,13 +1121,131 @@ def check_syndrome_kernel(graph):
     return max(worst, layer_err), times, layer_times
 
 
-def profile_batch(mc, tag, out_dir="profile_out"):
+def modulated(gen, cw, spec, q, sigma):
+    """One set of draws from ``gen`` for the codewords ``cw`` on the card,
+    modulated: (y, att, table, inv, dims)."""
+    dims = 4 if spec.kind == "qam256_4d" else 2
+    z, u, erased = channels.channel_draws(gen, cw.shape, spec, dims)
+    tab = torch.as_tensor(channels.table_for(spec, q), device="cuda")
+    mod = channels.modulate_4d if dims == 4 else channels.modulate_2d
+    y, att = mod(cw, tab, z, u, erased, sigma, spec.erasure_prob)
+    return y, att, tab, channels.inv_two_sigma2(sigma), dims
+
+
+def demap_inputs(f, n, spec, q, snr, seed):
+    """``modulated`` for random symbols, [f, n] of them, at ``snr`` dB."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cw = torch.randint(0, q, (f, n), generator=gen, device="cuda")
+    return modulated(gen, cw, spec, q, channels.sigma_for(spec, snr, 0.5))
+
+
+def demap_routes(dims):
+    """(K8, its plain version) of a table with ``dims`` columns."""
+    if dims == 4:
+        return cuda_demap.demap_4d, channels.demap_4d_plain
+    return cuda_demap.demap_2d, channels.demap_2d_plain
+
+
+def demap_4d_gemm(y, att, cand, inv):
+    """JAX's own form of the 4-D demapper: its two products against the
+    table as ``torch.matmul`` (K = 4, f32 with TF32 off) and the
+    elementwise passes; timed for the record, used nowhere in the port."""
+    cross = torch.matmul(att * y, cand.T)
+    pw = torch.matmul(att * att, (cand * cand).T)
+    cost = (pw - 2.0 * cross) * inv
+    return cost - cost.min(dim=-1, keepdim=True).values
+
+
+def demap_bound_ms(rows, q, dims):
+    """The output written once and y, att read once, against 4 dims + 2
+    (direct) or 4 dims + 3 (expanded) operations a cost."""
+    ops = rows * q * (4 * dims + (2 if dims == 2 else 3))
+    return bound(rows * q * 4 + 2 * rows * dims * 4, ops)
+
+
+def live_peak(fn):
+    """Bytes ``fn()`` allocates at its peak beyond what was live before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def check_demap_kernel():
+    """3d: K8 against its plain version on the same draws (made once on
+    the card); times K8, the plain version and, for 4-D, JAX's GEMM form
+    in turns at the two q = 256 shapes (and 64-APSK's) beside the bound.
+    Returns the largest error and {label: times}."""
+    phase("3d demap kernel (K8) against plain")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    for i, (f, n, q, kind, kw, snr) in enumerate(DEMAP_CASES):
+        spec = ChannelSpec(kind=kind, sigma_convention="snr", **kw)
+        y, att, tab, inv, dims = demap_inputs(f, n, spec, q, snr, 500 + i)
+        kernel, plain = demap_routes(dims)
+        got, want = kernel(y, att, tab, inv), plain(y, att, tab, inv)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.max())
+        exact = torch.equal(got, want)
+        print(f"demap {kind} {kw} [{f}, {n}, {q}] D={dims} {snr} dB: "
+              f"bit-exact={exact} max_abs_err={err} (row scale "
+              f"{float(want.max()):.1f}, relative {rel:.2e}); erased "
+              f"components {int((att == 0).sum())}", flush=True)
+        check(bool(torch.isfinite(got).all())
+              and bool((got.min(dim=-1).values == 0).all()),
+              f"demap {kind} {kw} [{f}, {n}, {q}]: not min-normalised")
+        check(rel <= DEMAP_RTOL, f"demap {kind} {kw} [{f}, {n}, {q}]: K8 "
+              f"differs from plain by {err} ({rel:.2e} of the row scale)")
+        worst = max(worst, err)
+        del y, att, got, want
+    times = {}
+    for label, (f, n, q, kind, kw, snr) in DEMAP_TIMED.items():
+        spec = ChannelSpec(kind=kind, sigma_convention="snr", **kw)
+        y, att, tab, inv, dims = demap_inputs(f, n, spec, q, snr, 7)
+        kernel, plain = demap_routes(dims)
+        fns = {"kernel": lambda: kernel(y, att, tab, inv),
+               "plain": lambda: plain(y, att, tab, inv)}
+        reps = {"kernel": 20, "plain": 3, "gemm": 5}
+        if dims == 4:
+            fns["gemm"] = lambda: demap_4d_gemm(y, att, tab, inv)
+            gemm_err = float((fns["gemm"]() - fns["plain"]()).abs().max())
+        order = [k for k in ("kernel", "plain", "gemm") if k in fns]
+        got = collections.defaultdict(list)
+        for name in order + order[::-1]:
+            got[name].append(time_ms(fns[name], reps[name]))
+        peaks = {k: live_peak(fn) for k, fn in fns.items()}
+        b_ms, b_by = demap_bound_ms(f * n, q, dims)
+        t = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                 bound_by=b_by,
+                 peak_gib={k: round(v / 2**30, 3) for k, v in peaks.items()})
+        times[label] = t
+        print(f"demap {label} [{f}, {n}, {q}] D={dims}: "
+              + ", ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                          + " ms" for k, v in got.items())
+              + f" per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / t['kernel']:.2f}% of it; live peak GiB "
+              f"{t['peak_gib']}"
+              + (f"; GEMM form vs plain max_abs_err {gemm_err:.3e}"
+                 if dims == 4 else ""), flush=True)
+        del y, att
+    return worst, times
+
+
+def profile_batch(mc, tag, out_dir="profile_out", big=None):
     """Trace one Monte-Carlo batch, after an untraced one (which holds the
     device loop's capture if the loop is new); print the device busy share
     and the device time by kernel (from the exported chrome trace).
-    Returns them with the batch's decoder steps and the number of
-    ``ems_rows_kernel``, ``spa_row_kernel`` and ``syndrome_rows_kernel``
-    launches in the trace."""
+    Returns them with the batch's decoder steps, the number of
+    ``ems_rows_kernel``, ``spa_row_kernel``, ``syndrome_kernel`` and
+    ``demap_kernel`` launches in the trace and K8's share of the kernel
+    time.  With ``big`` (a shape), the trace records input shapes and
+    returns the torch ops that took a tensor of that shape."""
     from torch.profiler import ProfilerActivity, profile
 
     phase(f"profile one batch: {tag}")
@@ -1064,8 +1253,8 @@ def profile_batch(mc, tag, out_dir="profile_out"):
     path = os.path.join(out_dir, f"profile_batch_{tag}.json")
     mc.step(0)[0].cpu()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=big is not None) as prof:
         t0 = time.perf_counter()
         counters = mc.step(0)[0].cpu()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1097,19 +1286,29 @@ def profile_batch(mc, tag, out_dir="profile_out"):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     traced = {k: sum(1 for e in kernels if k in e["name"])
               for k in ("ems_rows_kernel", "spa_row_kernel",
-                        "syndrome_kernel")}
+                        "syndrome_kernel", "demap_kernel")}
+    demap_us = sum(us for name, us in by_name.items()
+                   if "demap_kernel" in name)
+    big_ops = sorted({e["name"] for e in events if e.get("cat") == "cpu_op"
+                      and big is not None and list(big) in
+                      e.get("args", {}).get("Input Dims", [])})
     # torch's index kernels (gathers, index_put scatters)
     index_us = sum(e["dur"] for e in kernels
                    if any(w in e["name"].lower()
                           for w in ("index", "gather", "scatter")))
     print(f"decoder steps {int(counters[5])}; kernels in the trace {traced}; "
           f"index/gather/scatter kernels {index_us / 1e3:.3f} ms = "
-          f"{100 * index_us / max(total, 1):.2f}% of kernel time",
-          flush=True)
+          f"{100 * index_us / max(total, 1):.2f}% of kernel time; demap "
+          f"kernel {demap_us / 1e3:.3f} ms = "
+          f"{100 * demap_us / max(total, 1):.2f}%"
+          + (f"; torch ops on a {list(big)} tensor: {big_ops}"
+             if big is not None else ""), flush=True)
     return {"wall_ms": round(wall_us / 1e3, 3),
             "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
             "steps": int(counters[5]), "traced": traced,
             "index_pct": round(100 * index_us / max(total, 1), 2),
+            "demap_pct": round(100 * demap_us / max(total, 1), 2),
+            "big_ops": big_ops,
             "spa_kernels": sorted({e["name"] for e in kernels
                                    if "spa_" in e["name"]}),
             "syn_kernels": sorted({e["name"] for e in kernels
@@ -1179,20 +1378,23 @@ def batch_split(mc, batches=2):
                 idle_pct=[round(x, 2) for x in idle], queued=queued)
 
 
-def run_chain(name, code, enc, dec, ebn0, mc=None):
+def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
     """Warm-up run (skipped when ``mc`` is given: a second timed run), then
     a timed run of 256 frames at F = 128 with every launch count set to 0
     just before it, then ``batch_split``.  Checks that the timed run made
     or replaced no device loop, and its launches: under the device loop
     none eager and, counted by the kernels on the card, the loop's
     launches per step times the decoder steps; under the host loop the
-    same numbers eager and on the card.  Memory: the allocator's live and
+    same numbers eager and on the card; K8 (the demapper, in the batch's
+    eager generation) once a batch on a non-BPSK ``channel`` and never on
+    BPSK, eager and on the card alike.  Memory: the allocator's live and
     reserved peaks during the timed run (the device loop's graph pool is
     reserved memory).  Returns (MonteCarlo, result, {kernel: launches
     counted on the card})."""
     if mc is None:
         cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
-                        stop_errors=10**9, encode="device", decoder=dec)
+                        stop_errors=10**9, encode="device", decoder=dec,
+                        channel=channel)
         t0 = time.perf_counter()
         mc = MonteCarlo(code, cfg, enc, device="cuda")
         print(f"generator upload {time.perf_counter() - t0:.1f} s",
@@ -1209,6 +1411,7 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
     reset_launches()
     res = mc.run()
     launches, eager = read_launches(), read_eager()
+    demap = (cuda_demap.device_launches(), cuda_demap.launches)
     live = torch.cuda.max_memory_allocated()
     held = torch.cuda.max_memory_reserved()
     lp = device_loop.last()
@@ -1219,7 +1422,8 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
           f"FER {res.frame_errors}/{res.frames} = {res.fer:.4f} "
           f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
           f"{res.decoder_steps}; launches counted by the kernels {launches}, "
-          f"eager {eager}; peak memory live {live / 2**30:.3f} GiB, "
+          f"eager {eager}; demap (K8) launches counted by the kernel / eager "
+          f"{demap[0]} / {demap[1]}; peak memory live {live / 2**30:.3f} GiB, "
           f"reserved {held / 2**30:.3f} GiB (graph pool "
           f"{pool / 2**30:.3f})", flush=True)
     split = batch_split(mc)
@@ -1227,7 +1431,8 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
         "loop": dec.loop, "fps": round(res.frames_per_s, 3),
         "avg_it": round(res.avg_iters, 4),
         "fer": f"{res.frame_errors}/{res.frames}",
-        "steps": res.decoder_steps, "live_gib": round(live / 2**30, 3),
+        "steps": res.decoder_steps, "demap_launches": demap[0],
+        "live_gib": round(live / 2**30, 3),
         "reserved_gib": round(held / 2**30, 3),
         "pool_gib": round(pool / 2**30, 3), "untraced": split})
     check(res.frames == 256, f"{name}: {res.frames} frames, expected 256")
@@ -1235,6 +1440,12 @@ def run_chain(name, code, enc, dec, ebn0, mc=None):
           f"{name}: avg_it {res.avg_iters} reached the budget")
     check(res.fer <= 0.25, f"{name}: FER {res.fer} > 0.25")
     check(lp is loop, f"{name}: the timed run made a device loop")
+    batches = res.frames // 128
+    want = batches if mc.cfg.channel.kind != "bpsk" else 0
+    check(demap == (want, want), f"{name}: demap launches (card, eager) "
+          f"{demap} for {batches} batches, expected {want} each")
+    if want:
+        DEMAP_PATHS[name] = demap[0]
     if dec.loop == "device":
         check(sum(eager.values()) == 0,
               f"{name}: eager launches {eager} under the device loop")
@@ -1252,6 +1463,8 @@ def reset_launches():
     """Set both kinds of launch counts to 0 (synchronises the card)."""
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
     cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
+    cuda_demap.launches = 0
+    cuda_demap.reset_device_launches()
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
     cuda_syndrome.reset_device_launches()
@@ -1327,6 +1540,89 @@ def check_small_card_decodes():
                            "spa_checknode": 0, "spa_layer": 0,
                            "syndrome_checknode": 0, "syndrome_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
+
+
+def check_demap_decodes(mc, spec, dec, what):
+    """5h: 16 frames of a chain's first batch, one set of draws, demapped
+    by K8 and by its plain version on the card: equal intrinsics, and
+    identical decisions, iterations and convergence from the two host-loop
+    decodes."""
+    phase(f"5h demapper both ways: {what}")
+    kinfo, kchan = batch_generators(mc.cfg.seed, 0, "cuda")
+    cw = mc._make_codeword(kinfo, mc._pmat)[:16].contiguous()
+    y, att, tab, inv, dims = modulated(
+        kchan, cw, spec, mc.code.q,
+        channels.sigma_for(spec, mc.cfg.ebn0_db, mc.code.rate))
+    kernel, plain = demap_routes(dims)
+    reset_launches()
+    intr = {"kernel": kernel(y, att, tab, inv), "plain": plain(y, att, tab,
+                                                                 inv)}
+    k8 = (cuda_demap.device_launches(), cuda_demap.launches)
+    err = float((intr["kernel"] - intr["plain"]).abs().max())
+    outs = {k: [x.cpu() for x in decode(mc.graph, v, dataclasses.replace(
+        dec, loop="host"))] for k, v in intr.items()}
+    same = all(torch.equal(a, b) for a, b in zip(outs["kernel"],
+                                                 outs["plain"]))
+    print(f"F=16: intrinsics bit-equal {torch.equal(*intr.values())} "
+          f"(max_abs_err {err}); identical decisions/iterations/convergence "
+          f"{same}; iters {outs['kernel'][1].tolist()}; converged "
+          f"{int(outs['kernel'][2].sum())}/16; K8 launches (card, eager) "
+          f"{k8}", flush=True)
+    check(err <= DEMAP_RTOL * float(intr["plain"].max()),
+          f"{what}: K8 and plain intrinsics differ by {err}")
+    check(same, f"{what}: decodes from K8 and plain intrinsics differ")
+    check(k8 == (1, 1), f"{what}: K8 launches {k8}, expected 1")
+    return err
+
+
+def check_small_channel_decodes():
+    """5i: small codes, draws made on the card and copied to the CPU: the
+    intrinsics from K8 on the card and from the plain version on the CPU,
+    and the host-loop decodes of both (through K1 on the card, its plain
+    version on the CPU)."""
+    phase("5i small codes over QAM / 64-APSK, card vs CPU")
+    for (n, m, q), spec, snr, nm in (
+            ((96, 48, 16), ChannelSpec(kind="qam", erasure_prob=0.1,
+                                       sigma_convention="snr"), 9.0, 8),
+            ((960, 480, 64), ChannelSpec(kind="apsk64", rayleigh=True,
+                                         sigma_convention="snr"), 13.0, 16)):
+        code = random_regular(n, m, q, seed=0)
+        cfg = SimConfig(ebn0_db=snr, frames_per_batch=64, channel=spec)
+        mc = MonteCarlo(code, cfg, device="cuda")
+        kinfo, kchan = batch_generators(cfg.seed, 0, "cuda")
+        cw = mc._make_codeword(kinfo, mc._pmat)
+        z, u, erased = channels.channel_draws(kchan, cw.shape, spec, 2)
+        tab = channels.table_for(spec, q)
+        sigma = channels.sigma_for(spec, snr, code.rate)
+        reset_launches()
+        card = channels.channel_2d_from_draws(
+            cw, torch.as_tensor(tab, device="cuda"), z, u, erased, sigma,
+            spec.erasure_prob)
+        k8 = cuda_demap.device_launches()
+        host = channels.channel_2d_from_draws(
+            cw.cpu(), torch.as_tensor(tab), z.cpu(),
+            None if u is None else u.cpu(),
+            None if erased is None else erased.cpu(), sigma,
+            spec.erasure_prob)
+        err = float((card.cpu() - host).abs().max())
+        dec = DecoderConfig(max_iters=10, cn="ems", nm=nm, offset=0.3,
+                            cn_impl="pallas", loop="host")
+        got = [x.cpu() for x in decode(code, card, dec)]
+        want = decode(code, host, dec)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"random_regular({n}, {m}, {q}) {spec.kind} "
+              f"erasure {spec.erasure_prob} rayleigh {spec.rayleigh} at "
+              f"{snr} dB, F=64: intrinsics bit-equal "
+              f"{torch.equal(card.cpu(), host)} (max_abs_err {err}); "
+              f"identical decisions/iterations/convergence {same}; iters "
+              f"max {int(got[1].max())} mean {float(got[1].float().mean()):.4f}"
+              f", converged {int(got[2].sum())}/64; K8 launches {k8}",
+              flush=True)
+        check(err <= DEMAP_RTOL * float(host.max()),
+              f"5i {spec.kind}: card and CPU intrinsics differ by {err}")
+        check(same, f"5i {spec.kind}: card and CPU decodes differ")
+        check(k8 == 1, f"5i {spec.kind}: K8 launches {k8}, expected 1")
+        del mc
 
 
 def free(mc):
@@ -1459,10 +1755,11 @@ def check_odd_batches(code, decs):
 
 def check_cli(code):
     """7: the CLI at full width on the code written as a UBS file, with the
-    SPA row's settings and with the syndrome chain's (``--cn syndrome``,
-    the ``DecoderConfig`` defaults), each against ``MonteCarlo.run`` of the
-    same config and seed on ``load`` of that file: frames, frame errors,
-    bit errors and iteration sum equal."""
+    SPA row's settings, with the syndrome chain's (``--cn syndrome``, the
+    ``DecoderConfig`` defaults) and with the QAM chain's (4f: ``--channel
+    qam --rayleigh``), each against ``MonteCarlo.run`` of the same config
+    and seed on ``load`` of that file: frames, frame errors, bit errors and
+    iteration sum equal."""
     phase("7 CLI at full width")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "code_N8100_GF256.txt")
@@ -1471,20 +1768,25 @@ def check_cli(code):
             [code.row_cols[r, :d] for r, d in enumerate(code.row_deg)],
             [code.row_coefs[r, :d] for r, d in enumerate(code.row_deg)]),
             path)
-        for cn, iters in (("spa", 20), ("syndrome", 10)):
-            out = os.path.join(tmp, f"out_{cn}")
+        for label, cn, iters, flags, spec, db in (
+                ("--cn spa", "spa", 20, [], ChannelSpec(), 1.8),
+                ("--cn syndrome", "syndrome", 10, [], ChannelSpec(), 1.8),
+                ("--channel qam --rayleigh --cn spa", "spa", 20,
+                 ["--channel", "qam", "--rayleigh"], QAM_SPEC, QAM_SNR)):
+            out = os.path.join(tmp, f"out_{len(flags)}_{cn}")
             t0 = time.perf_counter()
             rc = cli.main(["--matrix", path, "--cn", cn, "--iters",
                            str(iters), "--batch", "128", "--max-frames",
-                           "256", "--ebn0", "1.8", "--out", out, "--quiet"])
+                           "256", "--ebn0", str(db), "--out", out, "--quiet",
+                           *flags])
             seconds = time.perf_counter() - t0
             with open(os.path.join(out, "results.jsonl")) as f:
                 (rec,) = [json.loads(line) for line in f]
             device_loop.clear()
             gc.collect()
             torch.cuda.empty_cache()
-            cfg = SimConfig(ebn0_db=1.8, frames_per_batch=128,
-                            max_frames=256,
+            cfg = SimConfig(ebn0_db=db, frames_per_batch=128,
+                            max_frames=256, channel=spec,
                             decoder=DecoderConfig(max_iters=iters, cn=cn))
             loaded = load(path, name=path)
             mc = MonteCarlo(loaded, cfg, device="cuda")
@@ -1497,12 +1799,12 @@ def check_cli(code):
                           round(rec["avg_iters"] * rec["frames"]))
             mc_counts = (res.frames, res.frame_errors, res.bit_errors,
                          res.iter_sum)
-            print(f"cli --cn {cn}: rc {rc} in {seconds:.1f} s (load, "
+            print(f"cli {label}: rc {rc} in {seconds:.1f} s (load, "
                   f"encoder, capture and 256 frames): frames, frame errors, "
                   f"bit errors, iteration sum {cli_counts}; MonteCarlo.run "
                   f"{mc_counts}; text result file {text}", flush=True)
             check(rc == 0 and text and cli_counts == mc_counts,
-                  f"the CLI's --cn {cn} run differs from MonteCarlo.run")
+                  f"the CLI's {label} run differs from MonteCarlo.run")
 
 
 def main(argv) -> int:
@@ -1525,17 +1827,22 @@ def main(argv) -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    mods = (cuda_cn, cuda_spa, cuda_syndrome, cuda_demap, device_loop)
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
-                  for mod in (cuda_cn, cuda_spa, cuda_syndrome, device_loop)}
+                  for mod in mods}
         for name, fut in builds.items():
             _, seconds, log = fut.result()
             print(f"nvcc {name} {seconds:.2f} s")
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"all four built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all five built in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--only-3d" in argv:
+        check_demap_kernel()
+        print("--only-3d: the other phases were not run", flush=True)
+        return 0
 
     t0 = time.perf_counter()
     code = random_regular(8100, 4050, 256, dv=2, seed=0)
@@ -1555,6 +1862,7 @@ def main(argv) -> int:
     max_err, k_times = check_kernel(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
     syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
+    demap_err, demap_times = check_demap_kernel()
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
@@ -1824,6 +2132,49 @@ def main(argv) -> int:
     free(mc)
     del mc, intr16
 
+    phase("4f QAM chain: 256-QAM, Rayleigh, layered SPA")
+    mc, qam_res, qam_launches = run_chain("QAM", code, enc, spa_dec, QAM_SNR,
+                                          channel=QAM_SPEC)
+    check(qam_launches["spa_checknode"] == qam_launches["spa_layer"]
+          == n_layers * qam_res.decoder_steps > 0
+          and qam_launches["fb_checknode"] == 0,
+          f"QAM chain launches {qam_launches} for {qam_res.decoder_steps} "
+          f"decoder steps")
+    paths["spa_checknode"]["QAM (4f)"] = qam_launches["spa_checknode"]
+    print(f"QAM chain at {QAM_SNR} dB (Es/N0), {QAM_SPEC}", flush=True)
+    demap_5h = check_demap_decodes(mc, QAM_SPEC, spa_dec, "QAM chain")
+    if "--profile" in argv:
+        prof = profile_batch(mc, "qam", big=(128, code.n, code.q, 2))
+        prof.pop("syn_kernels")
+        prof.pop("spa_kernels")
+        print(f"QAM trace: demap_kernel {prof['traced']['demap_kernel']} "
+              f"launch(es), {prof['demap_pct']}% of the kernel time; torch "
+              f"ops on a [F, N, q, 2] tensor: {prof['big_ops']}", flush=True)
+        check(prof["traced"]["demap_kernel"] == 1,
+              f"QAM trace: {prof['traced']['demap_kernel']} demap kernels, "
+              f"expected 1")
+        check(not prof["big_ops"], f"QAM trace: torch ops on [F, N, q, 2] "
+              f"tensors: {prof['big_ops']}")
+        check_traced(prof, "spa_row_kernel", n_layers, "QAM trace")
+        SUMMARY["QAM"][-1]["profile"] = prof
+    free(mc)
+    del mc
+
+    phase("4g 4-D chain: 256-QAM 4-D, SSD, erasures 0.1, layered EMS")
+    mc, d4_res, d4_launches = run_chain("4-D", code, enc, dec, D4_SNR,
+                                        channel=D4_SPEC)
+    check(d4_launches["fb_checknode"] == n_layers * d4_res.decoder_steps > 0
+          and d4_launches["spa_checknode"] == 0,
+          f"4-D chain launches {d4_launches} for {d4_res.decoder_steps} "
+          f"decoder steps")
+    paths["fb_checknode"]["4-D (4g)"] = d4_launches["fb_checknode"]
+    print(f"4-D chain at {D4_SNR} dB (Es/N0), {D4_SPEC}", flush=True)
+    demap_5h = max(demap_5h, check_demap_decodes(mc, D4_SPEC, dec,
+                                                 "4-D chain"))
+    free(mc)
+    del mc
+    check_small_channel_decodes()
+
     check_odd_batches(code, {
         "layered SPA": (spa_dec, {"spa_checknode": n_layers,
                                   "spa_layer": n_layers}),
@@ -1832,6 +2183,7 @@ def main(argv) -> int:
     check_cli(code)
 
     print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))
+    d2, d4, apsk = (demap_times[k] for k in ("2-D", "4-D", "APSK"))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fb_checknode", "route": "cuda",
@@ -1882,6 +2234,23 @@ def main(argv) -> int:
         "flooding_ms": syn_flood["kernel"],
         "flooding_plain_ms": syn_flood["plain"],
         "flooding_bound_ms": syn_flood["bound"],
+    }, {
+        "name": "demap", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/demap.cu",
+        "replaces": "ems_nbldpc_tpu/models/channels.py:251-258, :335-342",
+        "entry_points": ["demap_2d", "demap_4d"],
+        "launches": sum(DEMAP_PATHS.values()), "paths": list(DEMAP_PATHS),
+        "launches_by_path": DEMAP_PATHS,
+        "max_abs_err": max(demap_err, demap_5h),
+        "rows": DEMAP_TIMED["2-D"][0] * DEMAP_TIMED["2-D"][1], "q": 256,
+        "ms": d2["kernel"], "plain_ms": d2["plain"], "bound_ms": d2["bound"],
+        "bound_by": d2["bound_by"], "library_ms": None,
+        "peak_gib": d2["peak_gib"],
+        "d4_ms": d4["kernel"], "d4_plain_ms": d4["plain"],
+        "d4_gemm_ms": d4["gemm"], "d4_bound_ms": d4["bound"],
+        "d4_peak_gib": d4["peak_gib"],
+        "apsk64_ms": apsk["kernel"], "apsk64_plain_ms": apsk["plain"],
+        "apsk64_bound_ms": apsk["bound"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ never ``jax``: the NumPy host layer (GF tables, parsers, code graph,
 encoder) is carried as its own copy.
 
 Ported so far: the CLI (``python -m ems_nbldpc_torch.cli``) and the Eb/N0
-sweep, and the Monte-Carlo chain (bit-matmul encoder, BPSK/AWGN, the
+sweep, and the Monte-Carlo chain (bit-matmul encoder, the channels, the
 decoder, the syndrome check and the error counters) on both schedules,
 each decode as one CUDA graph with on-device early exit
 (``loop="device"``, the default; ``decoder/device_loop.py``) or with the
@@ -21,7 +21,11 @@ host loop, with
   its whole check-node step in one launch of a hand-written CUDA kernel
   (``ops/cuda_syndrome.py``) on the card;
 - layered compressed CtoV storage, f32 or bf16: the dense-CN decoder and
-  the truncated-list EMS path.
+  the truncated-list EMS path;
+- every channel of the JAX package: BPSK/AWGN (a matmul demapper), 2-D
+  QAM / rotated QAM / 64-APSK with Rayleigh or SSD fading and erasures,
+  and the 256-QAM 4-D channel, their demappers one launch of a
+  hand-written CUDA kernel (``ops/cuda_demap.py``) on the card.
 """
 
 __version__ = "0.1.0"

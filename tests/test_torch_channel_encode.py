@@ -114,8 +114,15 @@ def test_bpsk_awgn_noise_and_decisions():
 
 
 def test_simulate_other_channels_raise():
+    """The other channels run; a q or labeling their tables cannot serve
+    raises ValueError (tests/test_torch_channels.py has the rest)."""
     cw = torch.zeros((2, 8), dtype=torch.int64)
     gen = torch.Generator().manual_seed(0)
-    for kind in ("qam", "apsk64", "qam256_4d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tch.simulate(gen, cw, 16, tch.ChannelSpec(kind=kind), 2.0, 0.5)
+    for kind, q in (("qam", 16), ("apsk64", 64), ("qam256_4d", 256)):
+        cost = tch.simulate(gen, cw, q, tch.ChannelSpec(kind=kind), 2.0, 0.5)
+        assert cost.shape == (2, 8, q)
+        with pytest.raises(ValueError, match="q"):
+            tch.simulate(gen, cw, 32, tch.ChannelSpec(kind=kind), 2.0, 0.5)
+        with pytest.raises(ValueError, match="labeling"):
+            tch.simulate(gen, cw, q, tch.ChannelSpec(kind=kind,
+                                                     labeling="x"), 2.0, 0.5)
