@@ -12,7 +12,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles the four CUDA kernels and the device loop's graph
+2. build: compiles the five CUDA kernels and the device loop's graph
    helper with nvcc (sm_90a), one nvcc per source, started together;
    prints the times and ptxas' register / shared-memory report; then
    builds the full-width code;
@@ -92,6 +92,21 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    turns at [128, 8100, 256] (D = 2 and 4) and [128, 10800, 64] (APSK),
    beside the bound, with each route's live peak (``--only-3d``: phases
    1, 2 and 3d alone, no result line);
+3e. bubble kernel (K9, ``ops/cuda_bubble.bubble_rows``) against its plain
+   version (``ops/bubble_cn.bubble_rows_plain``), bit for bit
+   (``torch.equal``), both variants (8-bubble, L-bubble): at the main
+   paths' shapes with the real code's tables (layered [128·1350, 4, 256]
+   with G = 1350, output saturation on; flooding [128·4050, 4, 256] with
+   G = 4050, off), nm = 32, nbOper = 64, on continuous inputs (and "ties"
+   at the layered shape), and at odd shapes with padding slots and
+   ``valid`` (q = 16 / 64 / 256, dc = 3 / 4 / 5 / 6 / 12, nm = 1 and
+   nm = q, nbOper < nm so that merges leave unfilled tails, a negative
+   offset, where the saturation is not a no-op), on continuous and "ties"
+   inputs; times the kernel (both variants, and the 8-bubble with
+   nbOper = 0: the lists and the dense write without a bubble step) and
+   the plain version (8-bubble) in turns at the two main shapes beside
+   the bound
+   (``--only-3e``: phases 1, 2 and 3e alone, no result line);
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -149,6 +164,22 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    first batch, one set of draws, through K8 and through its plain version
    on the card: equal intrinsics, and identical decisions, iterations and
    convergence from the two host-loop decodes;
+4h. bubble chain at full width: layered EMS nm = 32, nbOper = 64,
+   offset 0.3, ``cn_impl="bubble"`` (the 8-bubble of the C reference's
+   buildable program), 10 iterations, dense f32, ``BUBBLE_DB``, F = 128,
+   256 frames, device loop; checks 3 ``bubble_rows`` a step (counted on
+   the card, none eager), no other kernel, avg_it < 10, FER <= 0.25; with
+   ``--profile`` traces one batch;
+5j. bubble decode both ways (host loop), at full width: 16 frames of the
+   chain's first batch (F cut from 128 for the plain side's sake) through
+   K9 (3 launches a step) and through its plain version on the card
+   (``plain``, no launch), both variants: identical decisions, iterations
+   and convergence;
+5k. against the C++ core (``native.decode_batch``, csrc/nbldpc_core.cpp
+   built with g++, f64, no CtoV normalisation): the chain's first 32
+   frames, the same intrinsics as f64: the share of frames decided
+   identically, identical decisions on every frame both call converged,
+   both FERs;
 5i. small codes, card against CPU: random_regular(96, 48, 16) with 16-QAM
    and erasures 0.1 at 9 dB, random_regular(960, 480, 64) with 64-APSK
    and Rayleigh at 13 dB, 64 frames drawn on the card and copied to the
@@ -160,12 +191,13 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    through K1 and flooding SPA through the bare K2 (on the flooding
    chain's batch), layered syndrome (through ``syndrome_layer``) and
    flooding syndrome (20 iterations, through the bare ``syndrome_rows``)
-   on the syndrome chain's batch.  A fresh loop decodes (its capture), then decodes
+   on the syndrome chain's batch, and layered and flooding (20 iterations)
+   8-bubble and L-bubble through ``bubble_rows`` on the bubble chain's.  A fresh loop decodes (its capture), then decodes
    again after every table cache was emptied and the freed memory
    refilled (the graph reads the tables its loop keeps), then the host
    loop: decisions, iterations and convergence bit-equal; the loop's
-   launches per step 3, 3, 0, 1, 1, 3 and 1; the replay makes no eager
-   launch
+   launches per step 3, 3, 0, 1, 1, 3, 1, and 3, 3, 1, 1 (bubble); the
+   replay makes no eager launch
    and the kernels count per step x steps on the card, as under the host
    loop; prints one decode's wall time under each loop, and the memory
    each loop's decode holds: its live peak and the allocator's reserved
@@ -195,9 +227,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    ``models/tools.write_ubs``, then ``cli.main`` with the SPA row's
    settings (``--cn spa --iters 20 --batch 128 --max-frames 256 --ebn0
    1.8``, defaults otherwise: device loop, on the card), with
-   ``--cn syndrome --iters 10`` (the syndrome chain's) and with the QAM
+   ``--cn syndrome --iters 10`` (the syndrome chain's), with the QAM
    chain's (``--channel qam --rayleigh --cn spa --iters 20`` at
-   ``QAM_SNR``), each against
+   ``QAM_SNR``) and with the bubble chain's (``--cn-impl bubble --nm 32
+   --nboper 64 --iters 10`` at ``BUBBLE_DB``), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
    file: frames, frame errors, bit errors and iteration sum equal.
 
@@ -205,7 +238,8 @@ Each chain runs once to warm up (under the device loop: its capture),
 then once timed with the launch counts set to 0 just before and read just
 after; both sides of 5d and 5e are counted the same way.  Two counts are
 kept: the wrappers' eager launches (``cuda_cn.launches``,
-``cuda_spa.launches``, ``cuda_syndrome.launches``, ``cuda_demap.launches``)
+``cuda_spa.launches``, ``cuda_syndrome.launches``, ``cuda_demap.launches``,
+``cuda_bubble.launches``)
 and the launches each
 kernel counts itself on the
 card (``device_launches()``), which a graph's replays move too; a
@@ -226,7 +260,9 @@ torch's index kernels),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
-64-APSK shapes, beside its plain version's and its bound), and ``{"ok": true, "device": {...}}``.  No JAX is imported.
+64-APSK shapes, for K9 both variants at the layered and flooding shapes,
+beside its plain version's and its bound), and ``{"ok": true, "device":
+{...}}``.  The run prints its time.  No JAX is imported.
 """
 from __future__ import annotations
 
@@ -244,7 +280,7 @@ import time
 import numpy as np
 import torch
 
-from ems_nbldpc_torch import cli
+from ems_nbldpc_torch import cli, native
 from ems_nbldpc_torch.decoder import device_loop
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
 from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
@@ -261,7 +297,9 @@ from ems_nbldpc_torch.models.channels import ChannelSpec
 from ems_nbldpc_torch.models.code import load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
-from ems_nbldpc_torch.ops import cuda_cn, cuda_demap, cuda_spa, cuda_syndrome
+from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_demap, cuda_spa,
+                                  cuda_syndrome)
+from ems_nbldpc_torch.ops.bubble_cn import bubble_rows_plain
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
 from ems_nbldpc_torch.ops.cuda_spa import spa_layer, spa_layer_plain
@@ -356,6 +394,19 @@ QAM_SNR = 17.0             # dB (Es/N0) of 4f, 5h and 7; see PERF.md §4
 D4_SPEC = ChannelSpec(kind="qam256_4d", ssd=True, erasure_prob=0.1,
                       sigma_convention="snr")
 D4_SNR = 12.0              # dB of 4g and 5h; see PERF.md §4
+BUBBLE_ODD = [             # (T, G, dc, q, nm, nbOper, truncate, offset) of
+    # bubble_rows beside the main paths' shapes; all with padding slots
+    (1000, 50, 3, 16, 8, 12, True, OFFSET),
+    (333, 111, 6, 64, 12, 24, True, OFFSET),
+    (400, 20, 4, 256, 32, 64, True, OFFSET),
+    (90, 9, 6, 16, 16, 40, False, OFFSET),      # nm = q
+    (200, 20, 4, 16, 1, 4, True, OFFSET),       # nm = 1
+    (150, 15, 5, 64, 16, 8, True, OFFSET),      # nbOper < nm: tails
+    (77, 11, 12, 256, 32, 64, True, OFFSET),
+    (120, 12, 4, 64, 12, 24, True, -0.2),       # saturation bites
+]
+BUBBLE_NM, BUBBLE_OPS = 32, 64
+BUBBLE_DB = 2.0            # dB of 4h, 5j, 5k, 6 and 7; see PERF.md §4
 LAYERS = 3
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
 DEMAP_PATHS = {}           # chain -> K8 launches in its timed run
@@ -1237,6 +1288,166 @@ def check_demap_kernel():
     return worst, times
 
 
+def bubble_case(label, x, tabs, nm, nb_oper, offset, truncate, saturate):
+    """K9 against its plain version on rows ``x`` with ``tabs`` (rot_in,
+    rot_out, valid), both variants, bit for bit; returns the largest
+    error."""
+    worst = 0.0
+    for variant in ("8", "L"):
+        args = (x, *tabs, nm, nb_oper, offset, truncate, saturate, variant)
+        got = cuda_bubble.bubble_rows(*args)
+        want = bubble_rows_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        exact = torch.equal(got, want)
+        print(f"bubble_rows {label} variant {variant}: bit-exact={exact} "
+              f"max_abs_err={err}", flush=True)
+        check(exact, f"bubble_rows != plain at {label} variant {variant}")
+        worst = max(worst, err)
+        del got, want
+    return worst
+
+
+def check_bubble_kernel(graph):
+    """3e: K9 against its plain version, bit for bit, at the main paths'
+    shapes and at odd ones; times at the main shapes.  Returns the largest
+    error (0 when bit-exact) and {path: times}."""
+    phase("3e bubble kernel (K9) against plain")
+    worst = 0.0
+    layer = _layer_plan(graph, "cuda")[0]
+    rows = _cn_row_tables(graph, "cuda")
+    main = {"layered": (128 * SLICE_ROWS, (layer["rot_in8"], layer["rot_out8"],
+                                          layer["valid"]), True),
+            "flooding": (128 * CODE_ROWS, (rows["rot_in"], rows["rot_out"],
+                                           rows["valid"]), False)}
+    for path, (t, tabs, sat) in main.items():
+        for kind in KINDS if path == "layered" else KINDS[:1]:
+            x = rows_input(t, 4, 256, kind, seed=500 + t)
+            worst = max(worst, bubble_case(
+                f"{path} T={t} G={tabs[0].shape[0]} nm={BUBBLE_NM} nbOper="
+                f"{BUBBLE_OPS} saturate={sat} {kind}", x, tabs, BUBBLE_NM,
+                BUBBLE_OPS, OFFSET, True, sat))
+            del x
+    for i, (t, g, dc, q, nm, ops, trunc, off) in enumerate(BUBBLE_ODD):
+        tabs = odd_tables(g, dc, q, seed=40 + i)
+        for kind in KINDS:
+            x = rows_input(t, dc, q, kind, seed=600 + i)
+            sat = trunc and kind == "uniform"
+            pad = int((~tabs[2]).sum())
+            worst = max(worst, bubble_case(
+                f"odd T={t} G={g} dc={dc} q={q} nm={nm} nbOper={ops} "
+                f"truncate={trunc} saturate={sat} offset={off} padding "
+                f"slots={pad} {kind}", x, tabs, nm, ops, off, trunc, sat))
+    times = {}
+    for path, (t, tabs, sat) in main.items():
+        x = rows_input(t, 4, 256, "uniform", seed=7)
+        args = (x, *tabs, BUBBLE_NM, BUBBLE_OPS, OFFSET, True, sat)
+        # nbOper = 0: the lists and the dense write alone, no bubble step
+        no_steps = (x, *tabs, BUBBLE_NM, 0, OFFSET, True, sat, "8")
+        fns = {"kernel": lambda: cuda_bubble.bubble_rows(*args, "8"),
+               "lbubble": lambda: cuda_bubble.bubble_rows(*args, "L"),
+               "no_steps": lambda: cuda_bubble.bubble_rows(*no_steps),
+               "plain": lambda: bubble_rows_plain(*args, "8")}
+        reps = {"kernel": 10, "lbubble": 10, "no_steps": 10, "plain": 1}
+        got = collections.defaultdict(list)
+        for name in ("plain", "kernel", "lbubble", "no_steps", "no_steps",
+                     "lbubble", "kernel", "plain"):
+            got[name].append(time_ms(fns[name], reps[name]))
+        g = tabs[0].shape[0]
+        b_ms, b_by = ems_bound_ms(t, g, 4, 256, BUBBLE_NM)
+        # at most 3 (dc - 2) merges of nbOper steps a row, each an 8-way
+        # argmin and one add: far below the bytes, whatever the data
+        ops = t * 3 * (4 - 2) * BUBBLE_OPS * 9
+        check(ops / F32_OPS_S < b_ms / 1e3, "the bubble steps bound K9")
+        times[path] = dict({k: sum(v) / len(v) for k, v in got.items()},
+                           bound=b_ms, bound_by=b_by, rows=t)
+        print(f"bubble_rows {path} T={t} G={g} dc=4 q=256 nm={BUBBLE_NM} "
+              f"nbOper={BUBBLE_OPS}: kernel 8-bubble "
+              + " / ".join(f"{v:.4f}" for v in got["kernel"])
+              + " ms, L-bubble " + " / ".join(f"{v:.4f}" for v in
+                                             got["lbubble"])
+              + " ms, nbOper = 0 " + " / ".join(f"{v:.4f}" for v in
+                                               got["no_steps"])
+              + " ms, plain (8-bubble) " + " / ".join(f"{v:.4f}" for v in
+                                                      got["plain"])
+              + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / times[path]['kernel']:.2f}% of it", flush=True)
+        del x, args, no_steps
+    return worst, times
+
+
+def check_bubble_decodes(mc, dec):
+    """5j: 16 frames of the bubble chain's first batch through K9 and
+    through its plain version on the card (host loop), both variants:
+    identical decisions, iterations and convergence; launches 3 a step on
+    the kernel side, none on the plain side."""
+    phase("5j bubble kernel vs plain decode at full width")
+    intr16 = mc.gen(0)[1][:16].contiguous()
+    for impl in ("bubble", "lbubble"):
+        outs = {}
+        for plain in (False, True):
+            reset_launches()
+            d, it, conv = decode_layered_hostloop(
+                mc.graph, intr16, dec.max_iters, nm=dec.nm,
+                offset=dec.offset, cn=dec.cn, cn_impl=impl,
+                nboper=dec.nboper, plain=plain)
+            outs[plain] = (d.cpu(), it.cpu(), conv.cpu(),
+                           read_host_launches("5j"))
+        (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+        same = (torch.equal(d_k, d_p) and torch.equal(it_k, it_p)
+                and torch.equal(c_k, c_p))
+        steps = int(it_k.max())
+        print(f"{impl} F=16: identical decisions/iterations/convergence: "
+              f"{same}; iters {it_k.tolist()}; launches kernel {l_k}, plain "
+              f"{l_p}", flush=True)
+        check(same, f"{impl}: kernel and plain decodes differ")
+        check(l_k["bubble_checknode"] == LAYERS * steps > 0
+              and sum(l_k.values()) == l_k["bubble_checknode"]
+              and sum(l_p.values()) == 0,
+              f"{impl} launches {l_k} (plain {l_p}) for {steps} steps")
+
+
+def check_native(mc, dec, frames=32):
+    """5k: the chain's first ``frames`` frames through K9 (the default
+    device loop) and through the C++ core (f64 intrinsics): the share of
+    frames decided identically, identical decisions on every frame both
+    call converged, both FERs.  Returns the numbers."""
+    phase("5k against the C++ core")
+    lib, seconds = native.build()
+    print(f"g++ nbldpc_core.cpp {seconds:.2f} s", flush=True)
+    cw, intr = mc.gen(0)
+    cw, intr = cw[:frames].contiguous(), intr[:frames].contiguous()
+    d, it, conv = (x.cpu().numpy() for x in decode(mc.graph, intr, dec))
+    t0 = time.perf_counter()
+    nd, ni, nc = native.decode_batch(mc.code, intr.double().cpu().numpy(),
+                                     dec.max_iters, dec.nm, dec.offset,
+                                     dec.nboper)
+    seconds = time.perf_counter() - t0
+    cw = cw.cpu().numpy()
+    same = (d == nd).all(axis=1)
+    both = conv & nc
+    agree = bool((d[both] == nd[both]).all())
+    fer = (float((d != cw).any(axis=1).mean()),
+           float((nd != cw).any(axis=1).mean()))
+    out = {"frames": frames, "identical": int(same.sum()),
+           "both_converged": int(both.sum()),
+           "identical_where_both_converged": agree,
+           "fer_port": fer[0], "fer_core": fer[1],
+           "iters_port": round(float(it.mean()), 4),
+           "iters_core": round(float(ni.mean()), 4),
+           "core_s": round(seconds, 3)}
+    print(f"F={frames}: decisions identical on {int(same.sum())}/{frames} "
+          f"frames; both converged on {int(both.sum())} (port {int(conv.sum())}"
+          f", core {int(nc.sum())}), identical there: {agree}; FER port "
+          f"{fer[0]:.4f}, core {fer[1]:.4f}; mean iterations port "
+          f"{out['iters_port']}, core {out['iters_core']} (the core's "
+          f"decode {seconds:.2f} s on the host)", flush=True)
+    check(agree, "K9 and the C core decide differently on a frame both "
+          "call converged")
+    check(both.sum() > 0, "no frame converged on both sides")
+    return out
+
+
 def profile_batch(mc, tag, out_dir="profile_out", big=None):
     """Trace one Monte-Carlo batch, after an untraced one (which holds the
     device loop's capture if the loop is new); print the device busy share
@@ -1286,7 +1497,7 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     traced = {k: sum(1 for e in kernels if k in e["name"])
               for k in ("ems_rows_kernel", "spa_row_kernel",
-                        "syndrome_kernel", "demap_kernel")}
+                        "syndrome_kernel", "demap_kernel", "bubble_kernel")}
     demap_us = sum(us for name, us in by_name.items()
                    if "demap_kernel" in name)
     big_ops = sorted({e["name"] for e in events if e.get("cat") == "cpu_op"
@@ -1463,8 +1674,9 @@ def reset_launches():
     """Set both kinds of launch counts to 0 (synchronises the card)."""
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
     cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
-    cuda_demap.launches = 0
+    cuda_demap.launches = cuda_bubble.launches = 0
     cuda_demap.reset_device_launches()
+    cuda_bubble.reset_device_launches()
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
     cuda_syndrome.reset_device_launches()
@@ -1479,7 +1691,8 @@ def read_launches() -> dict:
     syn, syn_layer = cuda_syndrome.device_launches()
     return {"fb_checknode": cuda_cn.device_launches(),
             "spa_checknode": spa, "spa_layer": layer,
-            "syndrome_checknode": syn, "syndrome_layer": syn_layer}
+            "syndrome_checknode": syn, "syndrome_layer": syn_layer,
+            "bubble_checknode": cuda_bubble.device_launches()}
 
 
 def read_eager() -> dict:
@@ -1488,7 +1701,8 @@ def read_eager() -> dict:
             "spa_checknode": cuda_spa.launches,
             "spa_layer": cuda_spa.layer_launches,
             "syndrome_checknode": cuda_syndrome.launches,
-            "syndrome_layer": cuda_syndrome.layer_launches}
+            "syndrome_layer": cuda_syndrome.layer_launches,
+            "bubble_checknode": cuda_bubble.launches}
 
 
 def read_host_launches(what) -> dict:
@@ -1538,7 +1752,8 @@ def check_small_card_decodes():
         check(steps > 1, f"{name}: uninformative batch")
         check(launches == {"fb_checknode": per_step * steps,
                            "spa_checknode": 0, "spa_layer": 0,
-                           "syndrome_checknode": 0, "syndrome_layer": 0},
+                           "syndrome_checknode": 0, "syndrome_layer": 0,
+                           "bubble_checknode": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -1756,8 +1971,9 @@ def check_odd_batches(code, decs):
 def check_cli(code):
     """7: the CLI at full width on the code written as a UBS file, with the
     SPA row's settings, with the syndrome chain's (``--cn syndrome``, the
-    ``DecoderConfig`` defaults) and with the QAM chain's (4f: ``--channel
-    qam --rayleigh``), each against ``MonteCarlo.run`` of the same config
+    ``DecoderConfig`` defaults), with the QAM chain's (4f: ``--channel
+    qam --rayleigh``) and with the bubble chain's (4h: ``--cn-impl
+    bubble``), each against ``MonteCarlo.run`` of the same config
     and seed on ``load`` of that file: frames, frame errors, bit errors and
     iteration sum equal."""
     phase("7 CLI at full width")
@@ -1768,11 +1984,17 @@ def check_cli(code):
             [code.row_cols[r, :d] for r, d in enumerate(code.row_deg)],
             [code.row_coefs[r, :d] for r, d in enumerate(code.row_deg)]),
             path)
-        for label, cn, iters, flags, spec, db in (
-                ("--cn spa", "spa", 20, [], ChannelSpec(), 1.8),
-                ("--cn syndrome", "syndrome", 10, [], ChannelSpec(), 1.8),
+        bubble = dict(nm=BUBBLE_NM, nboper=BUBBLE_OPS, cn_impl="bubble")
+        for label, cn, iters, flags, spec, db, dec in (
+                ("--cn spa", "spa", 20, [], ChannelSpec(), 1.8, {}),
+                ("--cn syndrome", "syndrome", 10, [], ChannelSpec(), 1.8,
+                 {}),
                 ("--channel qam --rayleigh --cn spa", "spa", 20,
-                 ["--channel", "qam", "--rayleigh"], QAM_SPEC, QAM_SNR)):
+                 ["--channel", "qam", "--rayleigh"], QAM_SPEC, QAM_SNR, {}),
+                ("--cn-impl bubble", "ems", 10,
+                 ["--cn-impl", "bubble", "--nm", str(BUBBLE_NM),
+                  "--nboper", str(BUBBLE_OPS)], ChannelSpec(), BUBBLE_DB,
+                 bubble)):
             out = os.path.join(tmp, f"out_{len(flags)}_{cn}")
             t0 = time.perf_counter()
             rc = cli.main(["--matrix", path, "--cn", cn, "--iters",
@@ -1787,7 +2009,8 @@ def check_cli(code):
             torch.cuda.empty_cache()
             cfg = SimConfig(ebn0_db=db, frames_per_batch=128,
                             max_frames=256, channel=spec,
-                            decoder=DecoderConfig(max_iters=iters, cn=cn))
+                            decoder=DecoderConfig(max_iters=iters, cn=cn,
+                                                  **dec))
             loaded = load(path, name=path)
             mc = MonteCarlo(loaded, cfg, device="cuda")
             res = mc.run()
@@ -1808,6 +2031,7 @@ def check_cli(code):
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     phase("1 device")
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -1827,7 +2051,8 @@ def main(argv) -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    mods = (cuda_cn, cuda_spa, cuda_syndrome, cuda_demap, device_loop)
+    mods = (cuda_cn, cuda_spa, cuda_syndrome, cuda_demap, cuda_bubble,
+            device_loop)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
@@ -1838,7 +2063,7 @@ def main(argv) -> int:
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"all five built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all six built in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--only-3d" in argv:
         check_demap_kernel()
         print("--only-3d: the other phases were not run", flush=True)
@@ -1859,10 +2084,15 @@ def main(argv) -> int:
         check_syndrome_kernel(graph)
         print("--only-3c: the other phases were not run", flush=True)
         return 0
+    if "--only-3e" in argv:
+        check_bubble_kernel(graph)
+        print("--only-3e: the other phases were not run", flush=True)
+        return 0
     max_err, k_times = check_kernel(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
     syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
     demap_err, demap_times = check_demap_kernel()
+    bub_err, bub_times = check_bubble_kernel(graph)
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
@@ -1872,7 +2102,7 @@ def main(argv) -> int:
 
     phase("4 EMS chain")
     paths = {"fb_checknode": {}, "spa_checknode": {},
-             "syndrome_checknode": {}}
+             "syndrome_checknode": {}, "bubble_checknode": {}}
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2173,6 +2403,45 @@ def main(argv) -> int:
                                                  "4-D chain"))
     free(mc)
     del mc
+
+    phase("4h bubble chain: layered EMS through the 8-bubble (K9)")
+    bub_dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems",
+                            nm=BUBBLE_NM, offset=0.3, cn_impl="bubble",
+                            nboper=BUBBLE_OPS, storage="dense",
+                            dtype="float32")
+    mc, bub_res, bub_launches = run_chain("bubble", code, enc, bub_dec,
+                                          BUBBLE_DB)
+    check(bub_launches["bubble_checknode"] == n_layers * bub_res.decoder_steps
+          > 0 and sum(bub_launches.values())
+          == bub_launches["bubble_checknode"],
+          f"bubble chain launches {bub_launches} for "
+          f"{bub_res.decoder_steps} decoder steps")
+    paths["bubble_checknode"]["bubble chain (4h)"] = bub_launches[
+        "bubble_checknode"]
+    if "--profile" in argv:
+        prof = profile_batch(mc, "bubble")
+        prof.pop("spa_kernels")
+        prof.pop("syn_kernels")
+        check_traced(prof, "bubble_kernel", n_layers, "bubble trace")
+        SUMMARY["bubble"][-1]["profile"] = prof
+    check_bubble_decodes(mc, bub_dec)
+    SUMMARY["bubble"][-1]["native"] = check_native(mc, bub_dec)
+    intr = mc.gen(0)[1]
+    for sched, impl, per_step in (("layered", "lbubble", n_layers),
+                                  ("layered", "bubble", n_layers),
+                                  ("flooding", "bubble", 1),
+                                  ("flooding", "lbubble", 1)):
+        loop_dec = dataclasses.replace(
+            bub_dec, schedule=sched, cn_impl=impl,
+            max_iters=20 if sched == "flooding" else bub_dec.max_iters)
+        _, replay = check_loops(f"{sched} {impl}", graph, intr, loop_dec,
+                                {"bubble_checknode": per_step})
+        if (sched, impl) != ("layered", "bubble"):
+            paths["bubble_checknode"][f"{sched} {impl} (6)"] = replay[
+                "bubble_checknode"]
+    device_loop.clear()
+    free(mc)
+    del mc, intr
     check_small_channel_decodes()
 
     check_odd_batches(code, {
@@ -2182,8 +2451,10 @@ def main(argv) -> int:
     check_small_card_decodes()
     check_cli(code)
 
+    print(f"smoke run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))
     d2, d4, apsk = (demap_times[k] for k in ("2-D", "4-D", "APSK"))
+    b_main, b_flood = bub_times["layered"], bub_times["flooding"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fb_checknode", "route": "cuda",
@@ -2251,6 +2522,23 @@ def main(argv) -> int:
         "d4_peak_gib": d4["peak_gib"],
         "apsk64_ms": apsk["kernel"], "apsk64_plain_ms": apsk["plain"],
         "apsk64_bound_ms": apsk["bound"],
+    }, {
+        "name": "bubble_checknode", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/bubble_checknode.cu",
+        "replaces": "ems_nbldpc_tpu/ops/bubble_cn.py:34-195",
+        "entry_points": ["bubble_rows"],
+        "launches": sum(paths["bubble_checknode"].values()),
+        "paths": list(paths["bubble_checknode"]),
+        "launches_by_path": paths["bubble_checknode"],
+        "max_abs_err": bub_err, "rows": b_main["rows"],
+        "ms": b_main["kernel"], "lbubble_ms": b_main["lbubble"],
+        "plain_ms": b_main["plain"], "bound_ms": b_main["bound"],
+        "bound_by": b_main["bound_by"], "library_ms": None,
+        "no_steps_ms": b_main["no_steps"],
+        "flooding_rows": b_flood["rows"], "flooding_ms": b_flood["kernel"],
+        "flooding_lbubble_ms": b_flood["lbubble"],
+        "flooding_plain_ms": b_flood["plain"],
+        "flooding_bound_ms": b_flood["bound"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nboper", type=int, default=0,
                    help="elementary-step candidate budget (reference arg 7);"
                         " 0 = exact top-nm merge; honored by the compressed"
-                        " truncated-list EMS path")
+                        " truncated-list EMS path and by --cn-impl bubble /"
+                        " lbubble (0 = 2 nm there)")
     p.add_argument("--schedule", default="layered",
                    choices=["layered", "flooding"])
     p.add_argument("--cn", default="ems",
@@ -65,8 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "topk", "pallas", "bubble",
                             "lbubble"],
                    help="elementary-combine backend (pallas: the "
-                        "hand-written CUDA check node; bubble/lbubble: not "
-                        "ported yet)")
+                        "hand-written CUDA check node; bubble/lbubble: the "
+                        "exact 8-bubble / L-bubble emulation of the C "
+                        "reference, with the --nboper budget)")
     p.add_argument("--batch", type=int, default=2048, help="frames/batch")
     p.add_argument("--max-frames", type=int, default=10_000_000)
     p.add_argument("--stop-errors", type=int, default=40,

@@ -6,8 +6,11 @@ JAX package's does.  Ported so far:
 
 * both schedules (``"layered"``, ``"flooding"``) with dense float32
   storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
-  hand-written CUDA EMS check node on the card; topk | auto | dense |
-  list: the plain torch F/B check nodes, as ``use_topk`` picks),
+  hand-written CUDA EMS check node on the card; bubble | lbubble: the
+  exact 8-bubble / L-bubble emulation of the C reference's elementary
+  step with the ``nboper`` budget (0: ``2 * nm``), its hand-written CUDA
+  kernel on the card and its plain version on the CPU; topk | auto |
+  dense | list: the plain torch F/B check nodes, as ``use_topk`` picks),
   ``cn="spa"`` (the hand-written CUDA SPA check node on the card) or
   ``cn="syndrome"`` (the syndrome-EMS check node with the ``syn_*``
   settings, as JAX's ``syn`` dict; the hand-written CUDA kernel on the
@@ -21,9 +24,9 @@ schedule eagerly on the CPU (``device_loop``); ``loop="host"`` polls
 convergence on the host once per step.  The compressed dense-CN decoder
 (``cn_impl="topk"``) runs the host loop whatever ``loop`` says, as in JAX.
 
-Dense bfloat16 storage and ``cn_impl`` bubble | lbubble raise
-``NotImplementedError`` naming their ROADMAP item.  As in JAX, compressed
-storage ignores ``cn`` and runs EMS, ``cn="syndrome"`` included.
+Dense bfloat16 storage raises ``NotImplementedError`` naming its ROADMAP
+item.  As in JAX, compressed storage ignores ``cn`` and runs EMS,
+``cn="syndrome"`` included.
 """
 from __future__ import annotations
 
@@ -47,10 +50,12 @@ class DecoderConfig:
     nm: int = 0                 # 0 -> no truncation (pure min-sum)
     offset: float = 0.3         # saturation offset (reference arg 6)
     nboper: int = 0             # elementary-step candidate budget (reference
-    #                             arg 7); read by the list CN only
+    #                             arg 7); read by the list CN and the
+    #                             bubble CNs (0 -> 2 * nm for these)
     cn_impl: str = "auto"       # dense | topk | list | pallas (the
     #                             hand-written CUDA CN, ops/cuda_cn.py) |
-    #                             auto; bubble | lbubble are not ported yet;
+    #                             auto | bubble | lbubble (the exact bubble
+    #                             emulation, ops/cuda_bubble.py);
     #                             cn="spa" and "syndrome" read none.
     #                             Compressed storage runs the dense-CN
     #                             decoder for topk, the list CN otherwise

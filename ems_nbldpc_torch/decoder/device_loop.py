@@ -28,7 +28,8 @@ overwrites the buffers.
 
 Kernel launches: a replay runs the captured kernels without their Python
 wrappers, so the wrappers' eager counts (``ops/cuda_cn.launches``,
-``ops/cuda_spa.launches``, ``ops/cuda_syndrome.launches``) do not move;
+``ops/cuda_spa.launches``, ``ops/cuda_syndrome.launches``,
+``ops/cuda_bubble.launches``) do not move;
 the kernels count their own launches on the card (``device_launches()``
 of each wrapper module).  The
 capture leaves the eager counts as it found them and records each
@@ -50,7 +51,7 @@ import weakref
 
 import torch
 
-from ..ops import _build, cuda_cn, cuda_spa, cuda_syndrome
+from ..ops import _build, cuda_bubble, cuda_cn, cuda_spa, cuda_syndrome
 from .graph import keep_tables
 
 MAX_CACHED = 2                   # loops kept by the cache
@@ -60,7 +61,8 @@ _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "spa_checknode": (cuda_spa, "launches"),
              "spa_layer": (cuda_spa, "layer_launches"),
              "syndrome_checknode": (cuda_syndrome, "launches"),
-             "syndrome_layer": (cuda_syndrome, "layer_launches")}
+             "syndrome_layer": (cuda_syndrome, "layer_launches"),
+             "bubble_checknode": (cuda_bubble, "launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

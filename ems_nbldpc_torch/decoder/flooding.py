@@ -20,7 +20,8 @@ spent: ``host_loop`` (shared with layered.py) polls on the host,
 
 The syndrome CN's settings (``syn``), tables (``syndrome_args``) and call
 on rows (``syndrome_step``) live here too; the layered schedule shares the
-settings and tables.
+settings and tables, and the bubble CNs' variant and budget
+(``bubble_variant``, ``bubble_budget``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import inspect
 import numpy as np
 import torch
 
+from ..ops.bubble_cn import bubble_rows_plain
+from ..ops.cuda_bubble import bubble_rows, tile_rows
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
 from ..ops.cuda_syndrome import (check_fits, position_lists, syndrome_rows,
@@ -146,14 +149,30 @@ def syndrome_step(x, rot_in, rot_out, valid, nm: int, offset: float, syn,
     return syndrome_rows(x, rot_in, rot_out, valid, *args, lists)
 
 
+BUBBLES = {"bubble": "8", "lbubble": "L"}  # cn_impl -> bubble_rows variant
+
+
+def bubble_variant(cn: str, cn_impl: str) -> str | None:
+    """The variant of ``cuda_bubble.bubble_rows`` that ``cn_impl`` selects
+    ("8" for ``"bubble"``, "L" for ``"lbubble"``), or None: the EMS and
+    min-sum CNs read ``cn_impl``; SPA and syndrome read none, as in JAX."""
+    return BUBBLES.get(cn_impl) if cn in ("ems", "minsum") else None
+
+
+def bubble_budget(nm: int, nboper: int) -> int:
+    """The bubble CNs' nbOper: ``nboper``, or JAX's ``2 * nm`` for 0."""
+    return nboper if nboper > 0 else 2 * nm
+
+
 def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
                     dc: int | None = None) -> None:
-    """Raise for a CN configuration the port does not run (either
-    schedule): the bubble CNs are not ported yet, an nm-truncated CN needs
-    1 <= nm <= q, and the syndrome CN (which reads no ``cn_impl``, as in
-    JAX) needs 0 <= nm <= q and, given the rows' ``dc``, tables that its
-    kernel reads right and holds (``cuda_syndrome.position_lists`` and
-    ``check_fits``; ``ValueError``)."""
+    """Raise ``ValueError`` for a CN configuration the port does not run
+    (either schedule): an nm-truncated CN needs 1 <= nm <= q; the bubble
+    CNs too (JAX's ``top_k(v, 0)`` breaks), and, given the rows' ``dc``,
+    dc >= 3 and lists that fit the kernel (``cuda_bubble.tile_rows``); the
+    syndrome CN (which reads no ``cn_impl``, as in JAX) needs 0 <= nm <= q
+    and, given ``dc``, tables that its kernel reads right and holds
+    (``cuda_syndrome.position_lists`` and ``check_fits``)."""
     if cn == "syndrome":
         if not 0 <= nm <= q:
             raise ValueError(f"cn='syndrome' needs 0 <= nm <= q, got nm={nm},"
@@ -165,16 +184,23 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
             check_fits(dc, q, syn_nm(nm, q), cfg.shape[0], s["presort"],
                        "cn='syndrome'", max(lists.counts))
         return
-    if cn_impl in ("bubble", "lbubble"):
-        raise NotImplementedError(
-            f"cn_impl={cn_impl!r} is not ported yet (ROADMAP Queue 1: exact "
-            "bubble emulation)")
     if cn == "spa":
         return  # the SPA CN reads neither nm nor cn_impl, as in JAX
     if cn not in ("ems", "minsum"):
         raise ValueError(f"cn={cn!r}")
-    if cn_impl not in ("pallas", "topk", "auto", "dense", "list"):
+    if cn_impl not in ("pallas", "topk", "auto", "dense", "list", *BUBBLES):
         raise ValueError(f"cn_impl={cn_impl!r}")
+    if cn_impl in BUBBLES:
+        if not 1 <= nm <= q:
+            raise ValueError(f"cn_impl={cn_impl!r} needs 1 <= nm <= q, got "
+                             f"nm={nm}, q={q}")
+        if dc is not None and dc < 3:
+            raise ValueError(f"cn_impl={cn_impl!r} needs rows of degree >= "
+                             f"3, got dc={dc}")
+        if dc is not None and tile_rows(dc, q, nm) < 1:
+            raise ValueError(f"cn_impl={cn_impl!r}: dc={dc}, q={q}, nm={nm} "
+                             f"do not fit the kernel's shared memory")
+        return
     truncated = (cn == "ems" and nm != 0 or cn_impl == "pallas"
                  or use_topk(cn, nm, q, cn_impl))
     if truncated and not 1 <= nm <= q:
@@ -254,7 +280,8 @@ def _edges_from_rows(g: DeviceGraph, x_rows):
 
 
 def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
-              cn_impl: str = "auto", plain: bool = False, syn=None):
+              cn_impl: str = "auto", plain: bool = False, syn=None,
+              nboper: int = 0):
     """The CN step of every row at once: rotate in, F/B CN, rotate out.
 
     vtoc: [F, E, q] min-normalized variable-to-check messages.  Returns
@@ -267,15 +294,20 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     on any device with ``plain``).  Otherwise ``cn_impl="pallas"`` runs the
     whole step (truncation, rotations, padding mask, CN, saturation,
     normalisation) in the hand-written CUDA EMS check node on the unrotated
-    rows (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors), and
-    the rest the plain torch ``fb_checknode_topk`` or
-    ``fb_checknode_dense`` as ``use_topk`` picks.
+    rows (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors);
+    ``cn_impl="bubble"`` / ``"lbubble"`` the same step with the exact
+    bubble check node of budget ``bubble_budget(nm, nboper)`` and no output
+    saturation, as in JAX (``ops/cuda_bubble.bubble_rows``; its plain
+    version on CPU tensors, or on any device with ``plain``); and the rest
+    the plain torch ``fb_checknode_topk`` or ``fb_checknode_dense`` as
+    ``use_topk`` picks.
     """
     q = g.q
     f = vtoc.shape[0]
     dev = vtoc.device
     t = upload(g, str(dev))
-    if cn == "syndrome" or cn != "spa" and cn_impl == "pallas":
+    variant = bubble_variant(cn, cn_impl)
+    if cn == "syndrome" or variant or cn != "spa" and cn_impl == "pallas":
         r = _cn_row_tables(g, str(dev))
         # a padding slot reads edge E, which the mask replaces
         src = vtoc if g.regular else torch.cat(
@@ -286,6 +318,11 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
         if cn == "syndrome":
             out = syndrome_step(x, r["rot_in"], r["rot_out"], r["valid"], nm,
                                 offset, syn, plain)
+        elif variant:
+            out = (bubble_rows_plain if plain else bubble_rows)(
+                x, r["rot_in"], r["rot_out"], r["valid"], nm,
+                bubble_budget(nm, nboper), offset, truncates(cn, nm, q),
+                False, variant)
         else:
             out = ems_rows(x, r["rot_in"], r["rot_out"], r["valid"], nm,
                            offset, truncates(cn, nm, q))
@@ -332,6 +369,7 @@ def make_flooding_stepper(
     cn_impl: str = "auto",
     plain: bool = False,
     syn=None,
+    nboper: int = 0,
 ):
     """Stepped flooding decoder: ``state = init_fn(intrinsic)``, ``state =
     step_fn(state)``; state = (intrinsic, ctov_pad, decide, conv, iters).
@@ -339,8 +377,9 @@ def make_flooding_stepper(
     ``init_fn(intrinsic, state)`` resets ``state`` in place, copying the
     intrinsic into its buffer (the device loop's); ``step_fn`` updates
     ctov_pad in place.  ``syn``: the syndrome CN's parameters (JAX's dict;
-    ``syn_settings``).  ``plain`` is internal: it runs the SPA and syndrome
-    CNs' plain versions on the card, for holding the kernels against them.
+    ``syn_settings``); ``nboper``: the bubble CNs' budget.  ``plain`` is
+    internal: it runs the SPA, syndrome and bubble CNs' plain versions on
+    the card, for holding the kernels against them.
     """
     check_supported(nm, g.q, cn, cn_impl, syn, g.code.dc_max)
     e = g.n_edges
@@ -369,7 +408,8 @@ def make_flooding_stepper(
         vtoc = tot[:, edge_col] - ctov_pad[:, :e]
         del tot
         vtoc = vtoc - vtoc.min(dim=-1, keepdim=True).values
-        mcv = checknode(g, vtoc, nm, offset, cn, cn_impl, plain, syn)
+        mcv = checknode(g, vtoc, nm, offset, cn, cn_impl, plain, syn,
+                        nboper)
         del vtoc
         active = ~conv
         # converged frames keep their CtoV; the padding edge stays 0
@@ -402,10 +442,11 @@ def decode_flooding_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
                              cn="minsum", cn_impl="auto", syn=None, nboper=0,
                              plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
-    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only,
-    which raise (not ported yet)."""
+    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only
+    (``bubble_budget``)."""
     return host_loop(
-        *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain, syn),
+        *make_flooding_stepper(g, nm, offset, cn, cn_impl, plain, syn,
+                               nboper),
         intrinsic, max_iters)
 
 
@@ -417,7 +458,9 @@ def decode_flooding(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
     buffer, which every step reads).  Returns (decide [F, N] int64, iters
     [F] int32, converged [F] bool)."""
     key = syn_key(syn) if cn == "syndrome" else None
+    budget = bubble_budget(nm, nboper) if bubble_variant(cn, cn_impl) else 0
     return device_loop.run(
-        ("flooding", g, nm, offset, cn, cn_impl, key),
-        lambda: make_flooding_stepper(g, nm, offset, cn, cn_impl, syn=syn),
+        ("flooding", g, nm, offset, cn, cn_impl, key, budget),
+        lambda: make_flooding_stepper(g, nm, offset, cn, cn_impl, syn=syn,
+                                      nboper=nboper),
         intrinsic, max_iters)

@@ -28,7 +28,9 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
 For ``cn="spa"`` and ``cn="syndrome"`` on the card the whole of it is one
 kernel launch (``ops/cuda_spa.spa_layer``, ``ops/cuda_syndrome.
-syndrome_layer``), with no [F, G, dc, q] temporaries.
+syndrome_layer``), with no [F, G, dc, q] temporaries; for ``cn_impl``
+pallas, bubble and lbubble the CN step is (``ops/cuda_cn.ems_rows``,
+``ops/cuda_bubble.bubble_rows``) between torch gathers and scatters.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ import numpy as np
 import torch
 
 from ..ops import listcn
+from ..ops.bubble_cn import bubble_rows_plain
+from ..ops.cuda_bubble import bubble_rows
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
 from ..ops.cuda_syndrome import syndrome_layer, syndrome_layer_plain
@@ -46,9 +50,9 @@ from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            fb_checknode_dense, fb_checknode_topk,
                            mask_invalid, scatter_topk_dense, topk_message)
 from . import device_loop
-from .flooding import (check_supported, decision_buffers, host_loop,
-                       syn_key, syndrome_args, syndrome_ok, truncates,
-                       use_topk)
+from .flooding import (bubble_budget, bubble_variant, check_supported,
+                       decision_buffers, host_loop, syn_key, syndrome_args,
+                       syndrome_ok, truncates, use_topk)
 from .graph import DeviceGraph, device_tables, rotate, rotation_table
 
 
@@ -127,7 +131,7 @@ def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
 
 
 def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
-                          plain=False, syn=None):
+                          plain=False, syn=None, nboper=0):
     """The per-iteration CN sweep over all super-layers, dense CtoV:
     ``one_iteration(app, ctov, active)`` updates the state in place.
     ``cn="spa"``: one ``ops/cuda_spa.spa_layer`` call per super-layer, the
@@ -142,9 +146,13 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     ``plain``); no output saturation, as in JAX.
     ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
     CUDA kernel does the whole CN step, normalisation included
-    (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); other
-    ``cn_impl``: ``_make_rotated_cn``, then (EMS) output saturation and
-    normalisation.
+    (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); with
+    ``cn_impl="bubble"`` / ``"lbubble"`` the exact bubble check node of
+    budget ``flooding.bubble_budget(nm, nboper)`` does, output saturation
+    included where EMS truncates, as in JAX (``ops/cuda_bubble.
+    bubble_rows``; its plain version on CPU tensors, or on any device with
+    ``plain``); other ``cn_impl``: ``_make_rotated_cn``, then (EMS) output
+    saturation and normalisation.
     """
     q = g.q
     check_supported(nm, q, cn, cn_impl, syn, g.code.dc_max)
@@ -175,13 +183,20 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
         return syndrome_iteration
 
     truncate = truncates(cn, nm, q)
-    # the kernel's step normalises
-    fused = cn_impl == "pallas"
+    variant = bubble_variant(cn, cn_impl)
+    # the kernels' steps normalise
+    fused = cn_impl == "pallas" or variant is not None
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
-        out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
-                       p["rot_out8"], p["valid"], nm, offset, truncate)
+        rows = (mvc.reshape(f * gdim, dcdim, q), p["rot_in8"], p["rot_out8"],
+                p["valid"], nm)
+        if variant:
+            out = (bubble_rows_plain if plain else bubble_rows)(
+                *rows, bubble_budget(nm, nboper), offset, truncate, truncate,
+                variant)
+        else:
+            out = ems_rows(*rows, offset, truncate)
         return out.reshape(mvc.shape)
 
     if fused:
@@ -243,19 +258,20 @@ def make_layered_stepper(
     cn_impl: str = "auto",
     plain: bool = False,
     syn=None,
+    nboper: int = 0,
 ):
     """Stepped decoder: ``state = init_fn(intrinsic)``, ``state =
     step_fn(state)``; state = (app, ctov, decide, conv, iters).
     ``init_fn(intrinsic, state)`` resets ``state`` in place (the device
     loop's buffers); ``step_fn`` updates app and ctov in place and returns
     the new state.  ``syn``: the syndrome CN's parameters (JAX's dict;
-    ``flooding.syn_settings``).  ``plain`` is internal: it runs the SPA and
-    syndrome CNs' plain versions on the card, for holding the kernels
-    against them.
+    ``flooding.syn_settings``); ``nboper``: the bubble CNs' budget.
+    ``plain`` is internal: it runs the SPA, syndrome and bubble CNs' plain
+    versions on the card, for holding the kernels against them.
     """
     q, e = g.q, g.n_edges
     one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl, plain,
-                                          syn)
+                                          syn, nboper)
 
     def init_fn(intrinsic, state=None):
         if state is None:
@@ -280,10 +296,11 @@ def decode_layered_hostloop(g, intrinsic, max_iters, nm=0, offset=0.0,
                             cn="minsum", cn_impl="auto", syn=None, nboper=0,
                             plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool).
-    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only,
-    which raise (not ported yet)."""
+    ``syn`` is read by the syndrome CN; ``nboper`` by the bubble CNs only
+    (``flooding.bubble_budget``)."""
     return host_loop(
-        *make_layered_stepper(g, nm, offset, cn, cn_impl, plain, syn),
+        *make_layered_stepper(g, nm, offset, cn, cn_impl, plain, syn,
+                              nboper),
         intrinsic, max_iters)
 
 
@@ -294,9 +311,11 @@ def decode_layered(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
     the card (``device_loop``).  Returns (decide [F, N] int64, iters [F]
     int32, converged [F] bool)."""
     key = syn_key(syn) if cn == "syndrome" else None
+    budget = bubble_budget(nm, nboper) if bubble_variant(cn, cn_impl) else 0
     return device_loop.run(
-        ("layered", g, nm, offset, cn, cn_impl, key),
-        lambda: make_layered_stepper(g, nm, offset, cn, cn_impl, syn=syn),
+        ("layered", g, nm, offset, cn, cn_impl, key, budget),
+        lambda: make_layered_stepper(g, nm, offset, cn, cn_impl, syn=syn,
+                                     nboper=nboper),
         intrinsic, max_iters)
 
 

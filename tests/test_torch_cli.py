@@ -114,6 +114,30 @@ def test_cli_run_matches_monte_carlo(matrix, tmp_path):
     assert round(rec["avg_iters"] * rec["frames"]) == res.iter_sum
 
 
+def test_cli_bubble_point_matches_monte_carlo_and_jax_key(matrix, tmp_path):
+    """A ``--cn-impl bubble --nboper 24`` point of the CLI on a small UBS
+    code is ``MonteCarlo.run`` of the same config and seed, counter for
+    counter, and its ``config_key`` has JAX's fragments."""
+    out = tmp_path / "out"
+    run_cli("--matrix", matrix, "--ebn0", 1.5, "--iters", 6, "--nm", 8,
+            "--cn-impl", "bubble", "--nboper", 24, "--batch", 16,
+            "--max-frames", 32, "--out", out)
+    (rec,) = records(out)
+    dec = dict(max_iters=6, nm=8, cn_impl="bubble", nboper=24)
+    cfg = SimConfig(ebn0_db=1.5, frames_per_batch=16, max_frames=32,
+                    decoder=DecoderConfig(**dec))
+    res = MonteCarlo(load(matrix, name=matrix), cfg, device="cpu").run()
+    assert (rec["frames"], rec["frame_errors"], rec["bit_errors"]) == (
+        res.frames, res.frame_errors, res.bit_errors)
+    assert round(rec["avg_iters"] * rec["frames"]) == res.iter_sum
+    assert rec["config_key"] == config_key(cfg)
+    jcfg = JSimConfig(ebn0_db=1.5, frames_per_batch=16, max_frames=32,
+                      decoder=JConfig(**dec))
+    got, want = config_key(cfg).split("|"), jconfig_key(jcfg).split("|")
+    assert got[:5] == want[:5] and got[-1] == want[-1]
+    assert ":bubble:" in got[1] and ":op24:" in got[1]
+
+
 def test_resume_skips_exactly_the_recorded_points(matrix, tmp_path):
     out = tmp_path / "out"
     common = ("--matrix", matrix, "--iters", 4, "--nm", 8, "--batch", 16,

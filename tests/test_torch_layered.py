@@ -178,10 +178,7 @@ def test_compressed_topk_decode_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("change", [
-    dict(dtype="bfloat16"), dict(cn_impl="lbubble"),
-    dict(cn_impl="bubble"), dict(schedule="flooding", dtype="bfloat16"),
-    dict(schedule="flooding", cn_impl="bubble"),
-    dict(schedule="flooding", cn_impl="lbubble"),
+    dict(dtype="bfloat16"), dict(schedule="flooding", dtype="bfloat16"),
 ])
 def test_unported_branches_raise(change):
     jc = jrandom_regular(24, 12, 16, seed=2)
@@ -190,6 +187,29 @@ def test_unported_branches_raise(change):
     cfg = dataclasses.replace(base, **change)
     with pytest.raises(NotImplementedError, match="not ported yet|ported for"):
         decode(from_jax_code(jc), torch.zeros((2, jc.n, jc.q)), cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(cn_impl="lbubble"), dict(cn_impl="bubble"),
+    dict(schedule="flooding", cn_impl="bubble"),
+    dict(schedule="flooding", cn_impl="lbubble"),
+])
+def test_bubble_branches_decode_like_jax(change):
+    """The exact bubble CNs (once the unported branches above) decode on
+    both schedules and both loops: decisions, iteration counts and
+    convergence identical to JAX's decode of the same intrinsics."""
+    jc, _, intr = jax_frames(24, 12, 16, 8, 1.0, seed=2)
+    jcfg = dataclasses.replace(
+        JConfig(max_iters=6, cn="ems", nm=6, offset=0.3, nboper=10,
+                loop="host"), **change)
+    want = [np.asarray(x) for x in jdecode(jc, jnp.asarray(intr), jcfg)]
+    assert want[1].max() > 1, "uninformative batch"
+    for loop in ("host", "device"):
+        cfg = DecoderConfig(**dict(dataclasses.asdict(jcfg), loop=loop))
+        got = decode(from_jax_code(jc), torch.from_numpy(intr), cfg)
+        for name, a, b in zip(("decide", "iters", "conv"), got, want):
+            np.testing.assert_array_equal(a.numpy(), b,
+                                          err_msg=f"{name} {loop}")
 
 
 def test_flooding_compressed_is_rejected():
