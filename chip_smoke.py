@@ -92,21 +92,31 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    turns at [128, 8100, 256] (D = 2 and 4) and [128, 10800, 64] (APSK),
    beside the bound, with each route's live peak (``--only-3d``: phases
    1, 2 and 3d alone, no result line);
-3e. bubble kernel (K9, ``ops/cuda_bubble.bubble_rows``) against its plain
-   version (``ops/bubble_cn.bubble_rows_plain``), bit for bit
-   (``torch.equal``), both variants (8-bubble, L-bubble): at the main
-   paths' shapes with the real code's tables (layered [128·1350, 4, 256]
-   with G = 1350, output saturation on; flooding [128·4050, 4, 256] with
-   G = 4050, off), nm = 32, nbOper = 64, on continuous inputs (and "ties"
-   at the layered shape), and at odd shapes with padding slots and
-   ``valid`` (q = 16 / 64 / 256, dc = 3 / 4 / 5 / 6 / 12, nm = 1 and
-   nm = q, nbOper < nm so that merges leave unfilled tails, a negative
-   offset, where the saturation is not a no-op), on continuous and "ties"
-   inputs; times the kernel (both variants, and the 8-bubble with
-   nbOper = 0: the lists and the dense write without a bubble step) and
-   the plain version (8-bubble) in turns at the two main shapes beside
-   the bound
-   (``--only-3e``: phases 1, 2 and 3e alone, no result line);
+3e. bubble kernel (K9) against plain, both entries, bit for bit
+   (``torch.equal``), both variants (8-bubble, L-bubble).  The bare
+   ``ops/cuda_bubble.bubble_rows`` against ``ops/bubble_cn.
+   bubble_rows_plain`` at the main paths' shapes with the real code's
+   tables (layered [128·1350, 4, 256] with G = 1350, output saturation
+   on; flooding [128·4050, 4, 256] with G = 4050, off), nm = 32,
+   nbOper = 64, on continuous inputs (and "ties" at the layered shape),
+   and at odd shapes with padding slots and ``valid`` (q = 16 / 64 / 256,
+   dc = 3 / 4 / 5 / 6 / 12, nm = 1 and nm = q, nbOper < nm so that merges
+   leave unfilled tails, a negative offset, where the saturation is not a
+   no-op), on continuous and "ties" inputs; times it (both variants, and
+   the 8-bubble with nbOper = 0: the lists and the dense write without a
+   bubble step) and the plain version (8-bubble) in turns at the two main
+   shapes beside the bound.  The fused super-layer step
+   ``cuda_bubble.bubble_layer`` against ``bubble_layer_plain`` everywhere
+   (frozen frames, untouched rows and the padding column and edge
+   included) and against the pre-fusion route (torch gathers,
+   normalisation, freeze and scatters around ``bubble_rows``) on the real
+   columns and
+   edges, on the real code's three layer plans at F = 128 and on odd
+   random layers with padded slots (the odd shapes' settings), from
+   decoder-like and "ties" states with about a quarter of the frames
+   frozen; then timed at F = 128 in turns with the L-bubble, nbOper = 0,
+   the old route and its plain version, beside its bound (``--only-3e``:
+   phases 1, 2 and 3e alone, no result line);
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -167,12 +177,14 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 4h. bubble chain at full width: layered EMS nm = 32, nbOper = 64,
    offset 0.3, ``cn_impl="bubble"`` (the 8-bubble of the C reference's
    buildable program), 10 iterations, dense f32, ``BUBBLE_DB``, F = 128,
-   256 frames, device loop; checks 3 ``bubble_rows`` a step (counted on
+   256 frames, device loop; checks 3 ``bubble_layer`` a step (counted on
    the card, none eager), no other kernel, avg_it < 10, FER <= 0.25; with
-   ``--profile`` traces one batch;
+   ``--profile`` traces one batch: only the fused step's kernel, and less
+   than 3% of the kernel time in torch's index kernels;
 5j. bubble decode both ways (host loop), at full width: 16 frames of the
    chain's first batch (F cut from 128 for the plain side's sake) through
-   K9 (3 launches a step) and through its plain version on the card
+   K9 (3 ``bubble_layer`` launches a step) and through its plain version
+   on the card
    (``plain``, no launch), both variants: identical decisions, iterations
    and convergence;
 5k. against the C++ core (``native.decode_batch``, csrc/nbldpc_core.cpp
@@ -192,7 +204,8 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    chain's batch), layered syndrome (through ``syndrome_layer``) and
    flooding syndrome (20 iterations, through the bare ``syndrome_rows``)
    on the syndrome chain's batch, and layered and flooding (20 iterations)
-   8-bubble and L-bubble through ``bubble_rows`` on the bubble chain's.  A fresh loop decodes (its capture), then decodes
+   8-bubble and L-bubble (layered through ``bubble_layer``, flooding
+   through the bare ``bubble_rows``) on the bubble chain's.  A fresh loop decodes (its capture), then decodes
    again after every table cache was emptied and the freed memory
    refilled (the graph reads the tables its loop keeps), then the host
    loop: decisions, iterations and convergence bit-equal; the loop's
@@ -254,14 +267,15 @@ are a compact JSON record of each chain's timed runs (and its profile with
 ``--profile``, which traces a device-loop batch, counts its kernels
 against the loop's launches per step times the batch's steps, and fails
 the run if the EMS or flooding-EMS trace holds a ``torch.topk`` kernel,
-or the SPA trace a kernel other than the fused SPA step's or none, or the syndrome trace a syndrome kernel
-other than the fused step's, none, or more than 3% of its kernel time in
-torch's index kernels),
+or the SPA trace a kernel other than the fused SPA step's or none, or the
+syndrome or bubble trace a kernel of its CN other than the fused step's,
+none, or more than 3% of its kernel time in torch's index kernels),
 the card's name and power limit, the kernels' JSON record (for each
 kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
-64-APSK shapes, for K9 both variants at the layered and flooding shapes,
-beside its plain version's and its bound), and ``{"ok": true, "device":
+64-APSK shapes, for K9 the fused step at F = 128 (both variants, its old
+route) and the bare entry at the layered and flooding shapes, beside its
+plain version's and its bound), and ``{"ok": true, "device":
 {...}}``.  The run prints its time.  No JAX is imported.
 """
 from __future__ import annotations
@@ -1373,6 +1387,164 @@ def check_bubble_kernel(graph):
               + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
               f"{100 * b_ms / times[path]['kernel']:.2f}% of it", flush=True)
         del x, args, no_steps
+    layer_err, layer_times = check_bubble_layer(graph)
+    return max(worst, layer_err), dict(times, layer=layer_times)
+
+
+def bub_old_route(app, ctov, active, cols, edges, rin, rout, valid, *cn):
+    """The layered bubble super-layer before the fused kernel (the
+    pre-fusion sweep): torch gathers, normalisation, freeze and scatters around the
+    bare ``bubble_rows`` (padded slots write their CN output to the
+    padding column and edge)."""
+    act = active[:, None, None, None]
+    app_rows = app[:, cols]
+    ctov_rows = ctov[:, edges]
+    mvc = app_rows - ctov_rows
+    mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+    f, g, dc, q = mvc.shape
+    mcv = cuda_bubble.bubble_rows(mvc.reshape(f * g, dc, q), rin, rout,
+                                  valid, *cn).reshape(mvc.shape)
+    mcv = torch.where(act, mcv, ctov_rows)
+    new_app = torch.where(act, mvc + mcv, app_rows)
+    ctov[:, edges] = mcv
+    app[:, cols] = new_app
+
+
+def bub_layer_bound_ms(f_active, g, dc, q, nb_oper):
+    """The least time of one ``bubble_layer`` call on an H100: the APP and
+    CtoV rows of the active frames read once and written once, the index,
+    rotation and padding tables once, at 3.35 TB/s, against at most
+    3 (dc - 2) merges of nb_oper steps a row (an 8-way argmin and one add
+    each) at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    nbytes = 4 * 4 * f_active * g * dc * q + 2 * 4 * g * dc + 2 * g * dc * q
+    return bound(nbytes, f_active * g * 3 * (dc - 2) * nb_oper * 9)
+
+
+def check_bub_layer_case(label, state, layer, cn, kind):
+    """One ``bubble_layer`` call against ``bubble_layer_plain`` and the
+    pre-fusion route on clones of ``state``: the kernel equals the plain version bit
+    for bit everywhere (frozen frames, untouched rows and the padding
+    column and edge included), and both equal the old route on the real
+    columns and edges.  Returns the largest error."""
+    app, ctov, active = state
+    cols, edges, rin, rout, valid = layer
+    out = {}
+    for name, fn in (("fused", cuda_bubble.bubble_layer),
+                     ("plain", cuda_bubble.bubble_layer_plain),
+                     ("old", lambda *a: bub_old_route(
+                          *a[:3], a[3].long(), a[4].long(), *a[5:]))):
+        a, c = app.clone(), ctov.clone()
+        fn(a, c, active, cols, edges, rin, rout, valid, *cn)
+        out[name] = (a, c)
+    torch.cuda.synchronize()
+    (a_k, c_k), (a_p, c_p), (a_o, c_o) = out["fused"], out["plain"], \
+        out["old"]
+    real = torch.ones(cols.shape, dtype=torch.bool, device="cuda") \
+        if valid is None else valid
+    own_c, own_e = cols[real].long(), edges[real].long()
+    exact = torch.equal(a_k, a_p) and torch.equal(c_k, c_p)
+    old_same = (torch.equal(a_o[:, own_c], a_p[:, own_c])
+                and torch.equal(c_o[:, own_e], c_p[:, own_e]))
+    frozen = ~active
+    kept = (torch.equal(a_k[frozen], app[frozen])
+            and torch.equal(c_k[frozen], ctov[frozen])
+            and bool((a_k[:, -1] == 0).all() and (c_k[:, -1] == 0).all()))
+    err = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
+    f, (g, dc), q = app.shape[0], cols.shape, app.shape[2]
+    nm, nb_oper, offset, truncate, saturate, variant = cn
+    print(f"bubble_layer {label} F={f} G={g} dc={dc} q={q} nm={nm} nbOper="
+          f"{nb_oper} offset={offset} truncate={truncate} saturate="
+          f"{saturate} variant {variant} frozen {int(frozen.sum())} padding "
+          f"slots={int((~real).sum())} {kind}: bit-exact={exact} "
+          f"max_abs_err={err}; old route on real slots {old_same}; "
+          f"frozen/padding untouched {kept}", flush=True)
+    check(exact and old_same and kept,
+          f"bubble_layer != plain / old route at {label} {kind} variant "
+          f"{variant}")
+    return err
+
+
+def check_bubble_layer(graph):
+    """3e, the fused entry: ``bubble_layer`` against its plain version and
+    the pre-fusion route on the real code's three layer plans at F = 128,
+    both variants, from decoder-like and "ties" states with about a quarter of
+    the frames frozen, and on odd random layers with padded slots
+    (BUBBLE_ODD's shapes and settings); then its times at F = 128 with
+    every frame active, in turns with nbOper = 0, the L-bubble, the old
+    route and the plain version.  Returns (largest error, times)."""
+    worst = 0.0
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1 = code.n + 1, graph.n_edges + 1
+    main = (BUBBLE_NM, BUBBLE_OPS, OFFSET, True, True)
+    for k, p in enumerate(plans):
+        kind = ("decoder", "ties")[k % 2]
+        state = syn_state(128, n1, e1, code.q, p["cols"], p["edge_ids"],
+                          kind, seed=1100 + k)
+        for variant in ("8", "L"):
+            worst = max(worst, check_bub_layer_case(
+                f"layer {k}", state, (p["cols32"], p["edge_ids32"],
+                                      p["rot_in8"], p["rot_out8"],
+                                      p["valid"]), (*main, variant), kind))
+        del state
+    for i, (t, g, dc, q, nm, ops, trunc, off) in enumerate(BUBBLE_ODD):
+        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, q, 3, seed=1150 + i)
+        gf = get_gf(q)
+        rin, rout = (torch.as_tensor(
+            rotation_table(coefs.cpu().numpy(), gf, d).reshape(g, dc, q)
+            .astype(np.uint8), device="cuda") for d in ("in", "out"))
+        for kind in ("decoder", "ties"):
+            state = syn_state(t // g, n1o, e1o, q, cols, edges, kind,
+                              seed=1160 + i)
+            for variant in ("8", "L"):
+                worst = max(worst, check_bub_layer_case(
+                    "odd", state, (cols, edges, rin, rout, coefs != 0),
+                    (nm, ops, off, trunc, trunc, variant), kind))
+    p = plans[0]
+    layer = (p["cols32"], p["edge_ids32"], p["rot_in8"], p["rot_out8"],
+             p["valid"])
+    g, dc = p["cols32"].shape
+    q, f = code.q, 128
+    app, ctov, _ = spa_state(f, n1, e1, q, p["cols"], p["edge_ids"], seed=7)
+    active = torch.ones(f, dtype=torch.bool, device="cuda")
+    names = ("fused", "lbubble", "no_steps", "old", "plain")
+    copies = {k: (app.clone(), ctov.clone()) for k in names}
+    no_steps = (BUBBLE_NM, 0, OFFSET, True, True, "8")
+    fns = {
+        "fused": lambda: cuda_bubble.bubble_layer(
+            *copies["fused"], active, *layer, *main, "8"),
+        "lbubble": lambda: cuda_bubble.bubble_layer(
+            *copies["lbubble"], active, *layer, *main, "L"),
+        "no_steps": lambda: cuda_bubble.bubble_layer(
+            *copies["no_steps"], active, *layer, *no_steps),
+        "old": lambda: bub_old_route(*copies["old"], active, p["cols"],
+                                     p["edge_ids"], *layer[2:], *main, "8"),
+        "plain": lambda: cuda_bubble.bubble_layer_plain(
+            *copies["plain"], active, *layer, *main, "8"),
+    }
+    reps = {"fused": 10, "lbubble": 10, "no_steps": 10, "old": 3,
+            "plain": 1}
+    got = collections.defaultdict(list)
+    # in turns, compared within one call only
+    for name in names + names[::-1]:
+        got[name].append(time_ms(fns[name], reps[name]))
+    b_ms, b_by = bub_layer_bound_ms(f, g, dc, q, BUBBLE_OPS)
+    check(b_by == "bytes", "the bubble steps bound bubble_layer")
+    times = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                 bound_by=b_by, frames=f, rows=g)
+    print(f"bubble_layer F={f} G={g} dc={dc} q={q} nm={BUBBLE_NM} nbOper="
+          f"{BUBBLE_OPS}: fused 8-bubble "
+          + " / ".join(f"{v:.4f}" for v in got["fused"])
+          + " ms, L-bubble " + " / ".join(f"{v:.4f}" for v in got["lbubble"])
+          + " ms, nbOper = 0 " + " / ".join(f"{v:.4f}" for v in
+                                           got["no_steps"])
+          + " ms, old route (the pre-fusion sweep) "
+          + " / ".join(f"{v:.4f}" for v in got["old"])
+          + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+          + f" ms per call; bound {b_ms:.4f} ms ({b_by}), fused at "
+          f"{100 * b_ms / times['fused']:.2f}% of it", flush=True)
+    del app, ctov, copies, fns
+    torch.cuda.empty_cache()
     return worst, times
 
 
@@ -1380,7 +1552,8 @@ def check_bubble_decodes(mc, dec):
     """5j: 16 frames of the bubble chain's first batch through K9 and
     through its plain version on the card (host loop), both variants:
     identical decisions, iterations and convergence; launches 3 a step on
-    the kernel side, none on the plain side."""
+    the kernel side, all of them ``bubble_layer``, none on the plain
+    side."""
     phase("5j bubble kernel vs plain decode at full width")
     intr16 = mc.gen(0)[1][:16].contiguous()
     for impl in ("bubble", "lbubble"):
@@ -1401,8 +1574,9 @@ def check_bubble_decodes(mc, dec):
               f"{same}; iters {it_k.tolist()}; launches kernel {l_k}, plain "
               f"{l_p}", flush=True)
         check(same, f"{impl}: kernel and plain decodes differ")
-        check(l_k["bubble_checknode"] == LAYERS * steps > 0
-              and sum(l_k.values()) == l_k["bubble_checknode"]
+        check(l_k["bubble_checknode"] == l_k["bubble_layer"]
+              == LAYERS * steps > 0
+              and sum(l_k.values()) == 2 * l_k["bubble_checknode"]
               and sum(l_p.values()) == 0,
               f"{impl} launches {l_k} (plain {l_p}) for {steps} steps")
 
@@ -1523,7 +1697,9 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
             "spa_kernels": sorted({e["name"] for e in kernels
                                    if "spa_" in e["name"]}),
             "syn_kernels": sorted({e["name"] for e in kernels
-                                   if "syndrome_kernel" in e["name"]})}
+                                   if "syndrome_kernel" in e["name"]}),
+            "bub_kernels": sorted({e["name"] for e in kernels
+                                   if "bubble_kernel" in e["name"]})}
 
 
 def check_traced(prof, kernel, per_step, what):
@@ -1675,6 +1851,7 @@ def reset_launches():
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
     cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
     cuda_demap.launches = cuda_bubble.launches = 0
+    cuda_bubble.layer_launches = 0
     cuda_demap.reset_device_launches()
     cuda_bubble.reset_device_launches()
     cuda_cn.reset_device_launches()
@@ -1684,15 +1861,16 @@ def reset_launches():
 
 def read_launches() -> dict:
     """Kernel launches by kernel, counted by the kernels themselves on the
-    card (a graph's replays included); "spa_layer" and "syndrome_layer"
-    are the parts of the SPA and syndrome kernels' launches made by their
-    fused entries."""
+    card (a graph's replays included); "spa_layer", "syndrome_layer" and
+    "bubble_layer" are the parts of the SPA, syndrome and bubble kernels'
+    launches made by their fused entries."""
     spa, layer = cuda_spa.device_launches()
     syn, syn_layer = cuda_syndrome.device_launches()
+    bub, bub_layer = cuda_bubble.device_launches()
     return {"fb_checknode": cuda_cn.device_launches(),
             "spa_checknode": spa, "spa_layer": layer,
             "syndrome_checknode": syn, "syndrome_layer": syn_layer,
-            "bubble_checknode": cuda_bubble.device_launches()}
+            "bubble_checknode": bub, "bubble_layer": bub_layer}
 
 
 def read_eager() -> dict:
@@ -1702,7 +1880,8 @@ def read_eager() -> dict:
             "spa_layer": cuda_spa.layer_launches,
             "syndrome_checknode": cuda_syndrome.launches,
             "syndrome_layer": cuda_syndrome.layer_launches,
-            "bubble_checknode": cuda_bubble.launches}
+            "bubble_checknode": cuda_bubble.launches,
+            "bubble_layer": cuda_bubble.layer_launches}
 
 
 def read_host_launches(what) -> dict:
@@ -1753,7 +1932,7 @@ def check_small_card_decodes():
         check(launches == {"fb_checknode": per_step * steps,
                            "spa_checknode": 0, "spa_layer": 0,
                            "syndrome_checknode": 0, "syndrome_layer": 0,
-                           "bubble_checknode": 0},
+                           "bubble_checknode": 0, "bubble_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -2137,6 +2316,7 @@ def main(argv) -> int:
         SUMMARY["EMS"][-1]["profile"] = profile_batch(mc, "ems")
         SUMMARY["EMS"][-1]["profile"].pop("spa_kernels")
         SUMMARY["EMS"][-1]["profile"].pop("syn_kernels")
+        SUMMARY["EMS"][-1]["profile"].pop("bub_kernels")
         check(SUMMARY["EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the EMS chain's profile")
         check_traced(SUMMARY["EMS"][-1]["profile"], "ems_rows_kernel",
@@ -2196,6 +2376,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         prof = profile_batch(mc, "spa")
         prof.pop("syn_kernels")
+        prof.pop("bub_kernels")
         names = prof.pop("spa_kernels")
         print(f"SPA kernels in the trace: {names}", flush=True)
         check(names and all("spa_row_kernel<8, true>" in n for n in names),
@@ -2221,6 +2402,7 @@ def main(argv) -> int:
         SUMMARY["list-EMS"][-1]["profile"] = profile_batch(mc, "list")
         SUMMARY["list-EMS"][-1]["profile"].pop("spa_kernels")
         SUMMARY["list-EMS"][-1]["profile"].pop("syn_kernels")
+        SUMMARY["list-EMS"][-1]["profile"].pop("bub_kernels")
     free(mc)
     del mc
 
@@ -2290,6 +2472,7 @@ def main(argv) -> int:
                                                                "flooding")
         SUMMARY["flooding EMS"][-1]["profile"].pop("spa_kernels")
         SUMMARY["flooding EMS"][-1]["profile"].pop("syn_kernels")
+        SUMMARY["flooding EMS"][-1]["profile"].pop("bub_kernels")
         check(SUMMARY["flooding EMS"][-1]["profile"]["topk_kernels"] == 0,
               "torch.topk kernels in the flooding EMS profile")
         check_traced(SUMMARY["flooding EMS"][-1]["profile"],
@@ -2345,6 +2528,7 @@ def main(argv) -> int:
         prof = profile_batch(mc, "syndrome")
         prof.pop("spa_kernels")
         names = prof.pop("syn_kernels")
+        prof.pop("bub_kernels")
         print(f"syndrome kernels in the trace: {names}", flush=True)
         check(prof["topk_kernels"] == 0,
               "torch.topk kernels in the syndrome chain's profile")
@@ -2376,6 +2560,7 @@ def main(argv) -> int:
     if "--profile" in argv:
         prof = profile_batch(mc, "qam", big=(128, code.n, code.q, 2))
         prof.pop("syn_kernels")
+        prof.pop("bub_kernels")
         prof.pop("spa_kernels")
         print(f"QAM trace: demap_kernel {prof['traced']['demap_kernel']} "
               f"launch(es), {prof['demap_pct']}% of the kernel time; torch "
@@ -2411,9 +2596,10 @@ def main(argv) -> int:
                             dtype="float32")
     mc, bub_res, bub_launches = run_chain("bubble", code, enc, bub_dec,
                                           BUBBLE_DB)
-    check(bub_launches["bubble_checknode"] == n_layers * bub_res.decoder_steps
-          > 0 and sum(bub_launches.values())
-          == bub_launches["bubble_checknode"],
+    check(bub_launches["bubble_checknode"] == bub_launches["bubble_layer"]
+          == n_layers * bub_res.decoder_steps > 0
+          and sum(bub_launches.values())
+          == 2 * bub_launches["bubble_checknode"],
           f"bubble chain launches {bub_launches} for "
           f"{bub_res.decoder_steps} decoder steps")
     paths["bubble_checknode"]["bubble chain (4h)"] = bub_launches[
@@ -2422,20 +2608,33 @@ def main(argv) -> int:
         prof = profile_batch(mc, "bubble")
         prof.pop("spa_kernels")
         prof.pop("syn_kernels")
+        names = prof.pop("bub_kernels")
+        print(f"bubble kernels in the trace: {names}", flush=True)
+        check(names and all("bubble_kernel<8, 8, true>" in n for n in names),
+              f"the bubble trace holds other bubble kernels than the fused "
+              f"step: {names}")
+        # the sweep gathered and scattered [F, 1350, 4, 256] f32 blocks
+        # around the bare kernel (30% of the batch before the fusion)
+        check(prof["index_pct"] < 3.0,
+              f"the bubble trace spends {prof['index_pct']}% in index "
+              f"kernels: the sweep still gathers")
         check_traced(prof, "bubble_kernel", n_layers, "bubble trace")
         SUMMARY["bubble"][-1]["profile"] = prof
     check_bubble_decodes(mc, bub_dec)
     SUMMARY["bubble"][-1]["native"] = check_native(mc, bub_dec)
     intr = mc.gen(0)[1]
-    for sched, impl, per_step in (("layered", "lbubble", n_layers),
-                                  ("layered", "bubble", n_layers),
-                                  ("flooding", "bubble", 1),
-                                  ("flooding", "lbubble", 1)):
+    fused = {"bubble_checknode": n_layers, "bubble_layer": n_layers}
+    for sched, impl, per_step in (("layered", "lbubble", fused),
+                                  ("layered", "bubble", fused),
+                                  ("flooding", "bubble",
+                                   {"bubble_checknode": 1}),
+                                  ("flooding", "lbubble",
+                                   {"bubble_checknode": 1})):
         loop_dec = dataclasses.replace(
             bub_dec, schedule=sched, cn_impl=impl,
             max_iters=20 if sched == "flooding" else bub_dec.max_iters)
         _, replay = check_loops(f"{sched} {impl}", graph, intr, loop_dec,
-                                {"bubble_checknode": per_step})
+                                per_step)
         if (sched, impl) != ("layered", "bubble"):
             paths["bubble_checknode"][f"{sched} {impl} (6)"] = replay[
                 "bubble_checknode"]
@@ -2454,7 +2653,8 @@ def main(argv) -> int:
     print(f"smoke run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))
     d2, d4, apsk = (demap_times[k] for k in ("2-D", "4-D", "APSK"))
-    b_main, b_flood = bub_times["layered"], bub_times["flooding"]
+    b_main, b_flood, b_layer = (bub_times[k] for k in ("layered",
+                                                       "flooding", "layer"))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "fb_checknode", "route": "cuda",
@@ -2526,15 +2726,19 @@ def main(argv) -> int:
         "name": "bubble_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/bubble_checknode.cu",
         "replaces": "ems_nbldpc_tpu/ops/bubble_cn.py:34-195",
-        "entry_points": ["bubble_rows"],
+        "entry_points": ["bubble_layer", "bubble_rows"],
         "launches": sum(paths["bubble_checknode"].values()),
         "paths": list(paths["bubble_checknode"]),
         "launches_by_path": paths["bubble_checknode"],
-        "max_abs_err": bub_err, "rows": b_main["rows"],
-        "ms": b_main["kernel"], "lbubble_ms": b_main["lbubble"],
-        "plain_ms": b_main["plain"], "bound_ms": b_main["bound"],
-        "bound_by": b_main["bound_by"], "library_ms": None,
-        "no_steps_ms": b_main["no_steps"],
+        "max_abs_err": bub_err, "frames": b_layer["frames"],
+        "rows": b_layer["rows"], "ms": b_layer["fused"],
+        "lbubble_ms": b_layer["lbubble"], "no_steps_ms": b_layer["no_steps"],
+        "plain_ms": b_layer["plain"], "old_route_ms": b_layer["old"],
+        "bound_ms": b_layer["bound"], "bound_by": b_layer["bound_by"],
+        "library_ms": None, "bare_rows": b_main["rows"],
+        "bare_ms": b_main["kernel"], "bare_lbubble_ms": b_main["lbubble"],
+        "bare_no_steps_ms": b_main["no_steps"],
+        "bare_plain_ms": b_main["plain"], "bare_bound_ms": b_main["bound"],
         "flooding_rows": b_flood["rows"], "flooding_ms": b_flood["kernel"],
         "flooding_lbubble_ms": b_flood["lbubble"],
         "flooding_plain_ms": b_flood["plain"],

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time design variants of the SPA and syndrome kernels against their
-committed sources, on one CUDA card.
+"""Time design variants of the SPA, syndrome and bubble kernels against
+their committed sources, on one CUDA card.
 
     python3 chip_variants.py                       # every SPA variant
     python3 chip_variants.py NAME ...              # some of them
@@ -8,6 +8,10 @@ committed sources, on one CUDA card.
     python3 chip_variants.py --syndrome --build    # build them, time none
     python3 chip_variants.py --syndrome --source PATH [NAME ...]
                                        # variants of another version of it
+    python3 chip_variants.py --bubble [NAME ...]   # the bubble kernel's (K9)
+    python3 chip_variants.py --bubble --source PATH committed
+                                       # another version of it (one without
+                                       # the fused entry: the bare one only)
 
 A variant is a kernel source of ``ems_nbldpc_torch/csrc/`` with a few text
 substitutions, written to a temporary directory, built by ``ops/_build.py``
@@ -26,6 +30,11 @@ dc = 4) at F = 128 with every frame active, 20 calls each by CUDA events:
   gathered rows; each variant's ``syndrome_layer`` output is held against
   ``syndrome_layer_plain`` (the real variants must equal it bit for bit).
   The variants are built in parallel.
+* bubble (nm = 32, nbOper = 64, offset 0.3, the 8-bubble): the fused
+  ``bubble_layer`` and the bare ``bubble_rows`` on the same gathered
+  rows, and ``bubble_layer`` with nbOper = 0; each variant's
+  ``bubble_layer`` output is held against ``bubble_layer_plain`` (the real
+  variants must equal it bit for bit).  Built in parallel.
 
 "design" variants are alternatives the kernel does not take; "diagnostic"
 ones drop work (their results are wrong) to show what the time is spent
@@ -49,7 +58,7 @@ from ems_nbldpc_torch.decoder.flooding import _syndrome_tables, syn_key
 from ems_nbldpc_torch.decoder.graph import DeviceGraph
 from ems_nbldpc_torch.decoder.layered import _layer_plan
 from ems_nbldpc_torch.models.code import random_regular
-from ems_nbldpc_torch.ops import _build, cuda_spa, cuda_syndrome
+from ems_nbldpc_torch.ops import _build, cuda_bubble, cuda_spa, cuda_syndrome
 
 EXP = ("x[j] = expf(-fminf(x[j], kLogEps));", "x[j] = -fminf(x[j], kLogEps);")
 LOG = ("y[j] = -logf(fmaxf(fmaxf(y[j] * invq, kOutFloor), kPFloor));",
@@ -267,6 +276,181 @@ def syndrome_main(names) -> int:
     return 0
 
 
+BUB_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
+    "committed": ("design", []),
+    # every list by the bisection of the design before this one (32 warp
+    # reductions, then a ballot take and a rank count), not the register
+    # top-nm (the nm > 32 path)
+    "bisection": ("design", [("constexpr int TOPNM_MAX = 32;",
+                              "constexpr int TOPNM_MAX = 0;")]),
+    # the top-nm's candidates always by a bitonic sort and merge, or up to
+    # 4 of them inserted singly, not up to 8
+    "no_insert": ("design", [("constexpr int INSERT_MAX = 8;",
+                              "constexpr int INSERT_MAX = 0;")]),
+    "insert_4": ("design", [("constexpr int INSERT_MAX = 8;",
+                             "constexpr int INSERT_MAX = 4;")]),
+    # rows a warp for 24 warps an SM (4 rows, at most 80 registers a
+    # thread) or 8 (16 rows, 255 registers), not 16 (8 rows, 128)
+    "warps_24": ("design", [("constexpr int TARGET_WARPS = 16;",
+                             "constexpr int TARGET_WARPS = 24;")]),
+    "warps_8": ("design", [("constexpr int TARGET_WARPS = 16;",
+                            "constexpr int TARGET_WARPS = 8;")]),
+    # a slot's loads issued while the slot before it selects, not after
+    "pipelined": ("design", [
+        ("    if (nm <= TOPNM_MAX) {",
+         "    if (k + 1 < dc) real = load_in<PER, LAYER>(p, row, k + 1, lane, "
+         "a, c, rin);\n    if (nm <= TOPNM_MAX) {"),
+        ("    __syncwarp();\n    if (k + 1 < dc) real = load_in<PER, LAYER>("
+         "p, row, k + 1, lane, a, c, rin);\n  }\n}",
+         "    __syncwarp();\n  }\n}")]),
+    # 12 warps an SM (12 rows a warp, at most 168 registers a thread), not
+    # 16 (8 rows, 128)
+    "warps_12": ("design", [("constexpr int TARGET_WARPS = 16;",
+                             "constexpr int TARGET_WARPS = 12;")]),
+    # 4 rows a warp at the same 16 warps an SM: the rows that steps 6-9
+    # read again stay in L2 more often, the merges use 8 lanes of 32
+    "rows_4": ("design", [("constexpr int MAX_R = 16; ",
+                           "constexpr int MAX_R = 4; ")]),
+    # streaming stores for the write-back, not plain ones
+    "streaming_stores": ("design", [
+        ("      crow[s] = o;\n      arow[s] = __fadd_rn(mvc[i], o);",
+         "      __stcs(crow + s, o);\n"
+         "      __stcs(arow + s, __fadd_rn(mvc[i], o));")]),
+    # what the time is spent on (their results are wrong)
+    "no_selection": ("diagnostic", [
+        ("const u64 t = top_nm<PER>(key, nm, lane);",
+         "const u64 t = key[0];")]),
+    "no_merges": ("diagnostic", [
+        ("for (int op = 0; op < nb_oper; ++op) {",
+         "for (int op = 0; op < 0; ++op) {")]),
+    "no_refetch": ("diagnostic", [
+        ("    load_slot<PER>(p, f, col, edge, lane, on, a, c);\n  }",
+         "#pragma unroll\n    for (int i = 0; i < PER; ++i) a[i] = c[i] = "
+         "0.0f;\n  }")]),
+    "no_writeback": ("diagnostic", [
+        ("      crow[s] = o;\n      arow[s] = __fadd_rn(mvc[i], o);",
+         "      if (o == -1.0f) crow[s] = __fadd_rn(mvc[i], o);")]),
+}
+
+
+def bare_bind(path):
+    """A library of K9 with the bare entry only (the design before the
+    fused one): ``bubble_rows_launch`` declared as ``cuda_bubble.bind``
+    declares it."""
+    import ctypes
+    lib = ctypes.CDLL(path)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bubble_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, i32, i32,
+                                       ptr, ptr, ptr, i64, i32, i32,
+                                       ctypes.c_float, i32, ptr]
+    lib.bubble_rows_launch.restype = i32
+    return lib
+
+
+def bubble_kernel_report(log):
+    """ptxas' spill and register lines of bubble_kernel<8, 8, true> (the
+    layered call's instance) from a verbose build's log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if ("Compiling entry function" in line and "bubble_kernel" in line
+                and "ILi8ELi8ELb1E" in line):
+            return "; ".join(x.split(":", 1)[-1].strip()
+                             for x in lines[i + 1:i + 4]
+                             if "spill" in x or "registers" in x)
+    return "not found"
+
+
+def bubble_main(names) -> int:
+    """Time the bubble kernel's variants ``names`` (see the module
+    docstring)."""
+    file = "bubble_checknode.cu"
+    base = os.path.join(_build.CSRC, file)
+    if names[:1] == ["--source"]:
+        base, names = names[1], names[2:]
+    names = names or list(BUB_VARIANTS)
+    unknown = [n for n in names if n not in BUB_VARIANTS]
+    if unknown:
+        raise SystemExit(f"FAIL: unknown bubble variants {unknown}")
+    with open(base) as f:
+        source = f.read()
+    print(f"variants of {base}", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        paths = {n: variant_source(n, BUB_VARIANTS, source, root, file)
+                 for n in names}
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            built = {n: pool.submit(_build.build, "bubble_checknode", True,
+                                    paths[n]) for n in names}
+            built = {n: fut.result() for n, fut in built.items()}
+    fused = "bubble_layer_launch" in source
+    for n, (_, seconds, log) in built.items():
+        print(f"built {n} in {seconds:.1f} s; bubble_kernel<8, 8, true>: "
+              f"{bubble_kernel_report(log)}", flush=True)
+    libs = {n: (cuda_bubble.bind if fused else bare_bind)(built[n][0])
+            for n in names}
+    graph = DeviceGraph.from_code(random_regular(8100, 4050, 256, dv=2,
+                                                 seed=0))
+    p = _layer_plan(graph, "cuda")[0]
+    layer = (p["cols32"], p["edge_ids32"], p["rot_in8"], p["rot_out8"],
+             p["valid"])
+    cn = (cs.BUBBLE_NM, cs.BUBBLE_OPS, cs.OFFSET, True, True, "8")
+    no_steps = (cs.BUBBLE_NM, 0) + cn[2:]
+    app, ctov, _ = cs.spa_state(128, graph.code.n + 1, graph.n_edges + 1,
+                                256, p["cols"], p["edge_ids"], seed=7)
+    active = torch.ones(128, dtype=torch.bool, device="cuda")
+    mvc = app[:, p["cols"]] - ctov[:, p["edge_ids"]]
+    mvc = (mvc - mvc.min(dim=-1, keepdim=True).values).reshape(-1, 4, 256)
+    want = app.clone(), ctov.clone()
+    cuda_bubble.bubble_layer_plain(*want, active, *layer, *cn)
+    want_rows = cs.bubble_rows_plain(mvc, *layer[2:], *cn)
+    exact, times = {}, collections.defaultdict(list)
+    for order in (names, names[::-1]):
+        for name in order:
+            cuda_bubble._lib = functools.lru_cache(None)(
+                lambda lib=libs[name]: lib)
+            a, c = app.clone(), ctov.clone()
+            got_rows = cuda_bubble.bubble_rows(mvc, *layer[2:], *cn)
+            if fused:
+                cuda_bubble.bubble_layer(a, c, active, *layer, *cn)
+            torch.cuda.synchronize()
+            exact[name] = torch.equal(got_rows, want_rows) and (
+                not fused or torch.equal(a, want[0])
+                and torch.equal(c, want[1]))
+            print(f"{name}: ran, bit-exact vs plain {exact[name]}",
+                  flush=True)
+            t = [cs.time_ms(lambda: cuda_bubble.bubble_rows(
+                mvc, *layer[2:], *cn), REPS)]
+            if fused:
+                t += [cs.time_ms(lambda: cuda_bubble.bubble_layer(
+                          a, c, active, *layer, *cn), REPS),
+                      cs.time_ms(lambda: cuda_bubble.bubble_layer(
+                          a, c, active, *layer, *no_steps), REPS)]
+            times[name].append(t)
+            del a, c, got_rows
+    for name in names:
+        cols = list(zip(*times[name]))
+        print(f"{name:18s} {BUB_VARIANTS[name][0]:10s} bubble_rows T=172800 "
+              + " / ".join(f"{v:.4f}" for v in cols[0]) + " ms"
+              + ("; bubble_layer F=128 " + " / ".join(f"{v:.4f}"
+                                                      for v in cols[1])
+                 + " ms, nbOper = 0 " + " / ".join(f"{v:.4f}"
+                                                   for v in cols[2])
+                 + " ms" if fused else "")
+              + f"; bit-exact vs plain {exact[name]}", flush=True)
+    for name in names:
+        if BUB_VARIANTS[name][0] == "design" and not exact[name]:
+            raise SystemExit(f"FAIL: design variant {name} disagrees with "
+                             f"the plain version")
+    print(cs.card_line())
+    print(json.dumps({"bubble_variants": {n: {
+        "kind": BUB_VARIANTS[n][0],
+        "bubble_rows_ms": [t[0] for t in times[n]],
+        "bubble_layer_ms": [t[1] for t in times[n]] if fused else None,
+        "bubble_layer_no_steps_ms": [t[2] for t in times[n]] if fused
+        else None,
+        "bit_exact": exact[n]} for n in names}}))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this run needs a "
@@ -274,6 +458,8 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--syndrome"]:
         return syndrome_main(argv[1:])
+    if argv[:1] == ["--bubble"]:
+        return bubble_main(argv[1:])
     names = argv or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

@@ -62,7 +62,8 @@ _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "spa_layer": (cuda_spa, "layer_launches"),
              "syndrome_checknode": (cuda_syndrome, "launches"),
              "syndrome_layer": (cuda_syndrome, "layer_launches"),
-             "bubble_checknode": (cuda_bubble, "launches")}
+             "bubble_checknode": (cuda_bubble, "launches"),
+             "bubble_layer": (cuda_bubble, "layer_launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

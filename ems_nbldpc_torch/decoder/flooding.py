@@ -30,8 +30,9 @@ import inspect
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops.bubble_cn import bubble_rows_plain
-from ..ops.cuda_bubble import bubble_rows, tile_rows
+from ..ops.cuda_bubble import bubble_rows, rows_per_warp, warp_bytes
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_checknode
 from ..ops.cuda_syndrome import (check_fits, position_lists, syndrome_rows,
@@ -169,9 +170,10 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
     """Raise ``ValueError`` for a CN configuration the port does not run
     (either schedule): an nm-truncated CN needs 1 <= nm <= q; the bubble
     CNs too (JAX's ``top_k(v, 0)`` breaks), and, given the rows' ``dc``,
-    dc >= 3 and lists that fit the kernel (``cuda_bubble.tile_rows``); the
-    syndrome CN (which reads no ``cn_impl``, as in JAX) needs 0 <= nm <= q
-    and, given ``dc``, tables that its kernel reads right and holds
+    dc >= 3 and lists that fit the kernel (``cuda_bubble.rows_per_warp``:
+    one row's lists within one block's shared memory); the syndrome CN
+    (which reads no ``cn_impl``, as in JAX) needs 0 <= nm <= q and, given
+    ``dc``, tables that its kernel reads right and holds
     (``cuda_syndrome.position_lists`` and ``check_fits``)."""
     if cn == "syndrome":
         if not 0 <= nm <= q:
@@ -197,9 +199,12 @@ def check_supported(nm: int, q: int, cn: str, cn_impl: str, syn=None,
         if dc is not None and dc < 3:
             raise ValueError(f"cn_impl={cn_impl!r} needs rows of degree >= "
                              f"3, got dc={dc}")
-        if dc is not None and tile_rows(dc, q, nm) < 1:
-            raise ValueError(f"cn_impl={cn_impl!r}: dc={dc}, q={q}, nm={nm} "
-                             f"do not fit the kernel's shared memory")
+        if dc is not None and rows_per_warp(dc, q, nm) < 1:
+            raise ValueError(
+                f"cn_impl={cn_impl!r}: dc={dc}, q={q}, nm={nm} do not fit "
+                f"the kernel's shared memory: one row's lists take "
+                f"{warp_bytes(dc, q, nm, 1)} B, a block at most "
+                f"{_build.SMEM_LIMIT} B")
         return
     truncated = (cn == "ems" and nm != 0 or cn_impl == "pallas"
                  or use_topk(cn, nm, q, cn_impl))

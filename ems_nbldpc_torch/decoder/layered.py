@@ -26,11 +26,11 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
                                        F/B, rotate back, saturate; SPA:
                                        rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
-For ``cn="spa"`` and ``cn="syndrome"`` on the card the whole of it is one
-kernel launch (``ops/cuda_spa.spa_layer``, ``ops/cuda_syndrome.
-syndrome_layer``), with no [F, G, dc, q] temporaries; for ``cn_impl``
-pallas, bubble and lbubble the CN step is (``ops/cuda_cn.ems_rows``,
-``ops/cuda_bubble.bubble_rows``) between torch gathers and scatters.
+For ``cn="spa"``, ``cn="syndrome"`` and ``cn_impl`` bubble / lbubble on
+the card the whole of it is one kernel launch (``ops/cuda_spa.spa_layer``,
+``ops/cuda_syndrome.syndrome_layer``, ``ops/cuda_bubble.bubble_layer``),
+with no [F, G, dc, q] temporaries; for ``cn_impl="pallas"`` the CN step
+is (``ops/cuda_cn.ems_rows``) between torch gathers and scatters.
 """
 from __future__ import annotations
 
@@ -40,8 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import listcn
-from ..ops.bubble_cn import bubble_rows_plain
-from ..ops.cuda_bubble import bubble_rows
+from ..ops.cuda_bubble import bubble_layer, bubble_layer_plain
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
 from ..ops.cuda_syndrome import syndrome_layer, syndrome_layer_plain
@@ -144,14 +143,16 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     the whole step in one hand-written CUDA kernel launch (its plain
     version ``syndrome_layer_plain`` on CPU tensors, or on any device with
     ``plain``); no output saturation, as in JAX.
-    ``cn="ems"``/``"minsum"`` with ``cn_impl="pallas"``: the hand-written
-    CUDA kernel does the whole CN step, normalisation included
-    (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors); with
-    ``cn_impl="bubble"`` / ``"lbubble"`` the exact bubble check node of
-    budget ``flooding.bubble_budget(nm, nboper)`` does, output saturation
-    included where EMS truncates, as in JAX (``ops/cuda_bubble.
-    bubble_rows``; its plain version on CPU tensors, or on any device with
-    ``plain``); other ``cn_impl``: ``_make_rotated_cn``, then (EMS) output
+    ``cn="ems"``/``"minsum"`` with ``cn_impl="bubble"`` / ``"lbubble"``: one
+    ``ops/cuda_bubble.bubble_layer`` call per super-layer, the whole step
+    with the exact bubble check node of budget ``flooding.bubble_budget(nm,
+    nboper)`` (output saturation included where EMS truncates, as in JAX)
+    in one hand-written CUDA kernel launch (its plain version
+    ``bubble_layer_plain`` on CPU tensors, or on any device with
+    ``plain``); with ``cn_impl="pallas"`` the hand-written CUDA kernel
+    does the whole CN step, normalisation included, between torch gathers
+    and scatters (``ops/cuda_cn.ems_rows``; its plain version on CPU
+    tensors); other ``cn_impl``: ``_make_rotated_cn``, then (EMS) output
     saturation and normalisation.
     """
     q = g.q
@@ -184,19 +185,25 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
 
     truncate = truncates(cn, nm, q)
     variant = bubble_variant(cn, cn_impl)
-    # the kernels' steps normalise
-    fused = cn_impl == "pallas" or variant is not None
+    if variant is not None:
+        layer_step = bubble_layer_plain if plain else bubble_layer
+        budget = bubble_budget(nm, nboper)
+
+        def bubble_iteration(app, ctov, active):
+            for p in _layer_plan(g, str(app.device)):
+                layer_step(app, ctov, active, p["cols32"], p["edge_ids32"],
+                           p["rot_in8"], p["rot_out8"], p["valid"], nm,
+                           budget, offset, truncate, truncate, variant)
+
+        return bubble_iteration
+
+    # the kernel's step normalises
+    fused = cn_impl == "pallas"
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
-        rows = (mvc.reshape(f * gdim, dcdim, q), p["rot_in8"], p["rot_out8"],
-                p["valid"], nm)
-        if variant:
-            out = (bubble_rows_plain if plain else bubble_rows)(
-                *rows, bubble_budget(nm, nboper), offset, truncate, truncate,
-                variant)
-        else:
-            out = ems_rows(*rows, offset, truncate)
+        out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
+                       p["rot_out8"], p["valid"], nm, offset, truncate)
         return out.reshape(mvc.shape)
 
     if fused:
@@ -266,7 +273,7 @@ def make_layered_stepper(
     loop's buffers); ``step_fn`` updates app and ctov in place and returns
     the new state.  ``syn``: the syndrome CN's parameters (JAX's dict;
     ``flooding.syn_settings``); ``nboper``: the bubble CNs' budget.
-    ``plain`` is internal: it runs the SPA, syndrome and bubble CNs' plain
+    ``plain`` is internal: it runs the SPA, syndrome and bubble steps' plain
     versions on the card, for holding the kernels against them.
     """
     q, e = g.q, g.n_edges
