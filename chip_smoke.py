@@ -117,6 +117,19 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    frozen; then timed at F = 128 in turns with the L-bubble, nbOper = 0,
    the old route and its plain version, beside its bound (``--only-3e``:
    phases 1, 2 and 3e alone, no result line);
+3b / 3c / 3e at bf16: each fused entry (``spa_layer``, ``syndrome_layer``,
+   ``bubble_layer`` with both variants) on a bf16 state against its bf16
+   plain version, on the real code's three layer plans at F = 128 and on
+   the odd padded layers of the f32 checks, from decoder-like and "ties"
+   states rounded to bf16 and seeded with the sentinels 1e9 and 1e5 (as a
+   bf16 state holds them) and saturated rows, about a quarter of the
+   frames frozen: K7 and K9 bit for bit everywhere; K2 (f32 arithmetic
+   that agrees with its plain version to f32 rounding only) within one
+   bf16 ulp or 1e-3 where the plain cost is <= 8 and exp(-cost) within
+   ``SPA_BF16_PROB_ATOL``, frozen frames, untouched rows and padding bit
+   for bit, with the entries that differ counted; then each entry timed on
+   the bf16 and the f32 state in turns at F = 128 beside both bounds
+   (``--only-bf16``: phases 1, 2 and these alone, no result line);
 4. EMS chain at full width: ``MonteCarlo``, F = 128, 256 frames, 2.0 dB,
    layered EMS nm = 32 with ``cn_impl="pallas"`` (one ``ems_rows`` call
    per super-layer), the default ``loop="device"`` (one captured graph
@@ -138,6 +151,15 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    (``spa_layer``, 3 launches per step) and through the plain version (no
    launch): identical decisions and convergence, iteration counts within
    1 (differences printed);
+4i. the SPA chain at dense bf16 (4b's settings with ``dtype="bfloat16"``,
+   device loop): as 4b, with ``spa_layer`` = 3 a step counted on the card
+   and none eager; then 6 at bf16 on 16 frames of its batch (the device
+   loop against the host loop, and the kernel decode against the plain
+   decode on the card: identical decisions and convergence, iterations
+   within 1, the differing frames printed) and the device loop against
+   the host loop at F = 128 with its memory; with ``--profile`` one traced
+   batch, with ``spa_row_kernel``'s and argmin's shares of the kernel
+   time;
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
    frames, device loop; checks no kernel launch (the list CN has no kernel
@@ -208,7 +230,12 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    through the bare ``bubble_rows``) on the bubble chain's.  A fresh loop decodes (its capture), then decodes
    again after every table cache was emptied and the freed memory
    refilled (the graph reads the tables its loop keeps), then the host
-   loop: decisions, iterations and convergence bit-equal; the loop's
+   loop: decisions, iterations and convergence bit-equal; at dense bf16
+   (16 frames) also layered EMS through K1, flooding EMS through K1,
+   layered syndrome and layered 8-bubble and L-bubble, each with the
+   kernel decode against the plain decode (host loop: K1 against the
+   plain torch CN, the others against their plain versions on the card)
+   identical; the loop's
    launches per step 3, 3, 0, 1, 1, 3, 1, and 3, 3, 1, 1 (bubble); the
    replay makes no eager launch
    and the kernels count per step x steps on the card, as under the host
@@ -242,8 +269,9 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    1.8``, defaults otherwise: device loop, on the card), with
    ``--cn syndrome --iters 10`` (the syndrome chain's), with the QAM
    chain's (``--channel qam --rayleigh --cn spa --iters 20`` at
-   ``QAM_SNR``) and with the bubble chain's (``--cn-impl bubble --nm 32
-   --nboper 64 --iters 10`` at ``BUBBLE_DB``), each against
+   ``QAM_SNR``), with the bubble chain's (``--cn-impl bubble --nm 32
+   --nboper 64 --iters 10`` at ``BUBBLE_DB``) and with 4i's (``--dtype
+   bfloat16 --cn spa --iters 20``), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
    file: frames, frame errors, bit errors and iteration sum equal.
 
@@ -275,7 +303,8 @@ kernel the paths it launched in and its launches in each, its per-call
 times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
 64-APSK shapes, for K9 the fused step at F = 128 (both variants, its old
 route) and the bare entry at the layered and flooding shapes, beside its
-plain version's and its bound), and ``{"ok": true, "device":
+plain version's and its bound; for K2, K7 and K9 the ``bf16_*`` fields of
+the fused entry on a bf16 state), and ``{"ok": true, "device":
 {...}}``.  The run prints its time.  No JAX is imported.
 """
 from __future__ import annotations
@@ -701,14 +730,15 @@ def spa_old_route(app, ctov, active, cols, edges, coefs, t_tab, tinv_tab):
     app[:, cols] = new_app
 
 
-def spa_layer_bound_ms(f_active, g, dc, q):
+def spa_layer_bound_ms(f_active, g, dc, q, elem=4):
     """The least time of one ``spa_layer`` call on an H100: the APP and
-    CtoV rows of the active frames read once and written once, the index
-    tables and transform tables once, at 3.35 TB/s, against two log2(q)
-    stage transforms and ~7 more operations (sub, exp, products, log, add)
-    a symbol at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    CtoV rows of the active frames read once and written once (``elem``
+    bytes an element: 4 for an f32 state, 2 for bf16), the index tables and
+    transform tables once, at 3.35 TB/s, against two log2(q) stage
+    transforms and ~7 more operations (sub, exp, products, log, add) a
+    symbol at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
     sym = f_active * g * dc * q
-    nbytes = 4 * 4 * sym + 3 * 4 * g * dc + 2 * q * q
+    nbytes = 4 * elem * sym + 3 * 4 * g * dc + 2 * q * q
     return bound(nbytes, sym * (2 * int(np.log2(q)) + 7))
 
 
@@ -931,9 +961,10 @@ def syn_bound_ms(t, g, dc, q, table):
     return bound(nbytes, syn_ops(t, dc, q, table))
 
 
-def syn_layer_bound_ms(f_active, g, dc, q, table):
+def syn_layer_bound_ms(f_active, g, dc, q, table, elem=4):
     """The least time of one ``syndrome_layer`` call on an H100: the APP
-    and CtoV rows of the active frames read once and written once, the
+    and CtoV rows of the active frames read once and written once
+    (``elem`` bytes an element), the
     layer's index, rotation and valid tables and the CN's tables once, at
     3.35 TB/s, against ``syn_ops`` and the step's own four operations a
     symbol (extrinsic, its min and normalisation, APP sum) at 67 T/s.
@@ -941,8 +972,8 @@ def syn_layer_bound_ms(f_active, g, dc, q, table):
     t = f_active * g
     c = table.shape[0]
     masked = int((table == 0).sum())
-    nbytes = (4 * 4 * t * dc * q + 2 * 4 * g * dc + 2 * g * dc * q + g * dc
-              + c * dc + 4 * dc + 2 * masked + 4 * (dc + 1))
+    nbytes = (4 * elem * t * dc * q + 2 * 4 * g * dc + 2 * g * dc * q
+              + g * dc + c * dc + 4 * dc + 2 * masked + 4 * (dc + 1))
     return bound(nbytes, syn_ops(t, dc, q, table) + 4 * t * dc * q)
 
 
@@ -1410,13 +1441,15 @@ def bub_old_route(app, ctov, active, cols, edges, rin, rout, valid, *cn):
     app[:, cols] = new_app
 
 
-def bub_layer_bound_ms(f_active, g, dc, q, nb_oper):
+def bub_layer_bound_ms(f_active, g, dc, q, nb_oper, elem=4):
     """The least time of one ``bubble_layer`` call on an H100: the APP and
-    CtoV rows of the active frames read once and written once, the index,
+    CtoV rows of the active frames read once and written once (``elem``
+    bytes an element), the index,
     rotation and padding tables once, at 3.35 TB/s, against at most
     3 (dc - 2) merges of nb_oper steps a row (an 8-way argmin and one add
     each) at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
-    nbytes = 4 * 4 * f_active * g * dc * q + 2 * 4 * g * dc + 2 * g * dc * q
+    nbytes = (4 * elem * f_active * g * dc * q + 2 * 4 * g * dc
+              + 2 * g * dc * q)
     return bound(nbytes, f_active * g * 3 * (dc - 2) * nb_oper * 9)
 
 
@@ -1546,6 +1579,289 @@ def check_bubble_layer(graph):
     del app, ctov, copies, fns
     torch.cuda.empty_cache()
     return worst, times
+
+
+BF16 = torch.bfloat16
+# K2 on a bf16 state (3b): its f32 arithmetic agrees with the plain
+# version's to f32 rounding only, so a store may land one bf16 ulp apart
+# where the two f32 values straddle a rounding boundary.  Held where the
+# plain cost is <= SPA_COST_MAX (past ~12 the f32 costs are themselves
+# rounding noise): within one bf16 ulp (of the larger value) or within the
+# f32 check's SPA_COST_ATOL (near 0, where bf16 keeps f32's tiny
+# differences: 1e-6 against 0 is thousands of ulps); everywhere exp(-cost)
+# within SPA_PROB_ATOL plus what one ulp moves a probability (exp(-c)
+# ulp(c) <= c exp(-c) 2^-7 <= 2^-7 / e); frozen frames, untouched rows and
+# padding bit for bit.
+SPA_BF16_PROB_ATOL = SPA_PROB_ATOL + 2.0 ** -7 / np.e
+BF16_PHASES = {"spa_layer": "3b", "syndrome_layer": "3c",
+               "bubble_layer": "3e"}
+
+
+def bf16_state(state, cols, edges, seed):
+    """A layered f32 ``state`` (``syn_state``) rounded to bf16, as a bf16
+    decoder holds it, with entries seeded on the layer's real slots that a
+    bf16 state can hold: the sentinels INF_COST = 1e9 and BIG = 1e5 (in
+    bf16 998,244,352 and 99,840) in APP rows, in CtoV rows and in both rows
+    of a slot, and saturated CtoV rows (the best symbol 0, the others at one
+    level) whose APP rows hold that level plus 1.5."""
+    app, ctov, active = state
+    app, ctov = app.to(BF16), ctov.to(BF16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f, n1, q = app.shape
+    real = cols.long() < n1 - 1
+    c, e = cols.long()[real], edges.long()[real]
+
+    def pick(k):
+        return (torch.randint(0, f, (k,), generator=gen, device="cuda"),
+                torch.randint(0, len(c), (k,), generator=gen, device="cuda"),
+                torch.randint(0, q, (k,), generator=gen, device="cuda"))
+
+    for v in (1e9, 1e5):
+        fr, s, sy = pick(16)
+        app[fr, c[s], sy] = v
+        fr, s, sy = pick(16)
+        ctov[fr, e[s], sy] = v
+        fr, s, sy = pick(16)
+        app[fr, c[s], sy] = v
+        ctov[fr, e[s], sy] = v / 2
+    fr, s, best = pick(16)
+    sat = (1 + 9 * torch.rand((16, 1), generator=gen, device="cuda")
+           ).expand(16, q).clone()
+    sat[torch.arange(16, device="cuda"), best] = 0
+    ctov[fr, e[s]] = sat.to(BF16)
+    app[fr, c[s]] = (sat + 1.5).to(BF16)
+    return app, ctov, active
+
+
+def bf16_ulps(a, b):
+    """|a - b| of two bf16 tensors in bf16 ulps of the larger magnitude
+    (f32)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def check_bf16_case(entry, label, state, cols, edges, valid, fused, plain,
+                    exact):
+    """One fused entry on a bf16 ``state`` against its plain version on
+    clones: frozen frames, rows the layer does not own and the padding
+    column and edge keep their bits; with ``exact`` (K7, K9) the two are
+    equal bit for bit everywhere, else (K2) the rule written at
+    ``SPA_BF16_PROB_ATOL`` holds.  Returns (largest error: of exp(-cost)
+    (K2) or absolute (exact), entries that differ, entries written)."""
+    app, ctov, active = state
+    out = {}
+    for name, fn in (("fused", fused), ("plain", plain)):
+        a, c = app.clone(), ctov.clone()
+        fn(a, c, active)
+        out[name] = (a, c)
+    torch.cuda.synchronize()
+    (a_k, c_k), (a_p, c_p) = out["fused"], out["plain"]
+    real = (torch.ones(cols.shape, dtype=torch.bool, device="cuda")
+            if valid is None else valid) & (cols < app.shape[1] - 1)
+    cols_r, edges_r = cols[real].long(), edges[real].long()
+    own_c = torch.zeros(app.shape[1], dtype=torch.bool, device="cuda")
+    own_e = torch.zeros(ctov.shape[1], dtype=torch.bool, device="cuda")
+    own_c[cols_r], own_e[edges_r] = True, True
+    frozen = ~active
+    kept = (torch.equal(a_k[frozen], app[frozen])
+            and torch.equal(c_k[frozen], ctov[frozen])
+            and torch.equal(a_k[:, ~own_c], app[:, ~own_c])
+            and torch.equal(c_k[:, ~own_e], ctov[:, ~own_e]))
+    ga, gc = a_k[active][:, cols_r], c_k[active][:, edges_r]
+    wa, wc = a_p[active][:, cols_r], c_p[active][:, edges_r]
+    differing = int((ga != wa).sum()) + int((gc != wc).sum())
+    written = ga.numel() + gc.numel()
+    finite = bool(torch.isfinite(a_k.float()).all()
+                  and torch.isfinite(c_k.float()).all())
+    f, (g, dc), q = app.shape[0], cols.shape, app.shape[2]
+    head = (f"{entry} bf16 {label} F={f} G={g} dc={dc} q={q} frozen "
+            f"{int(frozen.sum())} padding slots={int((~real).sum())}")
+    if exact:
+        same = torch.equal(a_k, a_p) and torch.equal(c_k, c_p)
+        err = max(float((a_k.float() - a_p.float()).abs().max()),
+                  float((c_k.float() - c_p.float()).abs().max()))
+        print(f"{head}: bit-exact={same} max_abs_err={err}; frozen/"
+              f"untouched/padding bit-equal={kept}", flush=True)
+        check(same and kept, f"{entry} bf16 != plain at {label}")
+        return err, differing, written
+    likely = wc.float() <= SPA_COST_MAX
+    band, outside = 0.0, 0
+    for g_, w_ in ((ga, wa), (gc, wc)):
+        ulps = bf16_ulps(g_, w_)[likely]
+        diff = (g_.float() - w_.float()).abs()[likely]
+        if ulps.numel():
+            band = max(band, float(ulps.max()))
+            outside += int(((ulps > 1) & (diff > SPA_COST_ATOL)).sum())
+    anywhere = max(float(bf16_ulps(ga, wa).max()),
+                   float(bf16_ulps(gc, wc).max()))
+    prob_err = float((torch.exp(-gc.float()) - torch.exp(-wc.float()))
+                     .abs().max())
+    print(f"{head}: where plain cost <= {SPA_COST_MAX:g} at most {band:.3g} "
+          f"ulps, entries past one ulp and {SPA_COST_ATOL:g} {outside} "
+          f"(anywhere at most {anywhere:.3g} ulps); entries differing "
+          f"{differing} of {written}; exp(-cost) err {prob_err:.3e}; frozen/"
+          f"untouched/padding bit-equal={kept}; finite={finite}", flush=True)
+    check(kept and finite and outside == 0
+          and prob_err <= SPA_BF16_PROB_ATOL,
+          f"{entry} bf16 outside its tolerance at {label}")
+    return prob_err, differing, written
+
+
+def time_bf16(entry, f32_call, bf16_call, bounds):
+    """The fused entry on an f32 and on a bf16 state (copies of one state,
+    all frames active) in turns, f32, bf16, bf16, f32 (compared within one
+    call only), beside the two bounds; returns the means and bounds."""
+    got = collections.defaultdict(list)
+    for name in ("f32", "bf16", "bf16", "f32"):
+        got[name].append(time_ms(f32_call if name == "f32" else bf16_call,
+                                 10))
+    ms = {k: sum(v) / 2 for k, v in got.items()}
+    print(f"{entry} F=128: f32 state "
+          + " / ".join(f"{v:.4f}" for v in got["f32"])
+          + f" ms (bound {bounds['f32'][0]:.4f} ms, {bounds['f32'][1]}), "
+          "bf16 state " + " / ".join(f"{v:.4f}" for v in got["bf16"])
+          + f" ms (bound {bounds['bf16'][0]:.4f} ms, {bounds['bf16'][1]}, "
+          f"at {100 * bounds['bf16'][0] / ms['bf16']:.2f}% of it) per call",
+          flush=True)
+    return {"f32_ms": ms["f32"], "bf16_ms": ms["bf16"],
+            "bf16_bound_ms": bounds["bf16"][0],
+            "bf16_bound_by": bounds["bf16"][1]}
+
+
+def check_bf16_layers(graph, entry):
+    """3b / 3c / 3e on a bf16 state: the fused entry (``entry``: spa_layer,
+    syndrome_layer or bubble_layer, both variants) against its plain
+    version on the real code's three layer plans at F = 128 and on the odd
+    layers with padded slots of the f32 checks (SPA_LAYER_ODD, SYN_ODD,
+    BUBBLE_ODD), from decoder-like and "ties" states seeded with sentinel
+    and saturated entries (``bf16_state``), about a quarter of the frames
+    frozen; then the entry timed on the f32 and the bf16 state in turns at
+    F = 128.  Returns the worst error, the entries that differ and were
+    written, and the times."""
+    phase(f"{BF16_PHASES[entry]} {entry} on a bf16 state against its bf16 "
+          "plain version")
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1 = code.n + 1, graph.n_edges + 1
+    syn_main = _syndrome_tables(4, 32, syn_key({}), "cuda")
+
+    def calls(layer, q, cn):
+        """(fused, plain) of ``entry`` on one layer's tables."""
+        cols, edges, coefs, rin, rout, valid = layer
+        if entry == "spa_layer":
+            t_tab, tinv_tab = spa_tables(q)
+            args = (cols, edges, coefs, t_tab, tinv_tab)
+            return ((lambda a, c, act: spa_layer(a, c, act, *args)),
+                    (lambda a, c, act: spa_layer_plain(a, c, act, *args)))
+        args = (cols, edges, rin, rout, valid)
+        if entry == "syndrome_layer":
+            tabs, rest = cn
+            return ((lambda a, c, act: cuda_syndrome.syndrome_layer(
+                        a, c, act, *args, *rest, tabs["lists"])),
+                    (lambda a, c, act: cuda_syndrome.syndrome_layer_plain(
+                        a, c, act, *args, *rest)))
+        return ((lambda a, c, act: cuda_bubble.bubble_layer(
+                    a, c, act, *args, *cn)),
+                (lambda a, c, act: cuda_bubble.bubble_layer_plain(
+                    a, c, act, *args, *cn)))
+
+    def settings(i, q, dc):
+        """The CN settings of odd case i (None: the main path's)."""
+        if entry == "spa_layer":
+            return [None]
+        if entry == "syndrome_layer":
+            if i is None:
+                return [(syn_main, (syn_main["table"], syn_main["kth"], 32,
+                                    OFFSET, True, True))]
+            _, _, _, _, nm, kw, bayes, presort = SYN_ODD[i]
+            t = _syndrome_tables(dc, nm, syn_key(kw), "cuda")
+            return [(t, (t["table"], t["kth"], nm, OFFSET, bayes, presort))]
+        if i is None:
+            return [(BUBBLE_NM, BUBBLE_OPS, OFFSET, True, True, v)
+                    for v in ("8", "L")]
+        _, _, _, _, nm, ops, trunc, off = BUBBLE_ODD[i]
+        return [(nm, ops, off, trunc, trunc, v) for v in ("8", "L")]
+
+    cases = []
+    for k, p in enumerate(plans):
+        cases.append((f"layer {k}", 128, n1, e1, (
+            p["cols32"], p["edge_ids32"], p["coefs"], p["rot_in8"],
+            p["rot_out8"], p["valid"]), code.q, None, KINDS[k % 2]))
+    odd = {"spa_layer": [(f, g, dc, q, pads) for f, g, dc, q, pads
+                         in SPA_LAYER_ODD],
+           "syndrome_layer": [(t // g, g, dc, q, 3) for t, g, dc, q, *_
+                              in SYN_ODD],
+           "bubble_layer": [(t // g, g, dc, q, 3) for t, g, dc, q, *_
+                            in BUBBLE_ODD]}[entry]
+    for i, (f, g, dc, q, pads) in enumerate(odd):
+        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, q, pads,
+                                                 seed=1300 + i)
+        rin, rout = (torch.as_tensor(
+            rotation_table(coefs.cpu().numpy(), get_gf(q), d)
+            .reshape(g, dc, q).astype(np.uint8), device="cuda")
+            for d in ("in", "out"))
+        for kind in KINDS:
+            cases.append(("odd", f, n1o, e1o, (cols, edges, coefs, rin, rout,
+                                               coefs != 0), q, i, kind))
+    worst, differing, written = 0.0, 0, 0
+    for j, (label, f, n1c, e1c, layer, q, i, kind) in enumerate(cases):
+        cols, edges = layer[:2]
+        state = bf16_state(syn_state(f, n1c, e1c, q, cols, edges,
+                                     "decoder" if kind == "uniform"
+                                     else kind, seed=1400 + j),
+                           cols, edges, seed=1500 + j)
+        for cn in settings(i, q, layer[0].shape[1]):
+            fused, plain = calls(layer, q, cn)
+            name = entry if entry != "bubble_layer" else \
+                f"bubble_layer variant {cn[-1]}"
+            err, d, w = check_bf16_case(name, f"{label} {kind}", state,
+                                        cols, edges, layer[5], fused, plain,
+                                        exact=entry != "spa_layer")
+            worst, differing, written = (max(worst, err), differing + d,
+                                         written + w)
+        del state
+    p = plans[0]
+    layer = (p["cols32"], p["edge_ids32"], p["coefs"], p["rot_in8"],
+             p["rot_out8"], p["valid"])
+    g, dc = p["cols32"].shape
+    app, ctov, _ = spa_state(128, n1, e1, code.q, p["cols"], p["edge_ids"],
+                             seed=7)
+    active = torch.ones(128, dtype=torch.bool, device="cuda")
+    fused, _ = calls(layer, code.q, settings(None, code.q, dc)[0])
+    f32, b16 = (app.clone(), ctov.clone()), (app.to(BF16), ctov.to(BF16))
+    del app, ctov
+
+    def bound_ms(elem):
+        if entry == "spa_layer":
+            return spa_layer_bound_ms(128, g, dc, code.q, elem)
+        if entry == "syndrome_layer":
+            return syn_layer_bound_ms(128, g, dc, code.q, syn_main["table"],
+                                      elem)
+        return bub_layer_bound_ms(128, g, dc, code.q, BUBBLE_OPS, elem)
+
+    bounds = {"f32": bound_ms(4), "bf16": bound_ms(2)}
+    times = time_bf16(entry, lambda: fused(*f32, active),
+                      lambda: fused(*b16, active), bounds)
+    what = "exp(-cost) err" if entry == "spa_layer" else "abs err"
+    print(f"{entry} bf16: worst {what} {worst}; entries differing "
+          f"{differing} of {written}", flush=True)
+    del f32, b16
+    torch.cuda.empty_cache()
+    return dict(times, err=worst, differing=differing, written=written)
+
+
+def bf16_fields(got):
+    """A fused entry's bf16 figures for the kernels line: its time on a
+    bf16 state and on the f32 state in the same turns at F = 128, the bf16
+    bound, the worst error (K2: of exp(-cost); K7, K9: absolute, 0 when
+    bit-exact) and the entries that differ."""
+    return {"bf16_ms": got["bf16_ms"], "bf16_f32_ms": got["f32_ms"],
+            "bf16_bound_ms": got["bf16_bound_ms"],
+            "bf16_bound_by": got["bf16_bound_by"], "bf16_err": got["err"],
+            "bf16_differing_entries": got["differing"],
+            "bf16_written_entries": got["written"]}
 
 
 def check_bubble_decodes(mc, dec):
@@ -1688,8 +2004,15 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
           f"{100 * demap_us / max(total, 1):.2f}%"
           + (f"; torch ops on a {list(big)} tensor: {big_ops}"
              if big is not None else ""), flush=True)
+    def share(*words):
+        us = sum(e["dur"] for e in kernels
+                 if any(w in e["name"] for w in words))
+        return round(100 * us / max(total, 1), 2)
+
     return {"wall_ms": round(wall_us / 1e3, 3),
             "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
+            "spa_pct": share("spa_row_kernel"),
+            "argmin_pct": share("ArgMin", "argmin"),
             "steps": int(counters[5]), "traced": traced,
             "index_pct": round(100 * index_us / max(total, 1), 2),
             "demap_pct": round(100 * demap_us / max(total, 1), 2),
@@ -1818,6 +2141,7 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
         "loop": dec.loop, "fps": round(res.frames_per_s, 3),
         "avg_it": round(res.avg_iters, 4),
         "fer": f"{res.frame_errors}/{res.frames}",
+        "fer_ci": [round(lo, 4), round(hi, 4)],
         "steps": res.decoder_steps, "demap_launches": demap[0],
         "live_gib": round(live / 2**30, 3),
         "reserved_gib": round(held / 2**30, 3),
@@ -2123,6 +2447,54 @@ def check_loops(path, graph, intr, dec, per_step):
     return steps, counts["device"][0]
 
 
+def plain_decode(graph, intr, dec, plain=True):
+    """The host-loop decode of ``dec`` on ``intr`` (cast to its dtype)
+    through the kernels (``plain=False``) or through their plain versions on
+    the card: ``plain`` for the SPA, syndrome and bubble steps, and the
+    plain torch CN ``cn_impl="topk"`` for K1's ``"pallas"``."""
+    run = (decode_layered_hostloop if dec.schedule == "layered"
+           else decode_flooding_hostloop)
+    impl = "topk" if plain and dec.cn_impl == "pallas" else dec.cn_impl
+    return run(graph, intr.to(dec.torch_dtype()), dec.max_iters, nm=dec.nm,
+               offset=dec.offset, cn=dec.cn, cn_impl=impl,
+               nboper=dec.nboper, plain=plain)
+
+
+def check_bf16_path(path, graph, intr, dec, per_step, iters_within=0):
+    """6 at dense bf16: ``dec`` at ``dtype="bfloat16"`` on 16 frames of
+    ``intr``: the device loop against the host loop (``check_loops``), then
+    the host-loop decode through the kernels against the same decode
+    through their plain versions on the card (``plain_decode``): identical
+    decisions and convergence, iteration counts within ``iters_within``,
+    the kernels' launches per step times the steps, none on the plain
+    side.  Returns the frames whose decisions differ."""
+    dec = dataclasses.replace(dec, dtype="bfloat16")
+    intr = intr[:16].contiguous()
+    check_loops(f"{path} bf16", graph, intr, dec, per_step)
+    outs = {}
+    for plain in (False, True):
+        reset_launches()
+        outs[plain] = tuple(x.cpu() for x in plain_decode(graph, intr, dec,
+                                                          plain)) + (
+            read_host_launches(f"6 {path} bf16"),)
+    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+    differing = int((d_k != d_p).any(dim=1).sum())
+    it_diff = int((it_k - it_p).abs().max())
+    steps = int(it_k.max())
+    print(f"{path} bf16 F=16, kernel vs plain decode: frames whose "
+          f"decisions differ {differing}; identical convergence "
+          f"{torch.equal(c_k, c_p)}; iterations differ by at most {it_diff}"
+          f"; converged {int(c_k.sum())}/16; launches kernel {l_k}, plain "
+          f"{l_p}", flush=True)
+    check(differing == 0 and torch.equal(c_k, c_p)
+          and it_diff <= iters_within,
+          f"{path} bf16: the kernel and plain decodes differ")
+    check(l_k == {k: per_step.get(k, 0) * steps for k in l_k} and steps > 0
+          and sum(l_p.values()) == 0,
+          f"{path} bf16: launches {l_k} (plain {l_p}) for {steps} steps")
+    return differing
+
+
 def check_odd_batches(code, decs):
     """6b: a batch in which no frame converges (uniform random costs: the
     budget ends the loop) and one in which every frame converges at init
@@ -2151,8 +2523,9 @@ def check_cli(code):
     """7: the CLI at full width on the code written as a UBS file, with the
     SPA row's settings, with the syndrome chain's (``--cn syndrome``, the
     ``DecoderConfig`` defaults), with the QAM chain's (4f: ``--channel
-    qam --rayleigh``) and with the bubble chain's (4h: ``--cn-impl
-    bubble``), each against ``MonteCarlo.run`` of the same config
+    qam --rayleigh``), with the bubble chain's (4h: ``--cn-impl bubble``)
+    and with the dense bf16 SPA chain's (4i: ``--dtype bfloat16``), each
+    against ``MonteCarlo.run`` of the same config
     and seed on ``load`` of that file: frames, frame errors, bit errors and
     iteration sum equal."""
     phase("7 CLI at full width")
@@ -2173,7 +2546,10 @@ def check_cli(code):
                 ("--cn-impl bubble", "ems", 10,
                  ["--cn-impl", "bubble", "--nm", str(BUBBLE_NM),
                   "--nboper", str(BUBBLE_OPS)], ChannelSpec(), BUBBLE_DB,
-                 bubble)):
+                 bubble),
+                ("--dtype bfloat16 --cn spa", "spa", 20,
+                 ["--dtype", "bfloat16"], ChannelSpec(), 1.8,
+                 {"dtype": "bfloat16"})):
             out = os.path.join(tmp, f"out_{len(flags)}_{cn}")
             t0 = time.perf_counter()
             rc = cli.main(["--matrix", path, "--cn", cn, "--iters",
@@ -2267,11 +2643,17 @@ def main(argv) -> int:
         check_bubble_kernel(graph)
         print("--only-3e: the other phases were not run", flush=True)
         return 0
+    if "--only-bf16" in argv:
+        for entry in BF16_PHASES:
+            check_bf16_layers(graph, entry)
+        print("--only-bf16: the other phases were not run", flush=True)
+        return 0
     max_err, k_times = check_kernel(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
     syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
     demap_err, demap_times = check_demap_kernel()
     bub_err, bub_times = check_bubble_kernel(graph)
+    b16 = {entry: check_bf16_layers(graph, entry) for entry in BF16_PHASES}
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
     k_main = k_times[("layered", 128 * SLICE_ROWS)]
@@ -2312,6 +2694,8 @@ def main(argv) -> int:
     print(f"F=16: identical decisions/iterations/convergence: {same}; "
           f"iters {outs['pallas'][1].tolist()}", flush=True)
     check(same, "kernel and plain decodes differ")
+    check_bf16_path("layered EMS", graph, intr, dec,
+                    {"fb_checknode": n_layers})
     if "--profile" in argv:
         SUMMARY["EMS"][-1]["profile"] = profile_batch(mc, "ems")
         SUMMARY["EMS"][-1]["profile"].pop("spa_kernels")
@@ -2379,7 +2763,8 @@ def main(argv) -> int:
         prof.pop("bub_kernels")
         names = prof.pop("spa_kernels")
         print(f"SPA kernels in the trace: {names}", flush=True)
-        check(names and all("spa_row_kernel<8, true>" in n for n in names),
+        check(names and all("spa_row_kernel<8, true, float>" in n
+                            for n in names),
               f"the SPA trace holds other SPA kernels than the fused step: "
               f"{names}")
         print(f"SPA trace under the device loop: idle "
@@ -2388,6 +2773,41 @@ def main(argv) -> int:
         SUMMARY["SPA"][-1]["profile"] = prof
     free(mc)
     del mc, intr16
+
+    phase("4i SPA chain at dense bf16")
+    spa_b16 = dataclasses.replace(spa_dec, dtype="bfloat16")
+    mc, b16_res, b16_launches = run_chain("SPA bf16", code, enc, spa_b16,
+                                          1.8)
+    check(b16_launches["spa_checknode"] == b16_launches["spa_layer"]
+          == n_layers * b16_res.decoder_steps > 0
+          and sum(b16_launches.values()) == 2 * b16_launches["spa_layer"]
+          and device_loop.last().per_step["spa_layer"] == n_layers,
+          f"launches {b16_launches} for {b16_res.decoder_steps} decoder "
+          f"steps")
+    paths["spa_checknode"]["layered SPA bf16 (4i)"] = b16_launches[
+        "spa_checknode"]
+    intr = mc.gen(0)[1]
+    spa_steps = {"spa_checknode": n_layers, "spa_layer": n_layers}
+    SUMMARY["SPA bf16"][-1]["kernel_vs_plain_differing_frames"] = \
+        check_bf16_path("layered SPA", graph, intr, spa_dec, spa_steps,
+                        iters_within=1)
+    check_loops("layered SPA bf16 F=128", graph, intr, spa_b16, spa_steps)
+    if "--profile" in argv:
+        prof = profile_batch(mc, "spa_bf16")
+        prof.pop("syn_kernels")
+        prof.pop("bub_kernels")
+        names = prof.pop("spa_kernels")
+        check(names and all("spa_row_kernel<8, true, __nv_bfloat16>" in n
+                            for n in names),
+              f"the SPA bf16 trace holds other SPA kernels than the fused "
+              f"bf16 step: {names}")
+        print(f"SPA bf16 trace: spa_row_kernel {prof['spa_pct']}% and "
+              f"argmin {prof['argmin_pct']}% of the kernel time; idle "
+              f"{100 - prof['busy_pct']:.2f}% of its wall", flush=True)
+        check_traced(prof, "spa_row_kernel", n_layers, "SPA bf16 trace")
+        SUMMARY["SPA bf16"][-1]["profile"] = prof
+    free(mc)
+    del mc, intr
 
     phase("4c list-EMS chain")
     list_dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems",
@@ -2442,6 +2862,8 @@ def main(argv) -> int:
           and fl_calls["pallas"]["spa_checknode"] == 0
           and sum(fl_calls["topk"].values()) == 0,
           f"flooding EMS launches {fl_calls} for {steps16} steps")
+    check_bf16_path("flooding EMS", graph, intr16, fl_dec,
+                    {"fb_checknode": 1})
 
     phase("5e flooding SPA kernel vs plain decode at full width")
     outs = {}
@@ -2524,6 +2946,9 @@ def main(argv) -> int:
           and sum(l_p.values()) == 0,
           f"syndrome launches {l_k} (plain {l_p}) for {int(it_k.max())} "
           f"steps")
+    check_bf16_path("layered syndrome", graph, intr16, syn_dec,
+                    {"syndrome_checknode": n_layers,
+                     "syndrome_layer": n_layers})
     if "--profile" in argv:
         prof = profile_batch(mc, "syndrome")
         prof.pop("spa_kernels")
@@ -2532,7 +2957,8 @@ def main(argv) -> int:
         print(f"syndrome kernels in the trace: {names}", flush=True)
         check(prof["topk_kernels"] == 0,
               "torch.topk kernels in the syndrome chain's profile")
-        check(names and all("syndrome_kernel<8, true>" in n for n in names),
+        check(names and all("syndrome_kernel<8, true, float>" in n
+                            for n in names),
               f"the syndrome trace holds other syndrome kernels than the "
               f"fused step: {names}")
         # the sweep gathered and scattered [F, 1350, 4, 256] f32 blocks
@@ -2610,7 +3036,8 @@ def main(argv) -> int:
         prof.pop("syn_kernels")
         names = prof.pop("bub_kernels")
         print(f"bubble kernels in the trace: {names}", flush=True)
-        check(names and all("bubble_kernel<8, 8, true>" in n for n in names),
+        check(names and all("bubble_kernel<8, 8, true, float>" in n
+                            for n in names),
               f"the bubble trace holds other bubble kernels than the fused "
               f"step: {names}")
         # the sweep gathered and scattered [F, 1350, 4, 256] f32 blocks
@@ -2638,6 +3065,9 @@ def main(argv) -> int:
         if (sched, impl) != ("layered", "bubble"):
             paths["bubble_checknode"][f"{sched} {impl} (6)"] = replay[
                 "bubble_checknode"]
+    for impl in ("bubble", "lbubble"):
+        check_bf16_path(f"layered {impl}", graph, intr,
+                        dataclasses.replace(bub_dec, cn_impl=impl), fused)
     device_loop.clear()
     free(mc)
     del mc, intr
@@ -2687,6 +3117,7 @@ def main(argv) -> int:
         "bound_by": spa_main["bound_by"], "library_ms": None,
         "flooding_rows": SPA_SHAPES[2][0], "flooding_ms": spa_flood[0],
         "flooding_plain_ms": spa_flood[1], "flooding_bound_ms": spa_flood[2],
+        **bf16_fields(b16["spa_layer"]),
     }, {
         "name": "syndrome_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/syndrome_checknode.cu",
@@ -2705,6 +3136,7 @@ def main(argv) -> int:
         "flooding_ms": syn_flood["kernel"],
         "flooding_plain_ms": syn_flood["plain"],
         "flooding_bound_ms": syn_flood["bound"],
+        **bf16_fields(b16["syndrome_layer"]),
     }, {
         "name": "demap", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/demap.cu",
@@ -2743,6 +3175,7 @@ def main(argv) -> int:
         "flooding_lbubble_ms": b_flood["lbubble"],
         "flooding_plain_ms": b_flood["plain"],
         "flooding_bound_ms": b_flood["bound"],
+        **bf16_fields(b16["bubble_layer"]),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

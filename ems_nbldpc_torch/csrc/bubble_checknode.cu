@@ -5,7 +5,7 @@
 // lax.fori_loop of nbOper extract-min steps over 8 or 4 bubbles,
 // elementary_bubble_batch, fb_checknode_bubble with its dense scatter)
 // and the truncation, rotations, padding mask, saturation, normalisation,
-// gathers and write-back around its call sites.  Two entry points share
+// gathers and write-back around its call sites.  Three entry points share
 // one device-side row routine:
 //
 // * bubble_layer_launch: one super-layer of the layered sweep, in place on
@@ -17,6 +17,11 @@
 //         CtoV[f, edges[r,i]] = mcv_i;  APP[f, cols[r,i]] = mvc_i + mcv_i
 //   Frozen frames are neither read nor written, and padded slots write
 //   nothing, so the padding column N and edge E keep their values.
+// * bubble_layer_bf16_launch: the same step on a bf16 state: each load
+//   (both reads of APP and CtoV) widens to f32 (exact), the step computes
+//   in f32 exactly as above, and each store rounds to bf16 (to nearest,
+//   ties to even, as torch's .to(torch.bfloat16)), so it equals
+//   bubble_layer_plain on that state bit for bit too.
 // * bubble_rows_launch: CN on rows x [T, dc, q] -> out [T, dc, q], row t
 //   with the tables of row t % G (the flooding schedule).
 //
@@ -96,12 +101,18 @@
 // messages side by side spilled registers (6.6 ms bare); an L2 prefetch of
 // a group's rows cost the fused step 1 ms.
 // A column, an edge or a rotation table entry out of range traps.
+// On a bf16 state (3e, the same card): 3.89 ms against 4.20 on the f32
+// state in the same turns; with each load widened at once it took 5.61 ms
+// (a load issued early then stalled at the widening), so the loads stay
+// raw 16 bits until their first use (Raw, widen).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef unsigned long long u64;
+typedef __nv_bfloat16 bf16_t;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float INF_COST = 1e9f;          // ops/minconv.INF
@@ -123,9 +134,9 @@ constexpr long long BLOCK_RESERVED = 1024;  // the system's share a block
 __device__ unsigned long long g_launches[2] = {0, 0};
 
 struct Params {
-  float* app;                  // layer: state [F, N+1, q]
-  float* ctov;                 // layer: state [F, E+1, q]
-  long long app_frame;         // floats per frame of app, ctov
+  void* app;                   // layer: state [F, N+1, q] (float or bf16)
+  void* ctov;                  // layer: state [F, E+1, q] (the same)
+  long long app_frame;         // elements per frame of app, ctov
   long long ctov_frame;
   long long app_rows;          // rows per frame of app, ctov
   long long ctov_rows;
@@ -204,6 +215,39 @@ __device__ __forceinline__ float warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fminf(v, __shfl_xor_sync(FULL, v, off));
   return v;
+}
+
+// A state element as loaded (Raw<ST>::T: a bf16's 16 bits), kept so until
+// its first use, where it widens to f32 (exactly), so that its load's
+// latency stays hidden behind the work between; and an f32 stored to the
+// state (a bf16 state rounds it to nearest even).
+template <class ST>
+struct Raw {
+  typedef float T;
+};
+
+template <>
+struct Raw<bf16_t> {
+  typedef unsigned T;
+};
+
+__device__ __forceinline__ float ld_raw(const float* p) { return *p; }
+
+__device__ __forceinline__ unsigned ld_raw(const bf16_t* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+
+__device__ __forceinline__ float widen(unsigned x) {
+  return __uint_as_float(x << 16);
+}
+
+__device__ __forceinline__ void st_state(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void st_state(bf16_t* p, float v) {
+  *reinterpret_cast<unsigned short*>(p) =
+      __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // The symbol lane `lane` holds in register i (q < 32: lanes >= q hold
@@ -461,15 +505,16 @@ __device__ __forceinline__ void slot_rows(const Params& p, long long g, int k,
     __trap();
 }
 
-// mvc = a - c minus its min (lanes that are off: +inf).
-template <int PER>
-__device__ __forceinline__ void extrinsic(const float (&a)[PER],
-                                          const float (&c)[PER], bool on,
+// mvc = a - c minus its min (lanes that are off: +inf), a and c widened.
+template <int PER, class T>
+__device__ __forceinline__ void extrinsic(const T (&a)[PER],
+                                          const T (&c)[PER], bool on,
                                           float (&v)[PER]) {
   float mn = __int_as_float(0x7f800000);
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    v[i] = on ? __fsub_rn(a[i], c[i]) : __int_as_float(0x7f800000);
+    v[i] = on ? __fsub_rn(widen(a[i]), widen(c[i]))
+              : __int_as_float(0x7f800000);
     mn = fminf(mn, v[i]);
   }
   mn = warp_min(mn);
@@ -477,29 +522,32 @@ __device__ __forceinline__ void extrinsic(const float (&a)[PER],
   for (int i = 0; i < PER; ++i) v[i] = __fsub_rn(v[i], mn);
 }
 
-// The lane's symbols of one APP row and one CtoV row of frame f.
-template <int PER>
+// The lane's symbols of one APP row and one CtoV row of frame f (state
+// elements of type ST), raw.
+template <int PER, class ST, class T = typename Raw<ST>::T>
 __device__ __forceinline__ void load_slot(const Params& p, long long f,
                                           long long col, long long edge,
-                                          int lane, bool on, float (&a)[PER],
-                                          float (&c)[PER]) {
-  const float* arow = p.app + f * p.app_frame + col * p.q;
-  const float* crow = p.ctov + f * p.ctov_frame + edge * p.q;
+                                          int lane, bool on, T (&a)[PER],
+                                          T (&c)[PER]) {
+  const ST* arow = static_cast<const ST*>(p.app) + f * p.app_frame +
+                   col * p.q;
+  const ST* crow = static_cast<const ST*>(p.ctov) + f * p.ctov_frame +
+                   edge * p.q;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int s = sym<PER>(lane, i, p.q);
-    a[i] = on ? arow[s] : 0.0f;
-    c[i] = on ? crow[s] : 0.0f;
+    a[i] = on ? ld_raw(arow + s) : T(0);
+    c[i] = on ? ld_raw(crow + s) : T(0);
   }
 }
 
 // The loads of slot k of row `row` (layer: its APP and CtoV symbols;
 // rows: x's) into a and c, and its rotation into rin; nothing for a
 // padded slot.  Returns whether the slot is real.
-template <int PER, bool LAYER>
+template <int PER, bool LAYER, class ST, class T = typename Raw<ST>::T>
 __device__ __forceinline__ bool load_in(const Params& p, long long row,
-                                        int k, int lane, float (&a)[PER],
-                                        float (&c)[PER], int (&rin)[PER]) {
+                                        int k, int lane, T (&a)[PER],
+                                        T (&c)[PER], int (&rin)[PER]) {
   const int dc = p.dc, q = p.q;
   const long long g = row % p.G;
   const bool on = lane < q;
@@ -507,10 +555,10 @@ __device__ __forceinline__ bool load_in(const Params& p, long long row,
 #pragma unroll
   for (int i = 0; i < PER; ++i)
     rin[i] = rot_entry(p.rot_in, (g * dc + k) * q + sym<PER>(lane, i, q), q);
-  if (LAYER) {
+  if constexpr (LAYER) {
     long long col, edge;
     slot_rows(p, g, k, col, edge);
-    load_slot<PER>(p, row / p.G, col, edge, lane, on, a, c);
+    load_slot<PER, ST>(p, row / p.G, col, edge, lane, on, a, c);
   } else {
     const float* src = p.x + (row * dc + k) * q;
 #pragma unroll
@@ -523,7 +571,7 @@ __device__ __forceinline__ bool load_in(const Params& p, long long row,
 // Steps 1-4 for row `row` (the warp's row r): the dc lists, sorted, minus
 // their first value, each of count nm; stg holds q floats, then nm sort
 // keys.
-template <int PER, bool LAYER>
+template <int PER, bool LAYER, class ST>
 __device__ __forceinline__ void build_lists(const Params& p, long long row,
                                             int r, float* stg, float* lv,
                                             uint8_t* lg, uint16_t* cnt,
@@ -532,9 +580,9 @@ __device__ __forceinline__ void build_lists(const Params& p, long long row,
   const bool on = lane < q;
   const unsigned key_inf = fkey(INF_COST);
   u64* tmp = reinterpret_cast<u64*>(stg);
-  float a[PER], c[PER];
+  typename Raw<ST>::T a[PER], c[PER];
   int rin[PER];
-  bool real = load_in<PER, LAYER>(p, row, 0, lane, a, c, rin);
+  bool real = load_in<PER, LAYER, ST>(p, row, 0, lane, a, c, rin);
   for (int k = 0; k < dc; ++k) {
     float* lvk = lv + static_cast<long long>(k) * nm * R + r;
     uint8_t* lgk = lg + static_cast<long long>(k) * nm * R + r;
@@ -545,8 +593,8 @@ __device__ __forceinline__ void build_lists(const Params& p, long long row,
         lvk[e * R] = e == 0 ? 0.0f : INF_COST;
         lgk[e * R] = static_cast<uint8_t>(e);
       }
-      if (k + 1 < dc) real = load_in<PER, LAYER>(p, row, k + 1, lane, a, c,
-                                                  rin);
+      if (k + 1 < dc)
+        real = load_in<PER, LAYER, ST>(p, row, k + 1, lane, a, c, rin);
       continue;
     }
     // stage the message (layer: mvc), unrotated, and rotate it in
@@ -555,7 +603,7 @@ __device__ __forceinline__ void build_lists(const Params& p, long long row,
       extrinsic<PER>(a, c, on, v);
     else
 #pragma unroll
-      for (int i = 0; i < PER; ++i) v[i] = a[i];
+      for (int i = 0; i < PER; ++i) v[i] = widen(a[i]);
     if (on)
 #pragma unroll
       for (int i = 0; i < PER; ++i) stg[sym<PER>(lane, i, q)] = v[i];
@@ -625,13 +673,14 @@ __device__ __forceinline__ void build_lists(const Params& p, long long row,
         lvk[e * R] = __fsub_rn(lvk[e * R], first);
     }
     __syncwarp();
-    if (k + 1 < dc) real = load_in<PER, LAYER>(p, row, k + 1, lane, a, c, rin);
+    if (k + 1 < dc)
+      real = load_in<PER, LAYER, ST>(p, row, k + 1, lane, a, c, rin);
   }
 }
 
 // Steps 6-9 for slot k of row `row` (the warp's row r) from list L, into
 // out (rows) or CtoV and APP (layer, real slots only: mvc read again).
-template <int PER, bool LAYER>
+template <int PER, bool LAYER, class ST>
 __device__ __forceinline__ void write_slot(const Params& p, long long row,
                                            int k, List L, int r, float* dense,
                                            int lane) {
@@ -639,12 +688,12 @@ __device__ __forceinline__ void write_slot(const Params& p, long long row,
   const long long g = row % p.G, f = row / p.G;
   const bool on = lane < q;
   long long col = 0, edge = 0;
-  float a[PER], c[PER];
+  typename Raw<ST>::T a[PER], c[PER];
   if (LAYER) {
     if (p.valid && !__ldg(p.valid + g * dc + k)) return;
     slot_rows(p, g, k, col, edge);
     // issued here, first used at the write-back
-    load_slot<PER>(p, f, col, edge, lane, on, a, c);
+    load_slot<PER, ST>(p, f, col, edge, lane, on, a, c);
   }
   int rout[PER];
 #pragma unroll
@@ -678,14 +727,14 @@ __device__ __forceinline__ void write_slot(const Params& p, long long row,
     float mvc[PER];
     extrinsic<PER>(a, c, on, mvc);
     if (!on) return;
-    float* crow = p.ctov + f * p.ctov_frame + edge * q;
-    float* arow = p.app + f * p.app_frame + col * q;
+    ST* crow = static_cast<ST*>(p.ctov) + f * p.ctov_frame + edge * q;
+    ST* arow = static_cast<ST*>(p.app) + f * p.app_frame + col * q;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int s = sym<PER>(lane, i, q);
       const float o = __fsub_rn(fminf(y[i], thr), mn);
-      crow[s] = o;
-      arow[s] = __fadd_rn(mvc[i], o);
+      st_state(crow + s, o);
+      st_state(arow + s, __fadd_rn(mvc[i], o));
     }
   } else {
     if (!on) return;
@@ -696,7 +745,7 @@ __device__ __forceinline__ void write_slot(const Params& p, long long row,
   }
 }
 
-template <int PER, int NBUB, bool LAYER>
+template <int PER, int NBUB, bool LAYER, class ST>
 __global__ void __launch_bounds__(THREADS, TARGET_WARPS / WARPS)
     bubble_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -736,7 +785,7 @@ __global__ void __launch_bounds__(THREADS, TARGET_WARPS / WARPS)
     // steps 1-4, row by row
     for (int r = 0; r < rows; ++r)
       if (act >> r & 1u)
-        build_lists<PER, LAYER>(p, t0 + r, r, stg, lv, lg, cnt, lane);
+        build_lists<PER, LAYER, ST>(p, t0 + r, r, stg, lv, lg, cnt, lane);
     // step 5: one lane per (row, chain), then per (row, middle output)
     for (int item = lane; item < 2 * rows; item += 32) {
       const int r = item >> 1;
@@ -763,7 +812,7 @@ __global__ void __launch_bounds__(THREADS, TARGET_WARPS / WARPS)
     for (int r = 0; r < rows; ++r) {
       if (!(act >> r & 1u)) continue;
       for (int k = 0; k < dc; ++k)
-        write_slot<PER, LAYER>(
+        write_slot<PER, LAYER, ST>(
             p, t0 + r, k,
             list(k == 0 ? bwd(1) : k == dc - 1 ? fwd(dc - 2) : k), r, stg,
             lane);
@@ -783,14 +832,14 @@ int rows_per_warp(int dc, int q, int nm) {
   return layout(dc, q, nm, 1).total <= BLOCK_LIMIT ? 1 : 0;
 }
 
-template <int PER, int NBUB, bool LAYER>
+template <int PER, int NBUB, bool LAYER, class ST>
 int launch(const Params& p, void* stream) {
   const long long wb = layout(p.dc, p.q, p.nm, p.R).total;
   // WARPS warps a block, fewer where their lists do not fit one
   const int wpb = static_cast<int>(
       BLOCK_LIMIT / wb < WARPS ? BLOCK_LIMIT / wb : WARPS);
   const long long smem = wpb * wb;
-  auto kern = bubble_kernel<PER, NBUB, LAYER>;
+  auto kern = bubble_kernel<PER, NBUB, LAYER, ST>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -815,12 +864,12 @@ int launch(const Params& p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NBUB, bool LAYER>
+template <int NBUB, bool LAYER, class ST>
 int launch_q(const Params& p, void* stream) {
-  if (p.q <= 32) return launch<1, NBUB, LAYER>(p, stream);
-  if (p.q == 64) return launch<2, NBUB, LAYER>(p, stream);
-  if (p.q == 128) return launch<4, NBUB, LAYER>(p, stream);
-  return launch<8, NBUB, LAYER>(p, stream);
+  if (p.q <= 32) return launch<1, NBUB, LAYER, ST>(p, stream);
+  if (p.q == 64) return launch<2, NBUB, LAYER, ST>(p, stream);
+  if (p.q == 128) return launch<4, NBUB, LAYER, ST>(p, stream);
+  return launch<8, NBUB, LAYER, ST>(p, stream);
 }
 
 // Check the CN's arguments and fill them in; 0, or a CUDA error code.
@@ -848,11 +897,36 @@ int cn_params(Params& p, int dc, int q, int nm, int nb_oper,
   return 0;
 }
 
-template <bool LAYER>
+template <bool LAYER, class ST = float>
 int dispatch(const Params& p, int variant, void* stream) {
   if (p.T <= 0) return 0;
-  return variant == 8 ? launch_q<8, LAYER>(p, stream)
-                      : launch_q<4, LAYER>(p, stream);
+  return variant == 8 ? launch_q<8, LAYER, ST>(p, stream)
+                      : launch_q<4, LAYER, ST>(p, stream);
+}
+
+// The layer entry's checks and parameters; 0, or a CUDA error code.
+int layer_params(Params& p, void* app, void* ctov, long long F,
+                 long long app_rows, long long ctov_rows,
+                 const uint8_t* active, const int* cols, const int* edges,
+                 int dc, int q, int nm, int nb_oper, const uint8_t* rot_in,
+                 const uint8_t* rot_out, const uint8_t* valid, long long G,
+                 int truncate, int saturate, float offset, int variant) {
+  const int err = cn_params(p, dc, q, nm, nb_oper, rot_in, rot_out, valid,
+                            G, truncate, saturate, offset, variant);
+  if (err) return err;
+  if (!app || !ctov || !active || !cols || !edges)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.app = app;
+  p.ctov = ctov;
+  p.app_frame = app_rows * q;
+  p.ctov_frame = ctov_rows * q;
+  p.app_rows = app_rows;
+  p.ctov_rows = ctov_rows;
+  p.active = active;
+  p.cols = cols;
+  p.edges = edges;
+  p.T = F * G;
+  return 0;
 }
 
 }  // namespace
@@ -898,27 +972,36 @@ int bubble_layer_launch(float* app, float* ctov, long long F,
                         int saturate, float offset, int variant,
                         void* stream) {
   Params p = {};
-  const int err = cn_params(p, dc, q, nm, nb_oper, rot_in, rot_out, valid,
-                            G, truncate, saturate, offset, variant);
-  if (err) return err;
-  if (!app || !ctov || !active || !cols || !edges)
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.app = app;
-  p.ctov = ctov;
-  p.app_frame = app_rows * q;
-  p.ctov_frame = ctov_rows * q;
-  p.app_rows = app_rows;
-  p.ctov_rows = ctov_rows;
-  p.active = active;
-  p.cols = cols;
-  p.edges = edges;
-  p.T = F * G;
-  return dispatch<true>(p, variant, stream);
+  const int err = layer_params(p, app, ctov, F, app_rows, ctov_rows, active,
+                               cols, edges, dc, q, nm, nb_oper, rot_in,
+                               rot_out, valid, G, truncate, saturate, offset,
+                               variant);
+  return err ? err : dispatch<true>(p, variant, stream);
+}
+
+// The same on a bf16 state: app, ctov contiguous bfloat16 (each load
+// widens to f32, each store rounds to nearest even).  Same requirements
+// and return value.
+int bubble_layer_bf16_launch(void* app, void* ctov, long long F,
+                             long long app_rows, long long ctov_rows,
+                             const uint8_t* active, const int* cols,
+                             const int* edges, int dc, int q, int nm,
+                             int nb_oper, const uint8_t* rot_in,
+                             const uint8_t* rot_out, const uint8_t* valid,
+                             long long G, int truncate, int saturate,
+                             float offset, int variant, void* stream) {
+  Params p = {};
+  const int err = layer_params(p, app, ctov, F, app_rows, ctov_rows, active,
+                               cols, edges, dc, q, nm, nb_oper, rot_in,
+                               rot_out, valid, G, truncate, saturate, offset,
+                               variant);
+  return err ? err : dispatch<true, bf16_t>(p, variant, stream);
 }
 
 // The kernel's launches on the current device since the library was loaded
 // or last reset: out[0] by bubble_rows_launch, out[1] by
-// bubble_layer_launch (counted on the device, graph replays included).
+// bubble_layer_launch and bubble_layer_bf16_launch (counted on the device,
+// graph replays included).
 // Synchronises the device.
 int bubble_launches(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();

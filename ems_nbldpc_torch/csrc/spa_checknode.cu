@@ -4,8 +4,8 @@
 // Replaces the XLA op ems_nbldpc_tpu/ops/fht.py:249 fb_checknode_spa_fused
 // (no Pallas kernel there: XLA lowered it as grouped Hadamard matmuls),
 // together with the gathers, normalisation, freeze and scatters around its
-// layered call site (ems_nbldpc_tpu/decoder/layered.py:127-137).  Two entry
-// points share one device-side row routine:
+// layered call site (ems_nbldpc_tpu/decoder/layered.py:127-137).  Three
+// entry points share one device-side row routine:
 //
 // * spa_layer_launch: one super-layer of the layered sweep, in place on the
 //   decoder state APP [F, N+1, q] and CtoV [F, E+1, q] (f32):
@@ -14,6 +14,13 @@
 //       mcv   = SPA_CN(mvc, coefs[r])
 //       CtoV[f, edges[r,i]] = mcv_i;  APP[f, cols[r,i]] = mvc_i + mcv_i
 //   Frames with !active[f] are neither read nor written.
+// * spa_layer_bf16_launch: the same step on a bf16 state: each load widens
+//   to f32 (exact), the step computes in f32 exactly as above, and each
+//   store rounds to bf16 (round to nearest, ties to even, as torch's
+//   .to(torch.bfloat16)).  The raw bf16 rows are staged (half the bytes)
+//   into the warp's product buffer, free until the products are formed, and
+//   widened where step 1 reads them; so the next row stages after the
+//   write-back, not during it.
 // * spa_checknode_launch: the bare CN on gathered rows mvc [T, dc, q] with
 //   coefficients coefs[t % G] -> out [T, dc, q] (the flooding schedule).
 //
@@ -83,8 +90,15 @@
 // transforms and permutations removed the call still takes 1.045 ms, so
 // the memory traffic of the gathered 1 KB rows (2.7 TB/s) limits it, and
 // the math adds ~0.16 ms the resident warps do not hide.
+// On a bf16 state (chip_smoke.py 3b, the same card): 1.16 ms, 36% of its
+// 0.4226 ms bound, against 1.21 ms on the f32 state in the same turns: its
+// next row stages after the write-back, and the math and staging latency,
+// not the bytes, hold it.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -100,10 +114,12 @@ constexpr int kMaxWarps = 16;                // warps per block to try
 // CUDA graph replays count too (spa_launches).
 __device__ unsigned long long g_launches[2] = {0, 0};
 
+typedef __nv_bfloat16 bf16;
+
 struct Params {
-  float* app;                  // fused: state [F, N+1, q]
-  float* ctov;                 // fused: state [F, E+1, q]
-  long long app_frame;         // floats per frame of app, ctov
+  void* app;                   // fused: state [F, N+1, q] (float or bf16)
+  void* ctov;                  // fused: state [F, E+1, q] (the same)
+  long long app_frame;         // elements per frame of app, ctov
   long long ctov_frame;
   unsigned app_rows;           // rows per frame of app, ctov
   unsigned ctov_rows;
@@ -117,6 +133,7 @@ struct Params {
   const uint8_t* tinv_tab;
   int T, G, dc, q;
   int vec16;                   // 16-byte copies and vector stores
+  //                              (bf16: also q % 8 == 0)
   int warp_floats;             // floats of one warp's shared memory
 };
 
@@ -125,6 +142,24 @@ struct Layout {
   static constexpr int VEC = PER < 4 ? PER : 4;  // consecutive symbols
   static constexpr int NCH = PER / VEC;          // chunks of 32 * VEC
 };
+
+// The f32 value of the bf16 in the low or the high half of u (exact), and
+// x rounded to bf16 (to nearest, ties to even) as its 16 bits.
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ unsigned bf16_rn(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return bf16_rn(lo) | bf16_rn(hi) << 16;
+}
 
 __device__ __forceinline__ float group_min(float v, int lw) {
   for (int o = lw >> 1; o > 0; o >>= 1)
@@ -180,6 +215,30 @@ __device__ __forceinline__ void load_own(const float* row, int off, int cs,
   }
 }
 
+// The same from a staged bf16 row, widened to f32.
+template <int PER>
+__device__ __forceinline__ void load_own(const bf16* row, int off, int cs,
+                                         float (&v)[PER]) {
+  constexpr int VEC = Layout<PER>::VEC, NCH = Layout<PER>::NCH;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const bf16* s = row + c * cs + off;
+    if (VEC == 4) {
+      const uint2 a = *reinterpret_cast<const uint2*>(s);
+      v[4 * c] = bf16_lo(a.x);
+      v[4 * c + 1] = bf16_hi(a.x);
+      v[4 * c + 2] = bf16_lo(a.y);
+      v[4 * c + 3] = bf16_hi(a.y);
+    } else if (VEC == 2) {
+      const unsigned a = *reinterpret_cast<const unsigned*>(s);
+      v[2 * c] = bf16_lo(a);
+      v[2 * c + 1] = bf16_hi(a);
+    } else {
+      v[c] = bf16_lo(*reinterpret_cast<const unsigned short*>(s));
+    }
+  }
+}
+
 template <int PER>
 __device__ __forceinline__ void store_own(float* row, int off, int cs,
                                           const float (&v)[PER]) {
@@ -216,6 +275,32 @@ __device__ __forceinline__ void store_global(float* row, int off, int cs,
     } else {
 #pragma unroll
       for (int k = 0; k < VEC; ++k) __stcs(d + k, v[VEC * c + k]);
+    }
+  }
+}
+
+// The same to a bf16 state, each value rounded once; vector stores when
+// `vec` (16-byte aligned rows: 8-byte stores of 4 values at q = 256).
+template <int PER>
+__device__ __forceinline__ void store_global(bf16* row, int off, int cs,
+                                             const float (&v)[PER],
+                                             bool vec) {
+  constexpr int VEC = Layout<PER>::VEC, NCH = Layout<PER>::NCH;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    bf16* d = row + c * cs + off;
+    if (VEC == 4 && vec) {
+      __stcs(reinterpret_cast<uint2*>(d),
+             make_uint2(pack_bf16(v[4 * c], v[4 * c + 1]),
+                        pack_bf16(v[4 * c + 2], v[4 * c + 3])));
+    } else if (VEC == 2 && vec) {
+      __stcs(reinterpret_cast<unsigned*>(d),
+             pack_bf16(v[2 * c], v[2 * c + 1]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        __stcs(reinterpret_cast<unsigned short*>(d + k),
+               static_cast<unsigned short>(bf16_rn(v[VEC * c + k])));
     }
   }
 }
@@ -258,36 +343,55 @@ __device__ __forceinline__ void wht(float (&x)[PER], int lane, int lw) {
 // commit group: fused, k < dc are the APP rows and dc <= k < 2 dc the CtoV
 // rows; bare, the dc input rows.  A column or edge out of range traps here,
 // before its first use (a device-side fault, as PyTorch's index kernels
-// assert), so a bad table never reads or writes outside the state.
-template <bool FUSED>
-__device__ __forceinline__ void stage(const Params& p, float* S, int t,
+// assert), so a bad table never reads or writes outside the state.  ST is
+// the state's element type (float, or bf16: fused only, staged raw).
+template <bool FUSED, class ST>
+__device__ __forceinline__ void stage(const Params& p, ST* S, int t,
                                       int k0, int k1, int lane) {
   const int q = p.q, dc = p.dc;
   const int f = t / p.G, r = t - f * p.G;
   const unsigned dst0 = static_cast<unsigned>(__cvta_generic_to_shared(S));
   for (int k = k0; k < k1; ++k) {
-    const float* src;
-    if (FUSED) {
+    const ST* src;
+    if constexpr (FUSED) {
       const unsigned idx = static_cast<unsigned>(
           __ldg(k < dc ? p.cols + r * dc + k : p.edges + r * dc + k - dc));
       if (idx >= (k < dc ? p.app_rows : p.ctov_rows)) __trap();
-      src = k < dc ? p.app + f * p.app_frame + static_cast<long long>(idx) * q
-                   : p.ctov + f * p.ctov_frame +
+      src = k < dc ? static_cast<const ST*>(p.app) + f * p.app_frame +
+                         static_cast<long long>(idx) * q
+                   : static_cast<const ST*>(p.ctov) + f * p.ctov_frame +
                          static_cast<long long>(idx) * q;
     } else {
       src = p.x + (static_cast<long long>(t) * dc + k) * q;
     }
-    const unsigned dst = dst0 + 4u * k * q;
-    if (p.vec16) {
-      for (int c = lane; c < q / 4; c += 32)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                         dst + 16 * c),
-                     "l"(src + 4 * c));
+    if constexpr (std::is_same<ST, float>::value) {
+      const unsigned dst = dst0 + 4u * k * q;
+      if (p.vec16) {
+        for (int c = lane; c < q / 4; c += 32)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           dst + 16 * c),
+                       "l"(src + 4 * c));
+      } else {
+        for (int c = lane; c < q; c += 32)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           dst + 4 * c),
+                       "l"(src + c));
+      }
     } else {
-      for (int c = lane; c < q; c += 32)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                         dst + 4 * c),
-                     "l"(src + c));
+      // bf16: 8 symbols a 16-byte copy, else 2 a 4-byte copy (the
+      // launcher requires 4-byte aligned state)
+      const unsigned dst = dst0 + 2u * k * q;
+      if (p.vec16) {
+        for (int c = lane; c < q / 8; c += 32)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           dst + 16 * c),
+                       "l"(src + 8 * c));
+      } else {
+        for (int c = lane; c < q / 2; c += 32)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           dst + 4 * c),
+                       "l"(src + 2 * c));
+      }
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -300,15 +404,18 @@ __device__ __forceinline__ int next_active(const Params& p, int t, int nw) {
   return t;
 }
 
-// One row t: S holds its staged message rows, Bf is the warp's product
-// buffer [dc][q], basis the block's [2][q] basis images (t_h, t_h^-1).
-// Once the products are taken, the next row tn (if any) starts to stage
-// into the part of S that is free: its CtoV rows (fused) or all its rows.
-template <int PER, bool FUSED>
+// One row t: S holds its staged message rows (a bf16 state: Bf holds them
+// raw, S is free), Bf is the warp's product buffer [dc][q], basis the
+// block's [2][q] basis images (t_h, t_h^-1).  Once the products are taken,
+// the next row tn (if any) starts to stage into the part of S that is
+// free: its CtoV rows (fused) or all its rows; not for a bf16 state, whose
+// next row stages into Bf after the write-back.
+template <int PER, bool FUSED, class ST>
 __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
                                         const unsigned long long* basis,
                                         int t, int tn, int lane) {
   constexpr int VEC = Layout<PER>::VEC;
+  constexpr bool BF = !std::is_same<ST, float>::value;
   const int q = p.q, dc = p.dc;
   const int lw = PER == 1 ? (q < 32 ? q : 32) : 32;  // lanes per message
   const int ng = 32 / lw;                            // messages side by side
@@ -319,6 +426,7 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
   const int* h = p.coefs + r * dc;
   float* A = S;                         // inputs; fused: then mvc
   float* W = FUSED ? S + dc * q : S;    // fused: CtoV rows; then WHT(p_i)
+  const bf16* R = reinterpret_cast<const bf16*>(Bf);  // bf16: raw rows
 
   // 1, 2a: normalise, probabilities, forward transform into W
   for (int i0 = 0; i0 < dc; i0 += ng) {
@@ -326,12 +434,20 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
     const bool on = i < dc;             // q < 32: groups past dc idle
     float x[PER];
     if (on) {
-      load_own<PER>(A + i * q, off, cs, x);
-      if (FUSED) {
+      if constexpr (BF) {
         float c[PER];
-        load_own<PER>(W + i * q, off, cs, c);
+        load_own<PER>(R + i * q, off, cs, x);
+        load_own<PER>(R + (dc + i) * q, off, cs, c);
 #pragma unroll
         for (int j = 0; j < PER; ++j) x[j] = x[j] - c[j];
+      } else {
+        load_own<PER>(A + i * q, off, cs, x);
+        if (FUSED) {
+          float c[PER];
+          load_own<PER>(W + i * q, off, cs, c);
+#pragma unroll
+          for (int j = 0; j < PER; ++j) x[j] = x[j] - c[j];
+        }
       }
     } else {
 #pragma unroll
@@ -397,8 +513,9 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
     }
   }
   __syncwarp();
-  if (tn < p.T) stage<FUSED>(p, S, tn, FUSED ? dc : 0, FUSED ? 2 * dc : dc,
-                             lane);
+  if constexpr (!BF)
+    if (tn < p.T) stage<FUSED>(p, S, tn, FUSED ? dc : 0, FUSED ? 2 * dc : dc,
+                               lane);
 
   // 4, 5: y_i = o_i[t_h^-1], inverse transform, costs, write back
   const float invq = 1.0f / static_cast<float>(q);  // exact: q = 2^m
@@ -428,13 +545,13 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
 #pragma unroll
     for (int j = 0; j < PER; ++j) y[j] = hi == 0 ? 0.0f : y[j] - m;
     if (!on) continue;
-    if (FUSED) {
+    if constexpr (FUSED) {
       float mv[PER];
       load_own<PER>(A + i * q, off, cs, mv);
-      float* crow = p.ctov + f * p.ctov_frame +
-                    static_cast<long long>(__ldg(p.edges + r * dc + i)) * q;
-      float* arow = p.app + f * p.app_frame +
-                    static_cast<long long>(__ldg(p.cols + r * dc + i)) * q;
+      ST* crow = static_cast<ST*>(p.ctov) + f * p.ctov_frame +
+                 static_cast<long long>(__ldg(p.edges + r * dc + i)) * q;
+      ST* arow = static_cast<ST*>(p.app) + f * p.app_frame +
+                 static_cast<long long>(__ldg(p.cols + r * dc + i)) * q;
       store_global<PER>(crow, off, cs, y, p.vec16);
 #pragma unroll
       for (int j = 0; j < PER; ++j) mv[j] = mv[j] + y[j];
@@ -446,8 +563,9 @@ __device__ __forceinline__ void spa_row(const Params& p, float* S, float* Bf,
   }
 }
 
-template <int PER, bool FUSED>
+template <int PER, bool FUSED, class ST>
 __global__ void spa_row_kernel(const Params p) {
+  constexpr bool BF = !std::is_same<ST, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(&g_launches[FUSED ? 1 : 0], 1ULL);
@@ -467,21 +585,29 @@ __global__ void spa_row_kernel(const Params p) {
   }
   __syncthreads();
 
-  // the warp's row buffer (2 dc or dc message rows), then its products
+  // the warp's row buffer (2 dc or dc message rows), then its products; a
+  // bf16 state's 2 dc raw rows stage into the products' space
   float* S = reinterpret_cast<float*>(smem_raw + 16 * q) +
              static_cast<long long>(warp) * p.warp_floats;
   float* Bf = S + p.warp_floats - p.dc * q;
+  ST* stg;
+  if constexpr (BF)
+    stg = reinterpret_cast<ST*>(Bf);
+  else
+    stg = S;
   const int nw = gridDim.x * wpb;
   int t = next_active(p, blockIdx.x * wpb + warp, nw);
-  if (t < p.T) stage<FUSED>(p, S, t, 0, FUSED ? 2 * p.dc : p.dc, lane);
+  if (t < p.T) stage<FUSED>(p, stg, t, 0, FUSED ? 2 * p.dc : p.dc, lane);
   while (t < p.T) {
     const int tn = next_active(p, t + nw, nw);
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncwarp();
-    spa_row<PER, FUSED>(p, S, Bf, basis, t, tn, lane);
+    spa_row<PER, FUSED, ST>(p, S, Bf, basis, t, tn, lane);
     __syncwarp();
-    // the mvc rows are consumed: the next row's APP rows
-    if (FUSED && tn < p.T) stage<FUSED>(p, S, tn, 0, p.dc, lane);
+    // the mvc rows are consumed: the next row's APP rows (a bf16 state:
+    // the products are too, so all its rows)
+    if (FUSED && tn < p.T)
+      stage<FUSED>(p, stg, tn, 0, BF ? 2 * p.dc : p.dc, lane);
     t = tn;
   }
 }
@@ -491,14 +617,14 @@ int warp_floats(int dc, int q, bool fused) {
   return ((fused ? 2 : 1) + 1) * dc * q;
 }
 
-template <int PER, bool FUSED>
+template <int PER, bool FUSED, class ST>
 int launch(Params p, void* stream) {
   const int basis_bytes = 16 * p.q;
   p.warp_floats = warp_floats(p.dc, p.q, FUSED);
   const int warp_bytes = 4 * p.warp_floats;
   if (basis_bytes + warp_bytes > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = spa_row_kernel<PER, FUSED>;
+  auto kern = spa_row_kernel<PER, FUSED, ST>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -534,17 +660,48 @@ int launch(Params p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool FUSED>
+template <bool FUSED, class ST = float>
 int dispatch(const Params& p, void* stream) {
-  if (p.q <= 32) return launch<1, FUSED>(p, stream);
-  if (p.q == 64) return launch<2, FUSED>(p, stream);
-  if (p.q == 128) return launch<4, FUSED>(p, stream);
-  return launch<8, FUSED>(p, stream);
+  if (p.q <= 32) return launch<1, FUSED, ST>(p, stream);
+  if (p.q == 64) return launch<2, FUSED, ST>(p, stream);
+  if (p.q == 128) return launch<4, FUSED, ST>(p, stream);
+  return launch<8, FUSED, ST>(p, stream);
 }
 
 bool valid_shape(int dc, int q, long long T) {
   return q >= 2 && q <= 256 && (q & (q - 1)) == 0 && dc >= 2 &&
          T < (1LL << 30);
+}
+
+// The fused entry's parameters (T > 0, shape checked).
+Params layer_params(void* app, void* ctov, long long F, long long app_rows,
+                    long long ctov_rows, const uint8_t* active,
+                    const int* cols, const int* edges, const int* coefs,
+                    const uint8_t* t_tab, const uint8_t* tinv_tab, int G,
+                    int dc, int q) {
+  Params p = {};
+  p.app = app;
+  p.ctov = ctov;
+  p.app_frame = app_rows * q;
+  p.ctov_frame = ctov_rows * q;
+  p.app_rows = static_cast<unsigned>(app_rows);
+  p.ctov_rows = static_cast<unsigned>(ctov_rows);
+  p.active = active;
+  p.cols = cols;
+  p.edges = edges;
+  p.coefs = coefs;
+  p.t_tab = t_tab;
+  p.tinv_tab = tinv_tab;
+  p.T = static_cast<int>(F * G);
+  p.G = G;
+  p.dc = dc;
+  p.q = q;
+  return p;
+}
+
+bool aligned(const void* a, const void* b, unsigned n) {
+  return reinterpret_cast<uintptr_t>(a) % n == 0 &&
+         reinterpret_cast<uintptr_t>(b) % n == 0;
 }
 
 }  // namespace
@@ -576,26 +733,29 @@ int spa_layer_launch(float* app, float* ctov, long long F, long long app_rows,
   if (!valid_shape(dc, q, T) || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return 0;
-  Params p = {};
-  p.app = app;
-  p.ctov = ctov;
-  p.app_frame = app_rows * q;
-  p.ctov_frame = ctov_rows * q;
-  p.app_rows = static_cast<unsigned>(app_rows);
-  p.ctov_rows = static_cast<unsigned>(ctov_rows);
-  p.active = active;
-  p.cols = cols;
-  p.edges = edges;
-  p.coefs = coefs;
-  p.t_tab = t_tab;
-  p.tinv_tab = tinv_tab;
-  p.T = static_cast<int>(T);
-  p.G = G;
-  p.dc = dc;
-  p.q = q;
-  p.vec16 = q % 4 == 0 && reinterpret_cast<uintptr_t>(app) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(ctov) % 16 == 0;
+  Params p = layer_params(app, ctov, F, app_rows, ctov_rows, active, cols,
+                          edges, coefs, t_tab, tinv_tab, G, dc, q);
+  p.vec16 = q % 4 == 0 && aligned(app, ctov, 16);
   return dispatch<true>(p, stream);
+}
+
+// The same on a bf16 state: app, ctov contiguous bfloat16, 4-byte aligned
+// (each load widens to f32, each store rounds to nearest even).  Same
+// requirements and return value.
+int spa_layer_bf16_launch(void* app, void* ctov, long long F,
+                          long long app_rows, long long ctov_rows,
+                          const uint8_t* active, const int* cols,
+                          const int* edges, const int* coefs,
+                          const uint8_t* t_tab, const uint8_t* tinv_tab,
+                          int G, int dc, int q, void* stream) {
+  const long long T = F * G;
+  if (!valid_shape(dc, q, T) || G <= 0 || !aligned(app, ctov, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0) return 0;
+  Params p = layer_params(app, ctov, F, app_rows, ctov_rows, active, cols,
+                          edges, coefs, t_tab, tinv_tab, G, dc, q);
+  p.vec16 = q % 8 == 0 && aligned(app, ctov, 16);
+  return dispatch<true, bf16>(p, stream);
 }
 
 // The bare check node.  mvc, out: [T, dc, q] contiguous float32 on the
@@ -625,7 +785,8 @@ int spa_checknode_launch(const float* mvc, const int* coefs,
 
 // The kernel's launches on the current device since the library was loaded
 // or last reset: out[0] by spa_checknode_launch, out[1] by spa_layer_launch
-// (counted on the device, graph replays included).  Synchronises the device.
+// and spa_layer_bf16_launch (counted on the device, graph replays
+// included).  Synchronises the device.
 int spa_launches(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess)

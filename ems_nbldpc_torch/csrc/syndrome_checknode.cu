@@ -4,7 +4,7 @@
 // Replaces the XLA sorts of ems_nbldpc_tpu/ops/syndrome_cn.py
 // (syndrome_checknode, :240), with the top-k selection and the rotations
 // around its call sites (decoder/layered.py:138-150, 170-172, 196-203 and
-// decoder/flooding.py:118-130, 163-170).  Two entry points share one
+// decoder/flooding.py:118-130, 163-170).  Three entry points share one
 // device-side row routine:
 //
 // * syndrome_layer_launch: one super-layer of the layered sweep, in place on
@@ -16,6 +16,11 @@
 //         CtoV[f, edges[r,i]] = mcv_i;  APP[f, cols[r,i]] = mvc_i + mcv_i
 //   Frozen frames are neither read nor written, and padded slots write
 //   nothing, so the padding column N and edge E keep their zeros.
+// * syndrome_layer_bf16_launch: the same step on a bf16 state: each load
+//   widens to f32 (exact), the step computes in f32 exactly as above, and
+//   each store rounds to bf16 (to nearest, ties to even, as torch's
+//   .to(torch.bfloat16)), so it equals syndrome_layer_plain on that state
+//   bit for bit too.
 // * syndrome_rows_launch: CN on rows x [T, dc, q] -> out [T, dc, q], row t
 //   with the tables of row t % G (the flooding schedule).
 //
@@ -95,6 +100,9 @@
 // the bound (the torch passes around the bare entry: 12.5 ms), 4.87 ms for
 // the bare entry at T = 172,800.  The four positions take ~60% of it, the
 // lists ~25%.
+// On a bf16 state (3c, the same card): 4.98 ms against 5.07 on the f32
+// state in the same turns.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,10 +120,12 @@ constexpr int kMaxWarps = 16;           // warps per block to try
 // launches a CUDA graph replays count too (syndrome_launches).
 __device__ unsigned long long g_launches[2] = {0, 0};
 
+typedef __nv_bfloat16 bf16_t;
+
 struct Params {
-  float* app;                  // layer: state [F, N+1, q]
-  float* ctov;                 // layer: state [F, E+1, q]
-  long long app_frame;         // floats per frame of app, ctov
+  void* app;                   // layer: state [F, N+1, q] (float or bf16)
+  void* ctov;                  // layer: state [F, E+1, q] (the same)
+  long long app_frame;         // elements per frame of app, ctov
   long long ctov_frame;
   const uint8_t* active;       // layer: [F] (0 = frozen)
   const int* cols;             // layer: [G, dc] columns of APP
@@ -197,6 +207,23 @@ __device__ __forceinline__ float warp_min(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fminf(v, __shfl_xor_sync(FULL, v, off));
   return v;
+}
+
+// A state element as f32 (a bf16 widens exactly), and an f32 stored to the
+// state with a streaming store (a bf16 state rounds it to nearest even).
+__device__ __forceinline__ float ld_state(const float* p) { return *p; }
+
+__device__ __forceinline__ float ld_state(const bf16_t* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+      << 16);
+}
+
+__device__ __forceinline__ void st_state(float* p, float v) { __stcs(p, v); }
+
+__device__ __forceinline__ void st_state(bf16_t* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
 }
 
 // The symbol lane `lane` holds in register i (q < 32: every lane holds
@@ -473,8 +500,9 @@ __device__ __forceinline__ float bayes(float v1, float v2) {
 }
 
 // 5-6 for presorted position t: the output of edge et = ord[t], rotated
-// out and normalised, written to out (rows) or to CtoV and APP (layer).
-template <int PER, bool LAYER>
+// out and normalised, written to out (rows) or to CtoV and APP (layer, of
+// element type ST).
+template <int PER, bool LAYER, class ST>
 __device__ __forceinline__ void position(const Params& p, const float* S,
                                          const uint2* LA, const unsigned* W,
                                          unsigned* B1, unsigned* B2,
@@ -642,16 +670,16 @@ __device__ __forceinline__ void position(const Params& p, const float* S,
       const long long r = g;
       if (!p.valid || __ldg(p.valid + r * p.dc + et)) {
         const long long f = row / p.G;
-        float* crow = p.ctov + f * p.ctov_frame +
-                      static_cast<long long>(__ldg(p.edges + r * p.dc + et)) * q;
-        float* arow = p.app + f * p.app_frame +
-                      static_cast<long long>(__ldg(p.cols + r * p.dc + et)) * q;
+        ST* crow = static_cast<ST*>(p.ctov) + f * p.ctov_frame +
+                   static_cast<long long>(__ldg(p.edges + r * p.dc + et)) * q;
+        ST* arow = static_cast<ST*>(p.app) + f * p.app_frame +
+                   static_cast<long long>(__ldg(p.cols + r * p.dc + et)) * q;
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
           const int c = sym<PER>(lane, i, q);
           const float m = __fsub_rn(y[i], mn);
-          __stcs(crow + c, m);
-          __stcs(arow + c, __fadd_rn(S[et * q + c], m));
+          st_state(crow + c, m);
+          st_state(arow + c, __fadd_rn(S[et * q + c], m));
         }
       }
     } else {
@@ -664,7 +692,7 @@ __device__ __forceinline__ void position(const Params& p, const float* S,
   __syncwarp();
 }
 
-template <int PER, bool LAYER>
+template <int PER, bool LAYER, class ST>
 __global__ void syndrome_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0)
@@ -696,17 +724,17 @@ __global__ void syndrome_kernel(const Params p) {
 #pragma unroll 4
       for (int k = 0; k < dc; ++k) {
         if (p.valid && !__ldg(p.valid + g * dc + k)) continue;
-        const float* arow =
-            p.app + f * p.app_frame +
+        const ST* arow =
+            static_cast<const ST*>(p.app) + f * p.app_frame +
             static_cast<long long>(__ldg(p.cols + g * dc + k)) * q;
-        const float* crow =
-            p.ctov + f * p.ctov_frame +
+        const ST* crow =
+            static_cast<const ST*>(p.ctov) + f * p.ctov_frame +
             static_cast<long long>(__ldg(p.edges + g * dc + k)) * q;
         if (on) {
 #pragma unroll
           for (int i = 0; i < PER; ++i) {
             const int s = sym<PER>(lane, i, q);
-            S[k * q + s] = __fsub_rn(arow[s], crow[s]);
+            S[k * q + s] = __fsub_rn(ld_state(arow + s), ld_state(crow + s));
           }
         }
       }
@@ -742,17 +770,18 @@ __global__ void syndrome_kernel(const Params p) {
     presort_edges(p, LA, ord, lane);
     config_syndromes(p, LA, ord, reinterpret_cast<uint2*>(U), W, lane);
     for (int t = 0; t < dc; ++t)
-      position<PER, LAYER>(p, S, LA, W, B1, B2, reinterpret_cast<float*>(U),
-                           VB, ord[t], t, row, g, lane);
+      position<PER, LAYER, ST>(p, S, LA, W, B1, B2,
+                               reinterpret_cast<float*>(U), VB, ord[t], t,
+                               row, g, lane);
   }
 }
 
-template <int PER, bool LAYER>
+template <int PER, bool LAYER, class ST>
 int launch(const Params& p, void* stream) {
   const long long warp_bytes =
       layout(p.dc, p.q, p.nm, p.C, p.max_masked).total;
   if (warp_bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = syndrome_kernel<PER, LAYER>;
+  auto kern = syndrome_kernel<PER, LAYER, ST>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -789,13 +818,13 @@ int launch(const Params& p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool LAYER>
+template <bool LAYER, class ST = float>
 int dispatch(const Params& p, void* stream) {
   if (p.T <= 0) return 0;
-  if (p.q <= 32) return launch<1, LAYER>(p, stream);
-  if (p.q == 64) return launch<2, LAYER>(p, stream);
-  if (p.q == 128) return launch<4, LAYER>(p, stream);
-  return launch<8, LAYER>(p, stream);
+  if (p.q <= 32) return launch<1, LAYER, ST>(p, stream);
+  if (p.q == 64) return launch<2, LAYER, ST>(p, stream);
+  if (p.q == 128) return launch<4, LAYER, ST>(p, stream);
+  return launch<8, LAYER, ST>(p, stream);
 }
 
 Params tables(int G, int dc, int q, int nm, const uint8_t* rot_in,
@@ -821,6 +850,20 @@ Params tables(int G, int dc, int q, int nm, const uint8_t* rot_in,
   p.presort = presort;
   p.offset = offset;
   return p;
+}
+
+// The layer entry's state and index tables.
+void layer_state(Params& p, void* app, void* ctov, long long F,
+                 long long app_rows, long long ctov_rows,
+                 const uint8_t* active, const int* cols, const int* edges) {
+  p.app = app;
+  p.ctov = ctov;
+  p.app_frame = app_rows * p.q;
+  p.ctov_frame = ctov_rows * p.q;
+  p.active = active;
+  p.cols = cols;
+  p.edges = edges;
+  p.T = F * p.G;
 }
 
 }  // namespace
@@ -875,20 +918,33 @@ int syndrome_layer_launch(float* app, float* ctov, long long F,
                           int presort, float offset, void* stream) {
   Params p = tables(G, dc, q, nm, rot_in, rot_out, valid, table, C, kth,
                     pos_off, pos_cfg, max_masked, bayes, presort, offset);
-  p.app = app;
-  p.ctov = ctov;
-  p.app_frame = app_rows * q;
-  p.ctov_frame = ctov_rows * q;
-  p.active = active;
-  p.cols = cols;
-  p.edges = edges;
-  p.T = F * p.G;
+  layer_state(p, app, ctov, F, app_rows, ctov_rows, active, cols, edges);
   return dispatch<true>(p, stream);
+}
+
+// The same on a bf16 state: app, ctov contiguous bfloat16 (each load
+// widens to f32, each store rounds to nearest even).  Same requirements
+// and return value.
+int syndrome_layer_bf16_launch(void* app, void* ctov, long long F,
+                               long long app_rows, long long ctov_rows,
+                               const uint8_t* active, const int* cols,
+                               const int* edges, int dc, int q, int nm,
+                               const uint8_t* rot_in, const uint8_t* rot_out,
+                               const uint8_t* valid, int G,
+                               const uint8_t* table, int C, const int* kth,
+                               const int* pos_off, const uint16_t* pos_cfg,
+                               int max_masked, int bayes, int presort,
+                               float offset, void* stream) {
+  Params p = tables(G, dc, q, nm, rot_in, rot_out, valid, table, C, kth,
+                    pos_off, pos_cfg, max_masked, bayes, presort, offset);
+  layer_state(p, app, ctov, F, app_rows, ctov_rows, active, cols, edges);
+  return dispatch<true, bf16_t>(p, stream);
 }
 
 // The kernel's launches on the current device since the library was loaded
 // or last reset: out[0] by syndrome_rows_launch, out[1] by
-// syndrome_layer_launch (counted on the device, graph replays included).
+// syndrome_layer_launch and syndrome_layer_bf16_launch (counted on the
+// device, graph replays included).
 // Synchronises the device.
 int syndrome_launches(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();

@@ -4,8 +4,8 @@
 configuration carries across unchanged, and ``decode`` dispatches as the
 JAX package's does.  Ported so far:
 
-* both schedules (``"layered"``, ``"flooding"``) with dense float32
-  storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
+* both schedules (``"layered"``, ``"flooding"``) with dense float32 or
+  bfloat16 storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
   hand-written CUDA EMS check node on the card; bubble | lbubble: the
   exact 8-bubble / L-bubble emulation of the C reference's elementary
   step with the ``nboper`` budget (0: ``2 * nm``), its hand-written CUDA
@@ -24,8 +24,18 @@ schedule eagerly on the CPU (``device_loop``); ``loop="host"`` polls
 convergence on the host once per step.  The compressed dense-CN decoder
 (``cn_impl="topk"``) runs the host loop whatever ``loop`` says, as in JAX.
 
-Dense bfloat16 storage raises ``NotImplementedError`` naming its ROADMAP
-item.  As in JAX, compressed storage ignores ``cn`` and runs EMS,
+Dense bfloat16 storage (``dtype="bfloat16"``) holds the decoder state in
+bf16: APP and CtoV (layered), the intrinsic and CtoV (flooding).  Every
+step reads the state, widens it to f32 (exact), computes exactly what the
+f32 path computes, and rounds once, to nearest even, where it writes the
+state (``.to(torch.bfloat16)`` in torch, ``__float2bfloat16_rn`` in the
+CUDA kernels); decisions are the argmin of the bf16 APP (layered) or of
+the f32 totals (flooding).  The f32 path is unchanged (``x.float()`` of an
+f32 tensor is ``x`` itself).  The JAX package holds the same state in bf16
+but may round inside its steps, so the two agree on decisions of frames
+both converge, not bit for bit.  Flooding ``cn="spa"`` at bf16 raises
+``ValueError``: JAX's decode fails there (its while_loop carry changes
+type).  As in JAX, compressed storage ignores ``cn`` and runs EMS,
 ``cn="syndrome"`` included.
 """
 from __future__ import annotations
@@ -96,10 +106,12 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
             "(the big-code path); use schedule='layered'")
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"dtype={cfg.dtype!r}")
-    if cfg.storage == "dense" and cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={cfg.dtype!r}: the dense path is ported for float32 "
-            "only (ROADMAP Queue 1: dense bf16 storage)")
+    if (cfg.storage == "dense" and cfg.schedule == "flooding"
+            and cfg.cn == "spa" and cfg.dtype != "float32"):
+        raise ValueError(
+            f"dtype={cfg.dtype!r}: flooding SPA runs at float32 only; the "
+            "JAX package's decode fails there too (its fused SPA CN returns "
+            "f32 into the bf16 while_loop carry: a TypeError)")
     g = (code_or_graph if isinstance(code_or_graph, DeviceGraph)
          else DeviceGraph.from_code(code_or_graph))
     intrinsic = intrinsic.to(cfg.torch_dtype())

@@ -9,7 +9,10 @@ is the serial special case; see layered.py).  All tensors are
 State: CtoV [F, E+1, q] (its padding edge E is the target of padded
 column slots and stays 0).  There is no stored APP: the totals are
 ``intrinsic + (sum of incident CtoV)``, recomputed every step in that
-grouping, so decisions are bit-exact against the JAX package.
+grouping, so decisions are bit-exact against the JAX package.  The
+intrinsic and CtoV are float32 or bfloat16 (the intrinsic's dtype): the
+totals, the VN-to-CN messages, the CN and the decisions are f32 on the
+widened state, and the CtoV store rounds once to nearest even.
 
 Early termination: the per-frame syndrome check (``NB_LDPC.c:468-471``,
 ``tools.c:284-299``) becomes a convergence mask; decisions latch at the
@@ -265,9 +268,10 @@ def _vn_totals(g: DeviceGraph, intrinsic, ctov_pad):
 
     The incident messages are gathered one column slot at a time (peak
     [F, N, q], not [F, N, dv, q]) and summed left to right, as the JAX
-    reduction over dv does."""
+    reduction over dv does; in f32 for a bf16 state (the later terms and
+    the intrinsic widen as f32 + bf16 promotes, with no copy)."""
     ce = upload(g, str(ctov_pad.device))["col_edges"]
-    inc = ctov_pad[:, ce[:, 0]]
+    inc = ctov_pad[:, ce[:, 0]].float()
     for j in range(1, ce.shape[1]):
         inc = inc + ctov_pad[:, ce[:, j]]
     return intrinsic + inc
@@ -417,9 +421,10 @@ def make_flooding_stepper(
                         nboper)
         del vtoc
         active = ~conv
-        # converged frames keep their CtoV; the padding edge stays 0
-        ctov_pad[:, :e] = torch.where(active[:, None, None], mcv,
-                                      ctov_pad[:, :e])
+        # converged frames keep their CtoV; the padding edge stays 0; a
+        # bf16 state rounds here
+        ctov_pad[:, :e] = torch.where(active[:, None, None],
+                                      mcv.to(ctov_pad.dtype), ctov_pad[:, :e])
         del mcv
         decide = torch.where(active[:, None],
                              decisions(intrinsic, ctov_pad), decide)

@@ -15,7 +15,11 @@ step.
 
 State: APP [F, N+1, q] and CtoV ([F, E+1, q] dense, or the nm-truncated
 (vals, ids, sat) triple), each with the JAX package's padding column /
-edge (the target of padded row slots).  The JAX version's functional
+edge (the target of padded row slots).  Dense storage is float32 or
+bfloat16 (the intrinsic's dtype): a bf16 state is widened to f32 where a
+super-layer reads it and rounded once where it writes it, in the torch
+sweep and in the fused kernels alike; decisions are the argmin of the
+stored APP.  The JAX version's functional
 ``.at[].set`` scatters become in-place indexed assignment on the state
 tensors: a super-layer's columns and edges are disjoint, so every written
 element has one writer (padded slots all write the same value).
@@ -218,8 +222,9 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     def one_iteration(app, ctov, active):
         act = active[:, None, None, None]
         for p in _layer_plan(g, str(app.device)):
-            app_rows = app[:, p["cols"]]                 # [F, G, dc, q]
-            ctov_rows = ctov[:, p["edge_ids"]]
+            # a bf16 state widens here and rounds at the stores below
+            app_rows = app[:, p["cols"]].float()         # [F, G, dc, q]
+            ctov_rows = ctov[:, p["edge_ids"]].float()
             mvc = app_rows - ctov_rows
             mvc = mvc - mvc.min(dim=-1, keepdim=True).values
             mcv = check_node(mvc, p)
@@ -228,8 +233,8 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
             # freeze converged frames (their APP/CtoV stop changing)
             mcv = torch.where(act, mcv, ctov_rows)
             new_app = torch.where(act, mvc + mcv, app_rows)
-            ctov[:, p["edge_ids"]] = mcv
-            app[:, p["cols"]] = new_app
+            ctov[:, p["edge_ids"]] = mcv.to(ctov.dtype)
+            app[:, p["cols"]] = new_app.to(app.dtype)
 
     return one_iteration
 

@@ -14,7 +14,11 @@ L-bubble, ``variant="L"``).  Two entry points launch it:
   the layered sweep, in place on the decoder state (gathers, VN extrinsic
   and its normalisation, check node, freeze of converged frames,
   write-back of the real slots); ``bubble_layer_plain`` is its plain torch
-  version.  The layered decoder runs it.
+  version.  The layered decoder runs it.  The state is float32 or
+  bfloat16 (``cuda_spa.STATE_DTYPES``): a bf16 state is widened to f32
+  where it is read, the step computes in f32, and each store rounds once
+  to nearest even, on both sides, so they agree bit for bit at either
+  dtype.
 * ``bubble_rows(x, rot_in, rot_out, valid, nm, nb_oper, offset, truncate,
   saturate, variant)``: the whole bubble check-node step of a batch of
   unrotated rows, the call shape of ``cuda_cn.ems_rows``;
@@ -41,6 +45,7 @@ import torch
 from . import _build
 from .bubble_cn import bubble_rows_plain
 from .cuda_cn import _table_rows
+from .cuda_spa import check_state
 
 launches = 0  # eager kernel launches since import (set to 0 to count a run)
 layer_launches = 0  # the part of ``launches`` made by ``bubble_layer``
@@ -51,6 +56,9 @@ MAX_ROWS = 16                # rows a warp holds (two chain lanes a row)
 TARGET_WARPS = 16            # warps an SM the rows per warp aim at
 SM_SMEM = 233472             # shared memory of an SM
 BLOCK_RESERVED = 1024        # the system's share of it a block takes
+# the layer entry's C function by state dtype (``cuda_spa.STATE_DTYPES``)
+_LAYER_ENTRY = {torch.float32: "bubble_layer_launch",
+                torch.bfloat16: "bubble_layer_bf16_launch"}
 
 
 def build(verbose: bool = False) -> tuple[str, float, str]:
@@ -71,9 +79,12 @@ def bind(path: str) -> ctypes.CDLL:
           i32, ptr]
     lib.bubble_rows_launch.argtypes = [ptr, ptr, i64] + cn
     lib.bubble_rows_launch.restype = i32
-    lib.bubble_layer_launch.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr,
-                                        ptr] + cn
-    lib.bubble_layer_launch.restype = i32
+    # a variant source (chip_variants.py) may lack the bf16 entry
+    for name in _LAYER_ENTRY.values():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr, ptr] + cn
+            fn.restype = i32
     lib.bubble_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.bubble_launches.restype = i32
     lib.bubble_reset_launches.argtypes = []
@@ -226,9 +237,8 @@ def _check_layer(app, ctov, active, cols, edges, rot_in, rot_out, valid, nm,
     name = "bubble_layer"
     if app.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {app.device}")
+    check_state(name, app, ctov)
     for key, x in (("app", app), ("ctov", ctov)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {x.dtype}")
         if x.dim() != 3:
             raise ValueError(f"{name}: {key} must be [F, rows, q], got "
                              f"{tuple(x.shape)}")
@@ -282,12 +292,13 @@ def bubble_layer_plain(app, ctov, active, cols, edges, rot_in, rot_out,
                        truncate: bool, saturate: bool,
                        variant: str = "8") -> None:
     """The plain torch super-layer step that ``bubble_layer`` fuses, in
-    place: gathers, VN extrinsic minus its min, ``bubble_rows_plain``, and
-    the write-back of the real slots of active frames (a frozen frame or
-    padded slot writes back what it read)."""
+    place: gathers (widened to f32), VN extrinsic minus its min,
+    ``bubble_rows_plain``, and the write-back of the real slots of active
+    frames, rounded to the state's dtype (a frozen frame or padded slot
+    writes back what it read)."""
     cols, edges = cols.long(), edges.long()
-    app_rows = app[:, cols]                           # [F, G, dc, q]
-    ctov_rows = ctov[:, edges]
+    app_rows = app[:, cols].float()                   # [F, G, dc, q]
+    ctov_rows = ctov[:, edges].float()
     mvc = app_rows - ctov_rows
     mvc = mvc - mvc.min(dim=-1, keepdim=True).values
     f, g, dc, q = mvc.shape
@@ -297,8 +308,8 @@ def bubble_layer_plain(app, ctov, active, cols, edges, rot_in, rot_out,
     write = active[:, None, None, None]
     if valid is not None:
         write = write & valid[None, :, :, None]
-    ctov[:, edges] = torch.where(write, mcv, ctov_rows)
-    app[:, cols] = torch.where(write, mvc + mcv, app_rows)
+    ctov[:, edges] = torch.where(write, mcv, ctov_rows).to(ctov.dtype)
+    app[:, cols] = torch.where(write, mvc + mcv, app_rows).to(app.dtype)
 
 
 def bubble_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
@@ -308,8 +319,10 @@ def bubble_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
                  saturate: bool, variant: str = "8") -> None:
     """One layered bubble super-layer, in place, in one kernel launch.
 
-    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous float32 state;
-    active: [F] bool (False: converged, left untouched); cols, edges: the
+    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous state of one dtype,
+    float32 or bfloat16 (a bf16 state is widened to f32 where read and
+    rounded to nearest even where written); active: [F] bool (False:
+    converged, left untouched); cols, edges: the
     layer's [G, dc] int32 APP columns and CtoV edges (padding slots at
     column N and edge E; the layer's other columns and edges are distinct;
     on the card an index out of range is a device-side fault, as in
@@ -334,7 +347,7 @@ def bubble_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
     if f == 0:
         return
     with torch.cuda.device(app.device):
-        err = _lib().bubble_layer_launch(
+        err = getattr(_lib(), _LAYER_ENTRY[app.dtype])(
             app.data_ptr(), ctov.data_ptr(), f, app.shape[1], ctov.shape[1],
             active.data_ptr(), cols.data_ptr(), edges.data_ptr(),
             *_cn_args(nm, nb_oper, rot_in, rot_out, valid, cols.shape[0],

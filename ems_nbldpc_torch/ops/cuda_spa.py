@@ -11,7 +11,11 @@ points launch it:
   one super-layer of the layered sweep, in place on the decoder state
   (gathers, VN extrinsic and its normalisation, check node, freeze of
   converged frames, write-back); ``spa_layer_plain`` is its plain torch
-  version.  The layered decoder runs it for ``cn="spa"``.
+  version.  The layered decoder runs it for ``cn="spa"``.  The state is
+  float32 or bfloat16 (``STATE_DTYPES``): a bf16 state is widened to f32
+  where it is read, the step computes in f32, and each store rounds once
+  to nearest even (torch's ``.to(torch.bfloat16)``, the kernel's
+  ``__float2bfloat16_rn``).
 * ``spa_checknode(mvc, coefs, t_tab, tinv_tab)``: the check node alone on
   gathered rows; its plain version is ``fht.spa_checknode_plain``.  The
   flooding decoder runs it for ``cn="spa"``.
@@ -41,6 +45,11 @@ from .fht import position_tables, spa_checknode_plain
 launches = 0  # eager kernel launches since import (set to 0 to count a run)
 layer_launches = 0  # the part of ``launches`` made by ``spa_layer``
 
+# the state dtypes the fused entries (K2's, K7's, K9's) take
+STATE_DTYPES = (torch.float32, torch.bfloat16)
+_LAYER_ENTRY = {torch.float32: "spa_layer_launch",
+                torch.bfloat16: "spa_layer_bf16_launch"}
+
 
 def build(verbose: bool = False) -> tuple[str, float, str]:
     """Compile the kernel library if it is not built yet (``_build.build``)."""
@@ -55,11 +64,11 @@ def _lib() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr,
     ]
     lib.spa_checknode_launch.restype = i32
-    lib.spa_layer_launch.argtypes = [
-        ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-        ptr,
-    ]
-    lib.spa_layer_launch.restype = i32
+    for name in _LAYER_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, ptr]
+        fn.restype = i32
     lib.spa_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.spa_launches.restype = i32
     lib.spa_reset_launches.argtypes = []
@@ -182,14 +191,25 @@ def spa_checknode(mvc: torch.Tensor, coefs: torch.Tensor,
     return out
 
 
+def check_state(name, app, ctov) -> None:
+    """A fused entry's state: APP and CtoV of one dtype of
+    ``STATE_DTYPES``, else ``TypeError``."""
+    for key, x in (("app", app), ("ctov", ctov)):
+        if x.dtype not in STATE_DTYPES:
+            raise TypeError(f"{name}: {key} must be float32 or bfloat16, "
+                            f"got {x.dtype}")
+    if app.dtype != ctov.dtype:
+        raise TypeError(f"{name}: app is {app.dtype}, ctov {ctov.dtype}: "
+                        "the state has one dtype")
+
+
 def _check_layer(app, ctov, active, cols, edges, coefs, t_tab,
                  tinv_tab) -> None:
     name = "spa_layer"
     if app.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {app.device}")
+    check_state(name, app, ctov)
     for key, x in (("app", app), ("ctov", ctov)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {x.dtype}")
         if x.dim() != 3:
             raise ValueError(f"{name}: {key} must be [F, rows, q], got "
                              f"{tuple(x.shape)}")
@@ -198,6 +218,9 @@ def _check_layer(app, ctov, active, cols, edges, coefs, t_tab,
                              f"{app.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        # the kernel stages a bf16 state in 4-byte copies at least
+        if x.device.type == "cuda" and x.data_ptr() % 4:
+            raise ValueError(f"{name}: {key} must be 4-byte aligned")
     f, _, q = app.shape
     if ctov.shape[0] != f or ctov.shape[2] != q:
         raise ValueError(f"{name}: ctov {tuple(ctov.shape)} does not match "
@@ -221,19 +244,20 @@ def _check_layer(app, ctov, active, cols, edges, coefs, t_tab,
 def spa_layer_plain(app, ctov, active, cols, edges, coefs, t_tab,
                     tinv_tab) -> None:
     """The plain torch super-layer step that ``spa_layer`` fuses, in
-    place: gathers, VN extrinsic minus its min, ``spa_checknode_plain``,
-    and the write-back of active frames."""
+    place: gathers (widened to f32), VN extrinsic minus its min,
+    ``spa_checknode_plain``, and the write-back of active frames (rounded
+    to the state's dtype)."""
     cols, edges = cols.long(), edges.long()
-    app_rows = app[:, cols]                           # [F, G, dc, q]
-    ctov_rows = ctov[:, edges]
+    app_rows = app[:, cols].float()                   # [F, G, dc, q]
+    ctov_rows = ctov[:, edges].float()
     mvc = app_rows - ctov_rows
     mvc = mvc - mvc.min(dim=-1, keepdim=True).values
     t_in, t_out = position_tables(coefs, t_tab, tinv_tab)
     mcv = spa_checknode_plain(mvc, t_in, t_out)       # min 0 already
     act = active[:, None, None, None]
     # freeze converged frames (their APP/CtoV stop changing)
-    ctov[:, edges] = torch.where(act, mcv, ctov_rows)
-    app[:, cols] = torch.where(act, mvc + mcv, app_rows)
+    ctov[:, edges] = torch.where(act, mcv, ctov_rows).to(ctov.dtype)
+    app[:, cols] = torch.where(act, mvc + mcv, app_rows).to(app.dtype)
 
 
 def spa_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
@@ -241,7 +265,8 @@ def spa_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
               t_tab: torch.Tensor, tinv_tab: torch.Tensor) -> None:
     """One layered SPA super-layer, in place, in one kernel launch.
 
-    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous float32 state with
+    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous state of one dtype,
+    float32 or bfloat16 (widened where read, rounded where written), with
     the padding column N and edge E at 0; active: [F] bool (False:
     converged, left untouched); cols, edges, coefs: the layer's [G, dc]
     int32 APP columns, CtoV edges and GF coefficients (0 = padding slot,
@@ -263,7 +288,7 @@ def spa_layer(app: torch.Tensor, ctov: torch.Tensor, active: torch.Tensor,
     if f == 0:
         return
     with torch.cuda.device(app.device):
-        err = _lib().spa_layer_launch(
+        err = getattr(_lib(), _LAYER_ENTRY[app.dtype])(
             app.data_ptr(), ctov.data_ptr(), f, app_rows, ctov.shape[1],
             active.data_ptr(), cols.data_ptr(), edges.data_ptr(),
             coefs.data_ptr(), t_tab.data_ptr(), tinv_tab.data_ptr(), g, dc,

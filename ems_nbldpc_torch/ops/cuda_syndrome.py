@@ -11,7 +11,11 @@ entry points launch it:
   sweep, in place on the decoder state (gathers, VN extrinsic and its
   normalisation, check node, freeze of converged frames, write-back of the
   real slots); ``syndrome_layer_plain`` is its plain torch version.  The
-  layered decoder runs it for ``cn="syndrome"``.
+  layered decoder runs it for ``cn="syndrome"``.  The state is float32 or
+  bfloat16 (``cuda_spa.STATE_DTYPES``): a bf16 state is widened to f32
+  where it is read, the step computes in f32, and each store rounds once
+  to nearest even, on both sides, so they agree bit for bit at either
+  dtype.
 * ``syndrome_rows(x, rot_in, rot_out, valid, table, kth, nm, offset, bayes,
   presort)``: the whole syndrome check-node step of a batch of unrotated
   rows (rotate in, neutral padding slots, each edge's nm best, presort,
@@ -47,6 +51,7 @@ import torch
 
 from . import _build
 from .cuda_cn import _table_rows
+from .cuda_spa import check_state
 from .minconv import mask_invalid, topk_message
 from .syndrome_cn import syndrome_cn_table
 
@@ -57,6 +62,9 @@ MAX_DC = 32          # the presort ranks one edge a lane
 MAX_Q = 256          # GF ids and bucket ids are bytes
 MAX_CONFIGS = 65536  # the bucket keys hold the config index in 16 bits
 REG_CONFIGS = 512    # masked configs of a position the warp's registers hold
+# the layer entry's C function by state dtype (``cuda_spa.STATE_DTYPES``)
+_LAYER_ENTRY = {torch.float32: "syndrome_layer_launch",
+                torch.bfloat16: "syndrome_layer_bf16_launch"}
 
 
 class PositionLists(NamedTuple):
@@ -124,9 +132,13 @@ def bind(path: str) -> ctypes.CDLL:
               ptr]
     lib.syndrome_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, i32] + tables
     lib.syndrome_rows_launch.restype = i32
-    lib.syndrome_layer_launch.argtypes = [
-        ptr, ptr, i64, i64, i64, ptr, ptr, ptr, i32, i32, i32] + tables
-    lib.syndrome_layer_launch.restype = i32
+    # a variant source (chip_variants.py) may lack the bf16 entry
+    for name in _LAYER_ENTRY.values():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr, ptr, i32, i32,
+                           i32] + tables
+            fn.restype = i32
     lib.syndrome_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.syndrome_launches.restype = i32
     lib.syndrome_reset_launches.argtypes = []
@@ -311,9 +323,8 @@ def _check_layer(app, ctov, active, cols, edges, rot_in, rot_out, valid,
     name = "syndrome_layer"
     if app.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {app.device}")
+    check_state(name, app, ctov)
     for key, x in (("app", app), ("ctov", ctov)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {x.dtype}")
         if x.dim() != 3:
             raise ValueError(f"{name}: {key} must be [F, rows, q], got "
                              f"{tuple(x.shape)}")
@@ -366,12 +377,13 @@ def syndrome_layer_plain(app, ctov, active, cols, edges, rot_in, rot_out,
                          valid, table, kth, nm: int, offset: float,
                          bayes: bool, presort: bool) -> None:
     """The plain torch super-layer step that ``syndrome_layer`` fuses, in
-    place: gathers, VN extrinsic minus its min, ``syndrome_rows_plain``,
-    and the write-back of the real slots of active frames (a frozen frame
-    or padded slot writes back what it read)."""
+    place: gathers (widened to f32), VN extrinsic minus its min,
+    ``syndrome_rows_plain``, and the write-back of the real slots of
+    active frames, rounded to the state's dtype (a frozen frame or padded
+    slot writes back what it read)."""
     cols, edges = cols.long(), edges.long()
-    app_rows = app[:, cols]                           # [F, G, dc, q]
-    ctov_rows = ctov[:, edges]
+    app_rows = app[:, cols].float()                   # [F, G, dc, q]
+    ctov_rows = ctov[:, edges].float()
     mvc = app_rows - ctov_rows
     mvc = mvc - mvc.min(dim=-1, keepdim=True).values
     f, g, dc, q = mvc.shape
@@ -381,8 +393,8 @@ def syndrome_layer_plain(app, ctov, active, cols, edges, rot_in, rot_out,
     write = active[:, None, None, None]
     if valid is not None:
         write = write & valid[None, :, :, None]
-    ctov[:, edges] = torch.where(write, mcv, ctov_rows)
-    app[:, cols] = torch.where(write, mvc + mcv, app_rows)
+    ctov[:, edges] = torch.where(write, mcv, ctov_rows).to(ctov.dtype)
+    app[:, cols] = torch.where(write, mvc + mcv, app_rows).to(app.dtype)
 
 
 def syndrome_layer(app: torch.Tensor, ctov: torch.Tensor,
@@ -394,8 +406,10 @@ def syndrome_layer(app: torch.Tensor, ctov: torch.Tensor,
                    lists: PositionLists | None = None) -> None:
     """One layered syndrome super-layer, in place, in one kernel launch.
 
-    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous float32 state;
-    active: [F] bool (False: converged, left untouched); cols, edges: the
+    app: [F, N+1, q] and ctov: [F, E+1, q] contiguous state of one dtype,
+    float32 or bfloat16 (a bf16 state is widened to f32 where read and
+    rounded to nearest even where written); active: [F] bool (False:
+    converged, left untouched); cols, edges: the
     layer's [G, dc] int32 APP columns and CtoV edges (padding slots at
     column N and edge E; the layer's other columns and edges are distinct;
     on the card an index out of range is a device-side fault, as in
@@ -419,7 +433,7 @@ def syndrome_layer(app: torch.Tensor, ctov: torch.Tensor,
     if f == 0:
         return
     with torch.cuda.device(app.device):
-        err = _lib().syndrome_layer_launch(
+        err = getattr(_lib(), _LAYER_ENTRY[app.dtype])(
             app.data_ptr(), ctov.data_ptr(), f, app_rows, ctov.shape[1],
             active.data_ptr(), cols.data_ptr(), edges.data_ptr(), dc, q, nm,
             *_table_args(rot_in, rot_out, valid, table, kth, lists, bayes,

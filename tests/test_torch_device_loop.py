@@ -13,8 +13,9 @@ The same intrinsics (from the JAX channel, as numpy) go through
   Pallas kernel itself in interpret mode in one small case.  SPA: identical
   decisions, iterations and convergence, as ``tests/test_torch_spa.py``
   holds whole SPA decodes (its state tolerance does not enter: a decode
-  returns integers).  bf16 list storage: decisions of the frames both
-  sides converge, as ``tests/test_torch_list.py`` holds them.
+  returns integers).  bf16 storage (list and dense): decisions of the
+  frames both sides converge, as ``tests/test_torch_list.py`` and
+  ``tests/test_torch_bf16_decode.py`` hold them.
 Cases: frames that converge at different iterations with some that hit
 the budget ("mixed"), and frames that all converge at init ("init").
 """
@@ -62,6 +63,13 @@ CONFIGS = {  # name -> (GF, decoder fields)
     "flooding ems pallas": (16, dict(schedule="flooding", cn="ems", nm=8,
                                      cn_impl="pallas")),
     "flooding spa": (64, dict(schedule="flooding", cn="spa", nm=0)),
+    # dense bf16 storage: the state rounds at every store
+    "layered spa bf16": (16, dict(cn="spa", nm=0, dtype="bfloat16")),
+    "layered ems pallas bf16": (16, dict(cn="ems", nm=8, cn_impl="pallas",
+                                         dtype="bfloat16")),
+    "flooding ems pallas bf16": (16, dict(schedule="flooding", cn="ems",
+                                          nm=8, cn_impl="pallas",
+                                          dtype="bfloat16")),
 }
 
 

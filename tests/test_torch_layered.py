@@ -178,18 +178,6 @@ def test_compressed_topk_decode_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("change", [
-    dict(dtype="bfloat16"), dict(schedule="flooding", dtype="bfloat16"),
-])
-def test_unported_branches_raise(change):
-    jc = jrandom_regular(24, 12, 16, seed=2)
-    base = DecoderConfig(max_iters=2, cn="ems", nm=4, cn_impl="pallas",
-                         loop="host")
-    cfg = dataclasses.replace(base, **change)
-    with pytest.raises(NotImplementedError, match="not ported yet|ported for"):
-        decode(from_jax_code(jc), torch.zeros((2, jc.n, jc.q)), cfg)
-
-
-@pytest.mark.parametrize("change", [
     dict(cn_impl="lbubble"), dict(cn_impl="bubble"),
     dict(schedule="flooding", cn_impl="bubble"),
     dict(schedule="flooding", cn_impl="lbubble"),
