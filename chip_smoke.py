@@ -274,6 +274,32 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    bfloat16 --cn spa --iters 20``), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
    file: frames, frame errors, bit errors and iteration sum equal.
+8a. iteration-budget snapshots (``sim/snapshots.run_snapshots``) of one
+   batch (F = 128) at the EMS chain's settings, budgets (2, 5, 10): frame
+   and bit errors do not rise with the budget and equal at 10 those of the
+   host-loop decode of ``MonteCarlo``'s batch 0; K1 (``ems_rows``) 3
+   launches a step, eager; prints the wall time;
+8b. decoder statistics (``decoder/stats.decode_flooding_stats``: flooding
+   EMS, nm = 32, offset 0.3, ``cn_impl="pallas"``, 20 iterations) on that
+   batch: the convergence trace and the iteration counts equal, step for
+   step, the flooding host loop's on the same intrinsic; one K1 launch a
+   step; the winner-rank histogram sums to F·M·q·(dc − 1) with its
+   largest count at rank 0, equals the histogram of that loop's last VtoC
+   on the card and, on its first 2 frames, on the CPU; prints the
+   histogram pass's time and its live peak above its input;
+8c. two-phase decoding (``sim/twophase.run_twophase``, ``phase_a_iters=3``)
+   against ``MonteCarlo.run`` on 256 frames of the SPA row (4b) and the
+   EMS chain (4), in turns single, two, two, single: the five counters
+   equal, a two-phase run captures exactly two graphs and its timed
+   repeat none, the kernel counts 3 launches a step on the card; prints
+   frames/s of both routes beside the card's name and power limit (a
+   measurement, not a claim);
+8d. frame sharding (``parallel/mesh``): a world of 1 on NCCL
+   (``make_mesh(1)``) over the SPA row, 256 frames: ``run_sharded``'s six
+   counters equal the sum of ``shard=0`` single-process steps on the same
+   batches, K2 3 launches a step; prints the machine's card count (one
+   card cannot measure scaling; none is claimed).  ``--only-8``: phases
+   1, 2 and 8a-8d alone, no result line.
 
 Each chain runs once to warm up (under the device loop: its capture),
 then once timed with the launch counts set to 0 just before and read just
@@ -327,13 +353,17 @@ from ems_nbldpc_torch import cli, native
 from ems_nbldpc_torch.decoder import device_loop
 from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
 from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
-                                               _syndrome_tables,
+                                               _syndrome_tables, _vn_totals,
                                                decode_flooding_hostloop,
+                                               make_flooding_stepper,
                                                syn_key, syndrome_ok)
 from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
-                                            rotation_table)
+                                            rotation_table, upload)
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
                                               decode_layered_hostloop)
+from ems_nbldpc_torch.decoder.stats import (decode_flooding_stats,
+                                            hist_chunk,
+                                            winner_rank_histogram)
 from ems_nbldpc_torch.gf import get_gf
 from ems_nbldpc_torch.models import channels, tools
 from ems_nbldpc_torch.models.channels import ChannelSpec
@@ -350,7 +380,9 @@ from ems_nbldpc_torch.ops.minconv import (ems_input_truncate,
                                           ems_output_saturate,
                                           fb_checknode_topk, mask_invalid)
 from ems_nbldpc_torch.sim.mc import MonteCarlo, SimConfig, batch_generators
+from ems_nbldpc_torch.sim.snapshots import run_snapshots
 from ems_nbldpc_torch.sim.sweep import result_filename
+from ems_nbldpc_torch.sim.twophase import run_twophase
 
 SLICE_ROWS = 1350          # rows per super-layer of the full-width code
 CODE_ROWS = 4050           # rows of the full-width code (one flooding call)
@@ -451,6 +483,11 @@ BUBBLE_ODD = [             # (T, G, dc, q, nm, nbOper, truncate, offset) of
 BUBBLE_NM, BUBBLE_OPS = 32, 64
 BUBBLE_DB = 2.0            # dB of 4h, 5j, 5k, 6 and 7; see PERF.md §4
 LAYERS = 3
+EMS_DEC = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
+                        offset=0.3, cn_impl="pallas", storage="dense",
+                        dtype="float32")      # the EMS chain's (4), at 2.0 dB
+SPA_DEC = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
+                        storage="dense", dtype="float32")  # 4b's, at 1.8 dB
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
 DEMAP_PATHS = {}           # chain -> K8 launches in its timed run
 
@@ -2585,6 +2622,234 @@ def check_cli(code):
                   f"the CLI's {label} run differs from MonteCarlo.run")
 
 
+def check_modules(code, enc, graph, paths):
+    """8a-8d: snapshots, decoder statistics, two-phase decoding and frame
+    sharding at full width."""
+    intr = check_snapshots(code, enc, graph, EMS_DEC, paths)
+    check_decoder_stats(graph, intr, paths)
+    del intr
+    check_twophase(code, enc, (("SPA row", SPA_DEC, 1.8, "spa_layer"),
+                               ("EMS chain", EMS_DEC, 2.0, "fb_checknode")),
+                   paths)
+    check_sharding(code, enc, SPA_DEC, paths)
+
+
+def check_snapshots(code, enc, graph, dec, paths):
+    """8a: ``run_snapshots`` of one batch at the EMS chain's settings,
+    budgets (2, 5, 10); frame and bit errors fall with the budget, equal
+    at 10 those of the host-loop decode of the same batch (``MonteCarlo``'s
+    batch 0), and K1 launched 3 times a step (eager: the stepper is
+    host-stepped)."""
+    phase("8a iteration-budget snapshots at full width")
+    cfg = SimConfig(ebn0_db=2.0, frames_per_batch=128, max_frames=128,
+                    stop_errors=10**9, decoder=dec)
+    budgets = (2, 5, 10)
+    reset_launches()
+    t0 = time.perf_counter()
+    snap = run_snapshots(code, cfg, budgets, device="cuda", enc=enc)
+    wall = time.perf_counter() - t0
+    launches = read_host_launches("8a")
+    mc = MonteCarlo(code, cfg, enc, device="cuda")
+    cw, intr = mc.gen(0)
+    decide, iters, conv = decode(graph, intr, dataclasses.replace(
+        dec, loop="host"))
+    counters = mc.count(decide, cw, iters, conv)[0].tolist()
+    steps = int(iters.max())
+    fe = [snap.frame_errors[b] for b in budgets]
+    be = [snap.bit_errors[b] for b in budgets]
+    print(f"snapshots of {snap.frames} frames in {wall:.3f} s (generator "
+          f"upload and gen included): frame errors {dict(zip(budgets, fe))},"
+          f" bit errors {dict(zip(budgets, be))}; host-loop decode of the "
+          f"batch: frame errors {counters[1]}, bit errors {counters[2]}, "
+          f"{steps} steps; launches {launches}", flush=True)
+    check(fe == sorted(fe, reverse=True) and be == sorted(be, reverse=True),
+          "snapshot errors rise with the budget")
+    check((fe[-1], be[-1]) == (counters[1], counters[2]),
+          "snapshots at budget 10 differ from the host-loop decode")
+    check(launches["fb_checknode"] == LAYERS * steps > 0
+          and sum(launches.values()) == launches["fb_checknode"],
+          f"snapshot launches {launches} for {steps} steps")
+    paths["fb_checknode"]["snapshots (8a)"] = launches["fb_checknode"]
+    SUMMARY["snapshots"] = {"wall_s": round(wall, 3), "frame_errors": fe,
+                            "bit_errors": be, "steps": steps}
+    free(mc)
+    return intr
+
+
+def check_decoder_stats(graph, intr, paths, cpu_frames=2):
+    """8b: ``decode_flooding_stats`` (flooding EMS, nm 32, offset 0.3,
+    ``cn_impl="pallas"``, 20 iterations) on a batch of F = 128 against the
+    flooding host loop on the same intrinsic, step for step; its histogram
+    against the one of the last VtoC of that loop, on the card and, for
+    ``cpu_frames`` frames, on the CPU."""
+    phase("8b decoder statistics at full width")
+    e = graph.n_edges
+    reset_launches()
+    t0 = time.perf_counter()
+    st = decode_flooding_stats(graph, intr, 20, 32, 0.3, "ems", "pallas")
+    wall = time.perf_counter() - t0
+    launches = read_host_launches("8b")
+    init_fn, step_fn = make_flooding_stepper(graph, 32, 0.3, "ems", "pallas")
+    edge_col = upload(graph, "cuda")["edge_col"]
+    state = init_fn(intr)
+    trace = [int(state[3].sum())]
+    vt = None
+    for _ in range(20):
+        if bool(state[3].all()):
+            break
+        vt = None
+        tot = _vn_totals(graph, state[0], state[1])
+        vt = tot[:, edge_col] - state[1][:, :e]
+        del tot
+        vt = vt - vt.min(dim=-1, keepdim=True).values
+        state = step_fn(state)
+        trace.append(int(state[3].sum()))
+    steps = len(trace) - 1
+    padded = trace + [trace[-1]] * (21 - len(trace))
+    base, _ = memory_mark()
+    t1 = time.perf_counter()
+    hist = winner_rank_histogram(graph, vt, 32)
+    torch.cuda.synchronize()
+    hist_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    part = winner_rank_histogram(graph, vt[:cpu_frames], 32)
+    part_cpu = winner_rank_histogram(graph, vt[:cpu_frames].cpu(), 32)
+    want = 128 * CODE_ROWS * graph.q * (graph.code.dc_max - 1)
+    print(f"stats in {wall:.3f} s: conv_by_iter {st.conv_by_iter.tolist()}"
+          f" (host loop {padded}), avg_it {st.avg_iters:.4f}, launches "
+          f"{launches}; rank_hist {st.rank_hist.tolist()} (sum "
+          f"{int(st.rank_hist.sum())}, expected {want}); histogram pass "
+          f"{hist_s * 1e3:.1f} ms, live peak above its input "
+          f"{peak / 2**30:.3f} GiB (chunks of {hist_chunk(graph, 32)} "
+          f"frames)", flush=True)
+    check(list(st.conv_by_iter) == padded
+          and bool((np.diff(st.conv_by_iter) >= 0).all()),
+          "the convergence trace differs from the flooding host loop")
+    check(np.array_equal(st.iters, state[4].cpu().numpy()),
+          "stats iterations differ from the flooding host loop")
+    check(launches["fb_checknode"] == steps > 0
+          and sum(launches.values()) == steps,
+          f"stats launches {launches} for {steps} steps")
+    check(int(st.rank_hist.sum()) == want and st.rank_hist.argmax() == 0,
+          f"rank histogram sum {int(st.rank_hist.sum())}, argmax "
+          f"{st.rank_hist.argmax()}")
+    check(np.array_equal(hist.cpu().numpy(), st.rank_hist),
+          "the histogram of the last VtoC differs from the stats'")
+    check(torch.equal(part.cpu(), part_cpu),
+          f"the card's histogram of {cpu_frames} frames differs from the "
+          f"CPU's")
+    paths["fb_checknode"]["decoder stats (8b)"] = launches["fb_checknode"]
+    SUMMARY["decoder stats"] = {
+        "wall_s": round(wall, 3), "steps": steps,
+        "conv_by_iter": st.conv_by_iter.tolist(),
+        "hist_ms": round(hist_s * 1e3, 3),
+        "hist_peak_gib": round(peak / 2**30, 3)}
+    device_loop.clear()
+
+
+def check_twophase(code, enc, chains, paths):
+    """8c: ``run_twophase`` (``phase_a_iters=3``) against ``MonteCarlo.run``
+    on 256 frames of each chain, in turns single-phase, two-phase,
+    two-phase, single-phase, each route warmed up (its captures) before its
+    first timed run: the five counters equal; two graphs captured by a
+    two-phase run and none by its timed runs; the launches counted on the
+    card 3 a step."""
+    phase("8c two-phase decoding against single-phase")
+    card = card_line()
+    fields = ("frames", "frame_errors", "bit_errors", "undetected_errors",
+              "iter_sum")
+    for name, dec, ebn0, kernel in chains:
+        cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
+                        stop_errors=10**9, decoder=dec)
+        mc = MonteCarlo(code, cfg, enc, device="cuda")
+
+        def run(route):
+            return (mc.run() if route == "single"
+                    else run_twophase(code, cfg, 3, device="cuda", enc=enc))
+
+        runs = {"single": [], "two": []}
+        for route in ("single", "two", "two", "single"):
+            if route == "single" or not runs["two"]:
+                device_loop.clear()
+                device_loop.captures = 0
+                run(route)
+                captured = device_loop.captures
+            reset_launches()
+            res = run(route)
+            launches = read_launches()
+            check(device_loop.captures == captured,
+                  f"{name}: a timed {route}-phase run captured a graph")
+            check(route == "single" or captured == 2,
+                  f"{name}: a two-phase run captured {captured} graphs, "
+                  f"expected 2")
+            check(launches[kernel] == LAYERS * res.decoder_steps > 0,
+                  f"{name} {route}-phase launches {launches} for "
+                  f"{res.decoder_steps} steps")
+            runs[route].append((res, launches))
+        free(mc)
+        counts = {r: [[getattr(x, k) for k in fields] for x, _ in v]
+                  for r, v in runs.items()}
+        fps = {r: [x.frames_per_s for x, _ in v] for r, v in runs.items()}
+        steps = {r: [x.decoder_steps for x, _ in v] for r, v in runs.items()}
+        print(f"{name} ({card}): single-phase "
+              + " / ".join(f"{x:.3f}" for x in fps["single"])
+              + " frames/s, two-phase "
+              + " / ".join(f"{x:.3f}" for x in fps["two"])
+              + f" frames/s; counters {counts}; decoder steps {steps}",
+              flush=True)
+        check(all(c == counts["single"][0]
+                  for c in counts["single"] + counts["two"]),
+              f"{name}: two-phase counters differ from MonteCarlo.run's")
+        key = "spa_checknode" if kernel == "spa_layer" else kernel
+        paths[key][f"two-phase {name} (8c)"] = runs["two"][-1][1][key]
+        SUMMARY[f"two-phase {name}"] = {
+            "single_fps": [round(x, 3) for x in fps["single"]],
+            "two_fps": [round(x, 3) for x in fps["two"]],
+            "steps": steps, "counters": counts["single"][0]}
+
+
+def check_sharding(code, enc, dec, paths):
+    """8d: a world of 1 on NCCL (``make_mesh(1)``) over the SPA row, 256
+    frames: ``run_sharded``'s counters equal the sum of ``shard=0``
+    single-process steps on the same batches, and K2 launched 3 a step."""
+    import torch.distributed as dist
+
+    from ems_nbldpc_torch.parallel.mesh import (make_mesh, run_sharded,
+                                                sharded_batch_step)
+
+    phase("8d frame sharding: a world of 1 on NCCL")
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(1)
+    try:
+        check(dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+              f"the mesh runs {dist.get_backend()} on {mesh.device}")
+        cfg = SimConfig(ebn0_db=1.8, frames_per_batch=128, max_frames=256,
+                        stop_errors=10**9, decoder=dec)
+        step = sharded_batch_step(code, cfg, mesh)
+        step(0)                                        # its capture
+        reset_launches()
+        res = run_sharded(code, cfg, mesh, step=step)
+        launches = read_launches()
+    finally:
+        mesh.close()
+    mc = MonteCarlo(code, cfg, enc, device="cuda", shard=0)
+    seq = sum(mc.step(b)[0].cpu().numpy() for b in range(2))
+    free(mc)
+    got = [res.frames, res.frame_errors, res.bit_errors,
+           res.undetected_errors, res.iter_sum, res.decoder_steps]
+    print(f"{cards} card(s) on this machine: one card cannot measure "
+          f"scaling, and none is claimed; sharded run {got} at "
+          f"{res.frames_per_s:.3f} frames/s, shard-0 steps {seq.tolist()}; "
+          f"launches {launches}", flush=True)
+    check(got == seq.tolist(), "sharded counters differ from the shard-0 "
+          "single-process steps")
+    check(launches["spa_layer"] == LAYERS * res.decoder_steps > 0,
+          f"sharded launches {launches} for {res.decoder_steps} steps")
+    paths["spa_checknode"]["sharded SPA (8d)"] = launches["spa_checknode"]
+    SUMMARY["sharded SPA"] = {"cards": cards, "counters": got,
+                              "fps": round(res.frames_per_s, 3)}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     phase("1 device")
@@ -2643,6 +2908,13 @@ def main(argv) -> int:
         check_bubble_kernel(graph)
         print("--only-3e: the other phases were not run", flush=True)
         return 0
+    if "--only-8" in argv:
+        t0 = time.perf_counter()
+        check_modules(code, gaussian_elimination(code), graph,
+                      {"fb_checknode": {}, "spa_checknode": {}})
+        print(f"--only-8: the other phases were not run "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        return 0
     if "--only-bf16" in argv:
         for entry in BF16_PHASES:
             check_bf16_layers(graph, entry)
@@ -2667,9 +2939,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
-    dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
-                        offset=0.3, cn_impl="pallas", storage="dense",
-                        dtype="float32")
+    dec = EMS_DEC
     mc, res, ems_launches = run_chain("EMS", code, enc, dec, 2.0)
     check(ems_launches["fb_checknode"] == n_layers * res.decoder_steps > 0
           and ems_launches["spa_checknode"] == 0,
@@ -2709,8 +2979,7 @@ def main(argv) -> int:
     del mc, cw, intr, intr16
 
     phase("4b SPA chain, device loop and host loop in turns")
-    spa_dec = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
-                            storage="dense", dtype="float32")
+    spa_dec = SPA_DEC
     spa_host = dataclasses.replace(spa_dec, loop="host")
     # device, host, host, device; a fresh MonteCarlo for each loop, so that
     # each peak holds its own loop's memory only
@@ -3079,6 +3348,7 @@ def main(argv) -> int:
         "flooding EMS": (fl_dec, {"fb_checknode": 1})})
     check_small_card_decodes()
     check_cli(code)
+    check_modules(code, enc, graph, paths)
 
     print(f"smoke run {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"chains": SUMMARY}, separators=(",", ":")))

@@ -25,7 +25,12 @@ host loop, with
 - every channel of the JAX package: BPSK/AWGN (a matmul demapper), 2-D
   QAM / rotated QAM / 64-APSK with Rayleigh or SSD fading and erasures,
   and the 256-QAM 4-D channel, their demappers one launch of a
-  hand-written CUDA kernel (``ops/cuda_demap.py``) on the card.
+  hand-written CUDA kernel (``ops/cuda_demap.py``) on the card;
+- iteration-budget snapshots (``sim/snapshots.py``), decoder statistics
+  (``decoder/stats.py``), two-phase decoding (``sim/twophase.py``),
+  timers and ``torch.profiler`` traces (``utils/timing.py``), and frame
+  sharding over ``torch.distributed``, one process per device
+  (``parallel/mesh.py``; the CLI's ``--devices``).
 """
 
 __version__ = "0.1.0"

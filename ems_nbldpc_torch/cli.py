@@ -20,11 +20,17 @@ unless the caller asks for the CPU).  Two call styles:
            --ebn0 3.0:5.0:0.5 --iters 10 --nm 30 --offset 0.3 \\
            --schedule layered --batch 4096 --stop-errors 40
 
-``--devices`` above 1 (frame sharding) is not ported yet.
+``--devices N`` shards the frames of each batch over N devices of the
+``--device`` kind (``parallel/mesh``; ``--batch`` is then per device):
+N = 1 runs in this process as a world of 1; N > 1 starts N ranks
+(``spawn``), one per card or, with ``--device cpu``, per CPU process,
+unless the command runs under ``torchrun``, whose ranks it joins.  A rank
+that fails makes the command fail.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -89,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--seed", type=int, default=5)
     p.add_argument("--devices", type=int, default=0,
-                   help="shard frames over this many devices (0 = single; "
-                        "more than 1 is not ported yet)")
+                   help="shard frames over this many devices of the "
+                        "--device kind (0 = no mesh; --batch is per device)")
     p.add_argument("--device", default="cuda",
                    help="torch device the simulation runs on (cuda, cpu)")
     p.add_argument("--out", default="./data", help="result directory")
@@ -123,9 +129,15 @@ def main(argv=None) -> int:
         print("--matrix and --ebn0 are required", file=sys.stderr)
         return 2
     if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: frame sharding is not ported yet "
-            "(ROADMAP Queue 1 item 8: multi-GPU frame sharding)")
+        import torch.distributed as dist
+
+        from .parallel.mesh import launch
+
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            launch(args.devices, main,
+                   (sys.argv[1:] if argv is None else list(argv),),
+                   devices=args.device)
+            return 0
 
     from .decoder.api import DecoderConfig
     from .models.channels import ChannelSpec
@@ -152,9 +164,18 @@ def main(argv=None) -> int:
         ),
         encode=args.encode,
     )
-    run_sweep(code, _parse_grid(args.ebn0), base, out_dir=args.out,
-              verbose=not args.quiet, resume=args.resume,
-              device=args.device)
+    mesh = None
+    if args.devices:
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.devices, devices=args.device)
+    try:
+        run_sweep(code, _parse_grid(args.ebn0), base, out_dir=args.out,
+                  verbose=not args.quiet, mesh=mesh, resume=args.resume,
+                  device=args.device)
+    finally:
+        if mesh is not None:
+            mesh.close()
     return 0
 
 

@@ -36,7 +36,7 @@ capture leaves the eager counts as it found them and records each
 kernel's launches per step (``DeviceLoop.per_step``).
 
 Loops are cached in one LRU of ``MAX_CACHED`` entries, since each holds GBs
-at full width.  A Monte-Carlo run decodes every batch under one key, so
+at full width; ``captures`` counts the graphs captured.  A Monte-Carlo run decodes every batch under one key, so
 its loop stays in the cache and one capture serves every batch and every
 Eb/N0 point of a sweep.  ``last()`` is the loop of the latest decode;
 ``clear()`` empties the cache.
@@ -55,6 +55,8 @@ from ..ops import _build, cuda_bubble, cuda_cn, cuda_spa, cuda_syndrome
 from .graph import keep_tables
 
 MAX_CACHED = 2                   # loops kept by the cache
+captures = 0                     # graphs captured since import (set to 0
+#                                  to count a run's)
 
 # kernel -> (module, counter) of the wrappers' eager launch counts
 _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
@@ -198,6 +200,8 @@ class DeviceLoop:
         self.per_step = {k: after[k] - before[k] for k in before}
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.exec = exec_
+        global captures
+        captures += 1
 
 
 def run(key, make_stepper, intrinsic: torch.Tensor, max_iters: int):

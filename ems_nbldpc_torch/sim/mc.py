@@ -129,9 +129,13 @@ def _popcount(x: torch.Tensor) -> torch.Tensor:
     return c
 
 
-def batch_generators(seed: int, batch_idx: int, device):
-    """(info-bit generator, channel generator) of one batch."""
-    states = np.random.SeedSequence([seed, batch_idx]).generate_state(2, np.uint64)
+def batch_generators(seed: int, batch_idx: int, device,
+                     shard: Optional[int] = None):
+    """(info-bit generator, channel generator) of one batch: from
+    ``SeedSequence([seed, batch_idx])``, or for shard ``r`` of a sharded
+    run (``parallel/mesh``) from ``SeedSequence([seed, batch_idx, r])``."""
+    entropy = [seed, batch_idx] + ([] if shard is None else [shard])
+    states = np.random.SeedSequence(entropy).generate_state(2, np.uint64)
     gens = []
     for s in states:
         gen = torch.Generator(device=device)
@@ -201,12 +205,16 @@ class MonteCarlo:
     and every Eb/N0 point of a sweep (``decoder/device_loop``)."""
 
     def __init__(self, code: NBCode, cfg: SimConfig,
-                 enc: Optional[Encoder] = None, *, device):
+                 enc: Optional[Encoder] = None, *, device,
+                 shard: Optional[int] = None):
         """``device`` is required: a run names the device it measures, and
-        a missing card is an error, never a silent fall back to the CPU."""
+        a missing card is an error, never a silent fall back to the CPU.
+        ``shard``: this process's rank in a sharded run, whose batches draw
+        the shard's own streams (``batch_generators``)."""
         self.code = code
         self.cfg = cfg
         self.device = torch.device(device)
+        self.shard = shard
         self.graph = DeviceGraph.from_code(code)
         self._make_codeword, self.encode_bits, self.enc, pmat_np = (
             make_codeword_fn(code, cfg, enc))
@@ -215,7 +223,8 @@ class MonteCarlo:
 
     def gen(self, batch_idx: int):
         """(codewords [F, N] int64, intrinsic [F, N, q] f32) of one batch."""
-        kinfo, kchan = batch_generators(self.cfg.seed, batch_idx, self.device)
+        kinfo, kchan = batch_generators(self.cfg.seed, batch_idx, self.device,
+                                        self.shard)
         cw = self._make_codeword(kinfo, self._pmat)
         code = self.code
         intr = simulate(kchan, cw, code.q, self.cfg.channel,

@@ -5,7 +5,10 @@ the reference's one forked process per SNR point (``start.sh``), with the
 reference's result-file append (``NB_LDPC.c:136,568-579``) as a text file
 in the same spirit and as structured JSONL, in the JAX package's formats.
 One ``MonteCarlo`` serves the sweep: Eb/N0 enters only the channel, so
-one device loop (one captured graph) serves every point.
+one device loop (one captured graph) serves every point.  On a mesh
+(``parallel/mesh``) one sharded step serves the sweep; rank 0 reads the
+resume set and hands it to every rank, and alone prints and writes the
+result files.
 """
 from __future__ import annotations
 
@@ -56,26 +59,39 @@ def run_sweep(
     *,
     device,
 ) -> list:
-    """Run the Monte-Carlo chain at each Eb/N0 point on ``device``;
-    returns SimResults."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sweeps are not ported yet (ROADMAP Queue 1 item 8: "
-            "multi-GPU frame sharding)")
+    """Run the Monte-Carlo chain at each Eb/N0 point on ``device``, or
+    sharded over ``mesh`` (a ``parallel.mesh.Mesh``, whose own device each
+    rank runs on); returns SimResults."""
     results = []
-    mc = None
-    done = completed_points(out_dir, code, base) if resume else set()
+    mc = sharded_step = None
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
+    done = completed_points(out_dir, code, base) if resume and lead else set()
+    if mesh is not None and resume:
+        import torch.distributed as dist
+
+        box = [done]
+        dist.broadcast_object_list(box, src=0, group=mesh.group)
+        done = box[0]
     for ebn0 in ebn0_grid:
         if round(float(ebn0), 6) in done:
             if verbose:
                 print(f"Eb/N0={ebn0:.2f} dB already recorded; skipping")
             continue
         cfg = dataclasses.replace(base, ebn0_db=float(ebn0))
-        if mc is None:
-            mc = MonteCarlo(code, cfg, device=device)
+        if mesh is not None:
+            from ..parallel.mesh import run_sharded, sharded_batch_step
+
+            if sharded_step is None:
+                sharded_step = sharded_batch_step(code, cfg, mesh)
+            r = run_sharded(code, cfg, mesh, verbose=verbose,
+                            step=sharded_step)
         else:
-            mc.cfg = cfg  # Eb/N0 enters the channel only: same device loop
-        r = mc.run(verbose=verbose)
+            if mc is None:
+                mc = MonteCarlo(code, cfg, device=device)
+            else:
+                mc.cfg = cfg  # Eb/N0 enters the channel only: same loop
+            r = mc.run(verbose=verbose)
         results.append(r)
         if verbose:
             lo, hi = r.fer_ci
@@ -84,7 +100,7 @@ def run_sweep(
                 f"({r.frame_errors}/{r.frames})  BER={r.ber:.3e}  "
                 f"avg_it={r.avg_iters:.2f}  {r.frames_per_s:.1f} fr/s"
             )
-        if out_dir:
+        if out_dir and lead:
             write_results(out_dir, code, r)
     return results
 

@@ -1,1 +1,1 @@
-from .stats import wilson_ci  # noqa: F401
+from .stats import binomial_ci, wilson_ci  # noqa: F401

@@ -17,6 +17,10 @@ def wilson_ci(k: int, n: int, z: float = 1.96):
     return (max(0.0, center - half), min(1.0, center + half))
 
 
+def binomial_ci(k: int, n: int, z: float = 1.96):
+    return wilson_ci(k, n, z)
+
+
 def overlapping(k1, n1, k2, n2, z: float = 1.96) -> bool:
     """Do the two FER estimates' CIs overlap?"""
     lo1, hi1 = wilson_ci(k1, n1, z)

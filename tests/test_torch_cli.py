@@ -241,12 +241,13 @@ def test_registry_resolves_paths_and_names(tmp_path, monkeypatch, matrix):
 
 
 def test_unported_sweep_options_raise(matrix, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["--matrix", matrix, "--ebn0", "1.0", "--devices", "2",
-                  "--device", "cpu", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sweep.run_sweep(load(matrix), [1.0], SimConfig(ebn0_db=1.0),
-                        mesh=object(), device="cpu")
+    # frame sharding is ported (tests/test_torch_mesh.py); asking for more
+    # cards than are visible raises before any rank starts
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"only {n - 1} cuda device"):
+        cli.main(["--matrix", matrix, "--ebn0", "1.0", "--devices", str(n),
+                  "--out", str(tmp_path)])
+    assert not os.path.exists(tmp_path / "results.jsonl")
     assert cli.main(["--matrix", matrix]) == 2          # no --ebn0
     assert cli.main(["1", "2", "3"]) == 2               # short positional
 
