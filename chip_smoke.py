@@ -12,7 +12,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
-2. build: compiles the five CUDA kernels and the device loop's graph
+2. build: compiles the six CUDA kernels and the device loop's graph
    helper with nvcc (sm_90a), one nvcc per source, started together;
    prints the times and ptxas' register / shared-memory report; then
    builds the full-width code;
@@ -117,6 +117,22 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    frozen; then timed at F = 128 in turns with the L-bubble, nbOper = 0,
    the old route and its plain version, beside its bound (``--only-3e``:
    phases 1, 2 and 3e alone, no result line);
+3f. list kernel (K3, ``ops/cuda_list.list_layer``) against its plain
+   version ``listcn.list_layer_plain``, bit for bit (``torch.equal``)
+   everywhere but the padding column and edge, where the plain version
+   scatters its padded slots and the kernel writes nothing (checked
+   untouched), frozen frames untouched: on the real code's three layer
+   plans at full width (F = 128, nm = 32, nbOper = 64; nm = 25, nbOper =
+   24 on one plan), at f32 and bf16, from random compressed states
+   ("decoder" and "ties": lists with repeated GF ids and unfilled tails)
+   and from the states two plain steps of the decoder made, about a
+   quarter of the frames frozen; on odd random layers with padded slots
+   (``LIST_ODD``: q = 16 / 64 / 256, dc = 1 / 2 / 3 / 4 / 5 / 6 / 20,
+   nm = 4..64, nbOper from 4 to every candidate, a negative offset);
+   times K3 and its plain version in turns at F = 128 on an f32 and a bf16
+   state, beside each bound; first, the wrapper's copy of K3's limits and
+   block shape against the library's ``list_block_warps`` over a grid of
+   shapes (``--only-3f``: phases 1, 2 and 3f alone, no result line);
 3b / 3c / 3e at bf16: each fused entry (``spa_layer``, ``syndrome_layer``,
    ``bubble_layer`` with both variants) on a bf16 state against its bf16
    plain version, on the real code's three layer plans at F = 128 and on
@@ -162,8 +178,15 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    time;
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
-   frames, device loop; checks no kernel launch (the list CN has no kernel
-   yet), avg_it < 10, FER <= 0.25;
+   frames, device loop; checks 3 ``list_layer`` (K3) a step counted on the
+   card, none eager, no other kernel, avg_it < 10, FER <= 0.25; then 6 on
+   its first batch (``list_layer`` 3 a step) and 5l; with ``--profile``
+   traces one batch: 3 ``list_kernel`` a step, K3's and argmin's shares;
+5l. list-EMS decode both ways (host loop), at full width: 16 frames of
+   the chain's first batch through K3 and through ``list_layer_plain`` on
+   the card (``plain``, no launch): identical decisions, iterations and
+   convergence (the differing frames printed); ``decode`` with nboper = 0
+   or nm = 65 (outside K3's limits) raises ``ValueError`` on the card;
 4d. flooding EMS chain at full width: ``schedule="flooding"``, nm = 32,
    offset 0.3, ``cn_impl="pallas"``, 20 iterations, dense f32, 2.0 dB,
    F = 128, 256 frames, device loop; checks EMS kernel launches = 1 per
@@ -221,7 +244,8 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    CPU, and the layered EMS decodes (K1 on the card), equal;
 6. the device loop against the host loop at full width, after each chain
    on one batch of its intrinsics (F = 128): layered EMS through K1,
-   layered SPA through ``spa_layer``, list-EMS (plain torch), flooding EMS
+   layered SPA through ``spa_layer``, list-EMS through ``list_layer``,
+   flooding EMS
    through K1 and flooding SPA through the bare K2 (on the flooding
    chain's batch), layered syndrome (through ``syndrome_layer``) and
    flooding syndrome (20 iterations, through the bare ``syndrome_rows``)
@@ -236,7 +260,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    kernel decode against the plain decode (host loop: K1 against the
    plain torch CN, the others against their plain versions on the card)
    identical; the loop's
-   launches per step 3, 3, 0, 1, 1, 3, 1, and 3, 3, 1, 1 (bubble); the
+   launches per step 3, 3, 3, 1, 1, 3, 1, and 3, 3, 1, 1 (bubble); the
    replay makes no eager launch
    and the kernels count per step x steps on the card, as under the host
    loop; prints one decode's wall time under each loop, and the memory
@@ -306,7 +330,7 @@ then once timed with the launch counts set to 0 just before and read just
 after; both sides of 5d and 5e are counted the same way.  Two counts are
 kept: the wrappers' eager launches (``cuda_cn.launches``,
 ``cuda_spa.launches``, ``cuda_syndrome.launches``, ``cuda_demap.launches``,
-``cuda_bubble.launches``)
+``cuda_bubble.launches``, ``cuda_list.launches``)
 and the launches each
 kernel counts itself on the
 card (``device_launches()``), which a graph's replays move too; a
@@ -330,7 +354,9 @@ times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
 64-APSK shapes, for K9 the fused step at F = 128 (both variants, its old
 route) and the bare entry at the layered and flooding shapes, beside its
 plain version's and its bound; for K2, K7 and K9 the ``bf16_*`` fields of
-the fused entry on a bf16 state), and ``{"ok": true, "device":
+the fused entry on a bf16 state; for K3 ``list_layer`` at F = 128 on the
+bf16 state of the bench row, and ``f32_*`` on an f32 one), and ``{"ok":
+true, "device":
 {...}}``.  The run prints its time.  No JAX is imported.
 """
 from __future__ import annotations
@@ -360,7 +386,9 @@ from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
 from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
                                             rotation_table, upload)
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
-                                              decode_layered_hostloop)
+                                              decode_layered_hostloop,
+                                              decode_layered_list_hostloop,
+                                              make_layered_list_stepper)
 from ems_nbldpc_torch.decoder.stats import (decode_flooding_stats,
                                             hist_chunk,
                                             winner_rank_histogram)
@@ -370,8 +398,8 @@ from ems_nbldpc_torch.models.channels import ChannelSpec
 from ems_nbldpc_torch.models.code import load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
-from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_demap, cuda_spa,
-                                  cuda_syndrome)
+from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_demap,
+                                  cuda_list, cuda_spa, cuda_syndrome, listcn)
 from ems_nbldpc_torch.ops.bubble_cn import bubble_rows_plain
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
@@ -1618,6 +1646,252 @@ def check_bubble_layer(graph):
     return worst, times
 
 
+
+LIST_NM, LIST_OPS = 32, 64  # the bench row's list length and budget
+LIST_ODD = [               # (F, G, dc, q, nm, nbOper, offset, padded slots)
+    # of list_layer on random layer tables
+    (16, 300, 4, 256, 32, 64, OFFSET, 7),
+    (8, 60, 4, 256, 25, 24, OFFSET, 3),       # nbOper < nm: dup-marker tails
+    (8, 100, 6, 64, 12, 24, OFFSET, 5),
+    (8, 50, 3, 16, 8, 16, OFFSET, 3),
+    (4, 40, 20, 256, 32, 64, OFFSET, 9),      # dc = 20, the Ahmed shape
+    (6, 20, 5, 256, 64, 4096, OFFSET, 2),     # nm = 64, every candidate
+    (8, 30, 2, 16, 4, 8, OFFSET, 2),          # dc = 2: the swap
+    (8, 25, 1, 16, 4, 4, OFFSET, 1),          # dc = 1: the neutral list
+    (8, 40, 4, 64, 16, 8, -0.2, 3),           # a negative offset
+]
+
+
+def decoder_rows(f, n, q, gen):
+    """(X [F, n, q], active [F]) on the card from ``gen``: X with one
+    low-cost symbol (0..1) per column and the rest 2..40, as ``spa_state``'s
+    APP; about a quarter of the frames frozen (the first active, the last
+    frozen)."""
+    x = 2 + 38 * torch.rand((f, n, q), generator=gen, device="cuda")
+    best = torch.randint(0, q, (f, n, 1), generator=gen, device="cuda")
+    x.scatter_(-1, best, torch.rand((f, n, 1), generator=gen,
+                                    device="cuda"))
+    active = torch.rand(f, generator=gen, device="cuda") >= 0.25
+    active[0], active[-1] = True, False
+    return x, active
+
+
+def list_state(f, n1, e1, q, nm, cols, edges, kind, seed, dtype):
+    """A compressed layered state on the card, from ``seed``: CtoV lists
+    (ascending values from 0, "ties": integer levels 0..5, else 0..10; ids
+    drawn with repeats; about a third of the lists with an unfilled tail at
+    the saturation, sat = last + offset), APP = X + the expanded CtoV on
+    the layer's slots (X as ``spa_state``'s, or levels 0..5), the padding
+    column and edge as a decoder holds them (0, ids 0..nm-1), rounded to
+    ``dtype``; active [F] with about a quarter of the frames frozen."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    app, active = decoder_rows(f, n1, q, gen)
+    if kind == "ties":
+        app = torch.randint(0, 6, (f, n1, q), generator=gen,
+                            device="cuda").float()
+        cv_v = torch.randint(0, 6, (f, e1, nm), generator=gen,
+                             device="cuda").float()
+    else:
+        cv_v = 10 * torch.rand((f, e1, nm), generator=gen, device="cuda")
+    cv_v = cv_v.sort(dim=-1).values
+    cv_v = cv_v - cv_v[..., :1]
+    cv_sat = cv_v[..., -1] + OFFSET
+    tail = (torch.rand((f, e1, 1), generator=gen, device="cuda") < 1 / 3) \
+        & (torch.arange(nm, device="cuda") >= nm // 2)
+    cv_sat = torch.where(tail.any(-1), cv_v[..., nm // 2 - 1] + OFFSET,
+                         cv_sat)
+    cv_v = torch.where(tail, cv_sat[..., None], cv_v)
+    cv_g = torch.randint(0, q, (f, e1, nm), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    cv_v[:, -1] = 0
+    cv_g[:, -1] = torch.arange(nm, device="cuda", dtype=torch.uint8)
+    cv_sat[:, -1] = 0
+    app[:, -1] = 0
+    real = cols.long() < n1 - 1
+    c, e = cols.long()[real], edges.long()[real]
+    app[:, c] += listcn.expand_list(cv_v[:, e], cv_g[:, e], cv_sat[:, e], q)
+    return (app.to(dtype), cv_v.to(dtype), cv_g, cv_sat.to(dtype), active)
+
+
+def decoded_list_state(graph, f, dtype, seed, steps=2):
+    """A state the decoder itself made: ``steps`` steps of the list
+    stepper through its plain version on the card from a decoder-like
+    intrinsic (``spa_state``'s APP), with about a quarter of the frames
+    frozen afterwards."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x, active = decoder_rows(f, graph.code.n, graph.q, gen)
+    intr = (x - x.min(dim=-1, keepdim=True).values).to(dtype)
+    init, step = make_layered_list_stepper(graph, LIST_NM, OFFSET, LIST_OPS,
+                                           dtype, plain=True)
+    state = init(intr)
+    for _ in range(steps):
+        state = step(state)
+    return (*state[:4], active)
+
+
+def list_layer_bound_ms(f_active, g, dc, q, nm, nb_oper, elem):
+    """The least time of one ``list_layer`` call on an H100: the APP rows
+    and the compressed CtoV (``elem`` bytes a value, one a GF id) of the
+    active frames read once and written once at 3.35 TB/s, against the
+    operations (the VN extrinsic, its min and the two dense expansions,
+    6 a symbol; 3 (dc - 2) merges of a sum and a min a staircase
+    candidate) at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    nbytes = 2 * f_active * g * dc * (q * elem + nm * (elem + 1) + elem)
+    ops = f_active * g * (6 * dc * q + 3 * max(dc - 2, 0) * 2
+                          * cuda_list.staircase_pairs(nm, nb_oper))
+    return bound(nbytes, ops)
+
+
+def check_list_case(label, state, layer, cn):
+    """One ``list_layer`` call against ``list_layer_plain`` on clones of
+    ``state``: bit for bit everywhere but the padding column and edge
+    (where the plain version scatters its padded slots), which the kernel
+    leaves as they were; frozen frames untouched; the active frames'
+    state changed.  Returns the largest error."""
+    app, cv_v, cv_g, cv_sat, active = state
+    out = {}
+    for name, fn in (("kernel", cuda_list.list_layer),
+                     ("plain", listcn.list_layer_plain)):
+        s = [x.clone() for x in (app, cv_v, cv_g, cv_sat)]
+        fn(*s, active, *layer, *cn)
+        out[name] = s
+    torch.cuda.synchronize()
+    before = (app, cv_v, cv_g, cv_sat)
+    exact = all(torch.equal(a[:, :-1], b[:, :-1])
+                for a, b in zip(out["kernel"], out["plain"]))
+    frozen = ~active
+    kept = all(torch.equal(a[:, -1], x[:, -1]) and torch.equal(a[frozen],
+                                                               x[frozen])
+               for a, x in zip(out["kernel"], before))
+    changed = not torch.equal(out["kernel"][0][active], app[active])
+    err = max(float((a[:, :-1].float() - b[:, :-1].float()).abs().max())
+              for a, b in zip(out["kernel"], out["plain"]))
+    f, (g, dc), q = app.shape[0], layer[0].shape, app.shape[2]
+    valid = layer[4]
+    pads = 0 if valid is None else int((~valid).sum())
+    print(f"list_layer {label} {app.dtype} F={f} G={g} dc={dc} q={q} "
+          f"nm={cn[0]} nbOper={cn[1]} offset={cn[2]} frozen "
+          f"{int(frozen.sum())} padded slots {pads}: bit-exact={exact} "
+          f"max_abs_err={err}; padding column/edge and frozen frames "
+          f"untouched {kept}; active frames changed {changed}", flush=True)
+    check(exact and kept and changed,
+          f"list_layer != plain at {label} {app.dtype}")
+    return err
+
+
+def check_list_limits():
+    """3f: the wrapper's copy of K3's limits and block shape
+    (``cuda_list.takes``, ``warps_per_block``) against the built library's
+    own (``list_block_warps``, 0 outside its limits) over a grid of shapes
+    around the limits, LIST_ODD's and the bench row's included."""
+    lib = cuda_list._lib()
+    shapes = {(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 400)
+              for q in (2, 16, 48, 64, 256, 512)
+              for nm in (1, 4, 8, 12, 25, 32, 64, 65)
+              for ops in (0, 1, 4, 24, 64, 4096)}
+    shapes |= {(dc, q, nm, ops) for _, _, dc, q, nm, ops, _, _ in LIST_ODD}
+    bad = []
+    for dc, q, nm, ops in sorted(shapes):
+        want = (cuda_list.warps_per_block(dc, q, nm, ops)
+                if cuda_list.takes(dc, q, nm, ops) else 0)
+        got = lib.list_block_warps(dc, q, nm, ops)
+        if got != want:
+            bad.append(((dc, q, nm, ops), got, want))
+    print(f"list_layer limits: {len(shapes)} shapes, "
+          f"{sum(cuda_list.takes(*k) for k in shapes)} taken, the wrapper "
+          f"and the library agree on {len(shapes) - len(bad)}", flush=True)
+    check(not bad, f"cuda_list's limits differ from the library's "
+                   f"(shape, library, wrapper): {bad[:5]}")
+
+
+def check_list_kernel(graph):
+    """3f: K3 (``cuda_list.list_layer``) against ``list_layer_plain`` at
+    full width on the real code's three layer plans (F = 128, nm = 32,
+    nbOper = 64, and nm = 25, nbOper = 24 on one plan), f32 and bf16,
+    from random "decoder" and "ties" states and from states the decoder
+    made, about a quarter of the frames frozen; then on odd random layers
+    with padded slots (LIST_ODD); then timed in turns with the plain
+    version at F = 128, every frame active, on both dtypes.  Returns (the
+    largest error, {dtype: times})."""
+    phase("3f list kernel (K3) against plain")
+    check_list_limits()
+    worst = 0.0
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1, q = code.n + 1, graph.n_edges + 1, code.q
+
+    def tables(p):
+        return (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
+                p["valid"])
+
+    main = (LIST_NM, LIST_OPS, OFFSET)
+    for dtype in (torch.float32, BF16):
+        for k, p in enumerate(plans):
+            for kind in ("decoder", "ties"):
+                state = list_state(128, n1, e1, q, LIST_NM, p["cols"],
+                                   p["edge_ids"], kind, 1300 + k, dtype)
+                worst = max(worst, check_list_case(
+                    f"layer {k} {kind}", state, tables(p), main))
+                del state
+        state = list_state(128, n1, e1, q, 25, plans[1]["cols"],
+                           plans[1]["edge_ids"], "decoder", 1310, dtype)
+        worst = max(worst, check_list_case("layer 1 decoder", state,
+                                           tables(plans[1]), (25, 24, OFFSET)))
+        state = decoded_list_state(graph, 128, dtype, seed=1320)
+        for k, p in enumerate(plans):
+            worst = max(worst, check_list_case(f"layer {k} decoded", state,
+                                               tables(p), main))
+        del state
+    for i, (f, g, dc, qo, nm, ops, off, pads) in enumerate(LIST_ODD):
+        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, qo, pads,
+                                                 seed=1350 + i)
+        gf = get_gf(qo)
+        rc_in, rc_out = (torch.as_tensor(
+            listcn.mul_cols(gf, coefs.cpu().numpy(), inv), device="cuda")
+            for inv in (False, True))
+        layer = (cols, edges, rc_in, rc_out, coefs != 0)
+        for dtype in (torch.float32, BF16):
+            for kind in ("decoder", "ties"):
+                state = list_state(f, n1o, e1o, qo, nm, cols, edges, kind,
+                                   1360 + i, dtype)
+                worst = max(worst, check_list_case(f"odd {kind}", state,
+                                                   layer, (nm, ops, off)))
+    p = plans[0]
+    g, dc = p["cols32"].shape
+    f = 128
+    active = torch.ones(f, dtype=torch.bool, device="cuda")
+    times = {}
+    for dtype, elem in ((torch.float32, 4), (BF16, 2)):
+        state = list_state(f, n1, e1, q, LIST_NM, p["cols"], p["edge_ids"],
+                           "decoder", 7, dtype)[:4]
+        copies = {k: [x.clone() for x in state] for k in ("kernel", "plain")}
+        fns = {"kernel": lambda: cuda_list.list_layer(
+                   *copies["kernel"], active, *tables(p), *main),
+               "plain": lambda: listcn.list_layer_plain(
+                   *copies["plain"], active, *tables(p), *main)}
+        reps = {"kernel": 10, "plain": 2}
+        got = collections.defaultdict(list)
+        # in turns, compared within one call only
+        for name in ("plain", "kernel", "kernel", "plain"):
+            got[name].append(time_ms(fns[name], reps[name]))
+        b_ms, b_by = list_layer_bound_ms(f, g, dc, q, LIST_NM, LIST_OPS, elem)
+        check(b_by == "bytes", "the list merges bound list_layer")
+        key = "bf16" if dtype == BF16 else "f32"
+        times[key] = dict({k: sum(v) / len(v) for k, v in got.items()},
+                          bound=b_ms, bound_by=b_by, frames=f, rows=g)
+        print(f"list_layer {dtype} F={f} G={g} dc={dc} q={q} nm={LIST_NM} "
+              f"nbOper={LIST_OPS}: kernel "
+              + " / ".join(f"{v:.4f}" for v in got["kernel"])
+              + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+              + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / times[key]['kernel']:.2f}% of it", flush=True)
+        del state, copies, fns
+    torch.cuda.empty_cache()
+    return worst, times
+
+
 BF16 = torch.bfloat16
 # K2 on a bf16 state (3b): its f32 arithmetic agrees with the plain
 # version's to f32 rounding only, so a store may land one bf16 ulp apart
@@ -1934,6 +2208,43 @@ def check_bubble_decodes(mc, dec):
               f"{impl} launches {l_k} (plain {l_p}) for {steps} steps")
 
 
+def check_list_decodes(graph, intr, dec, n_layers):
+    """5l: 16 frames of ``intr`` decoded (host loop) through K3 (3
+    ``list_layer`` launches a step) and through ``list_layer_plain`` on the
+    card (no launch): identical decisions, iterations and convergence, the
+    frames that differ printed."""
+    phase("5l list-EMS kernel vs plain decode at full width")
+    intr = intr[:16].to(dec.torch_dtype()).contiguous()
+    outs = {}
+    for plain in (False, True):
+        reset_launches()
+        outs[plain] = tuple(x.cpu() for x in decode_layered_list_hostloop(
+            graph, intr, dec.max_iters, dec.nm, dec.offset, dec.nboper,
+            dec.torch_dtype(), plain=plain)) + (read_host_launches("5l"),)
+    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+    differ = ((d_k != d_p).any(dim=1) | (it_k != it_p) | (c_k != c_p))
+    steps = int(it_k.max())
+    print(f"F=16: frames whose decisions, iterations or convergence differ: "
+          f"{differ.nonzero().flatten().tolist()}; iters {it_k.tolist()}; "
+          f"converged {int(c_k.sum())}/16; launches kernel {l_k}, plain "
+          f"{l_p}", flush=True)
+    check(not bool(differ.any()), "list-EMS kernel and plain decodes differ")
+    check(l_k["list_layer"] == n_layers * steps > 0
+          and sum(l_k.values()) == l_k["list_layer"]
+          and sum(l_p.values()) == 0,
+          f"list-EMS launches {l_k} (plain {l_p}) for {steps} steps")
+    # outside K3's limits the card raises; nothing gives way to plain
+    for label, change in (("nboper=0", dict(nboper=0)),
+                          ("nm=65", dict(nm=65))):
+        bad = dataclasses.replace(dec, loop="host", **change)
+        try:
+            decode(graph, intr, bad)
+        except ValueError as err:
+            print(f"{label} on the card: ValueError ({err})", flush=True)
+        else:
+            check(False, f"a list-EMS decode with {label} ran on the card")
+
+
 def check_native(mc, dec, frames=32):
     """5k: the chain's first ``frames`` frames through K9 (the default
     device loop) and through the C++ core (f64 intrinsics): the share of
@@ -2024,7 +2335,8 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
         print(f"{us / 1e3:10.3f} ms {100 * us / total:6.2f}%  {name}")
     traced = {k: sum(1 for e in kernels if k in e["name"])
               for k in ("ems_rows_kernel", "spa_row_kernel",
-                        "syndrome_kernel", "demap_kernel", "bubble_kernel")}
+                        "syndrome_kernel", "demap_kernel", "bubble_kernel",
+                        "list_kernel")}
     demap_us = sum(us for name, us in by_name.items()
                    if "demap_kernel" in name)
     big_ops = sorted({e["name"] for e in events if e.get("cat") == "cpu_op"
@@ -2049,6 +2361,7 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
     return {"wall_ms": round(wall_us / 1e3, 3),
             "busy_pct": round(100 * busy / wall_us, 2), "topk_kernels": topk,
             "spa_pct": share("spa_row_kernel"),
+            "list_pct": share("list_kernel"),
             "argmin_pct": share("ArgMin", "argmin"),
             "steps": int(counters[5]), "traced": traced,
             "index_pct": round(100 * index_us / max(total, 1), 2),
@@ -2212,12 +2525,13 @@ def reset_launches():
     cuda_cn.launches = cuda_spa.launches = cuda_spa.layer_launches = 0
     cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
     cuda_demap.launches = cuda_bubble.launches = 0
-    cuda_bubble.layer_launches = 0
+    cuda_bubble.layer_launches = cuda_list.launches = 0
     cuda_demap.reset_device_launches()
     cuda_bubble.reset_device_launches()
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
     cuda_syndrome.reset_device_launches()
+    cuda_list.reset_device_launches()
 
 
 def read_launches() -> dict:
@@ -2231,7 +2545,8 @@ def read_launches() -> dict:
     return {"fb_checknode": cuda_cn.device_launches(),
             "spa_checknode": spa, "spa_layer": layer,
             "syndrome_checknode": syn, "syndrome_layer": syn_layer,
-            "bubble_checknode": bub, "bubble_layer": bub_layer}
+            "bubble_checknode": bub, "bubble_layer": bub_layer,
+            "list_layer": cuda_list.device_launches()}
 
 
 def read_eager() -> dict:
@@ -2242,7 +2557,8 @@ def read_eager() -> dict:
             "syndrome_checknode": cuda_syndrome.launches,
             "syndrome_layer": cuda_syndrome.layer_launches,
             "bubble_checknode": cuda_bubble.launches,
-            "bubble_layer": cuda_bubble.layer_launches}
+            "bubble_layer": cuda_bubble.layer_launches,
+            "list_layer": cuda_list.launches}
 
 
 def read_host_launches(what) -> dict:
@@ -2293,7 +2609,8 @@ def check_small_card_decodes():
         check(launches == {"fb_checknode": per_step * steps,
                            "spa_checknode": 0, "spa_layer": 0,
                            "syndrome_checknode": 0, "syndrome_layer": 0,
-                           "bubble_checknode": 0, "bubble_layer": 0},
+                           "bubble_checknode": 0, "bubble_layer": 0,
+                           "list_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
 
 
@@ -2872,7 +3189,7 @@ def main(argv) -> int:
     phase("2 build")
     t0 = time.perf_counter()
     mods = (cuda_cn, cuda_spa, cuda_syndrome, cuda_demap, cuda_bubble,
-            device_loop)
+            cuda_list, device_loop)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
@@ -2883,7 +3200,7 @@ def main(argv) -> int:
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"all six built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all seven built in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--only-3d" in argv:
         check_demap_kernel()
         print("--only-3d: the other phases were not run", flush=True)
@@ -2908,6 +3225,10 @@ def main(argv) -> int:
         check_bubble_kernel(graph)
         print("--only-3e: the other phases were not run", flush=True)
         return 0
+    if "--only-3f" in argv:
+        check_list_kernel(graph)
+        print("--only-3f: the other phases were not run", flush=True)
+        return 0
     if "--only-8" in argv:
         t0 = time.perf_counter()
         check_modules(code, gaussian_elimination(code), graph,
@@ -2925,6 +3246,7 @@ def main(argv) -> int:
     syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
     demap_err, demap_times = check_demap_kernel()
     bub_err, bub_times = check_bubble_kernel(graph)
+    list_err, list_times = check_list_kernel(graph)
     b16 = {entry: check_bf16_layers(graph, entry) for entry in BF16_PHASES}
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
@@ -2935,7 +3257,8 @@ def main(argv) -> int:
 
     phase("4 EMS chain")
     paths = {"fb_checknode": {}, "spa_checknode": {},
-             "syndrome_checknode": {}, "bubble_checknode": {}}
+             "syndrome_checknode": {}, "bubble_checknode": {},
+             "list_layer": {}}
     t0 = time.perf_counter()
     enc = gaussian_elimination(code)
     print(f"encoder {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3084,16 +3407,27 @@ def main(argv) -> int:
                              storage="compressed", dtype="bfloat16")
     mc, list_res, list_launches = run_chain("list-EMS", code, enc, list_dec,
                                             1.8)
-    check(sum(list_launches.values()) == 0,
-          f"launches {list_launches}: the list path has no kernel yet")
-    check_loops("layered list-EMS", graph, mc.gen(0)[1], list_dec, {})
+    check(list_launches["list_layer"] == n_layers * list_res.decoder_steps > 0
+          and sum(list_launches.values()) == list_launches["list_layer"],
+          f"list-EMS launches {list_launches} for {list_res.decoder_steps} "
+          f"decoder steps")
+    paths["list_layer"]["list-EMS row (4c)"] = list_launches["list_layer"]
+    intr = mc.gen(0)[1]
+    _, replay = check_loops("layered list-EMS", graph, intr, list_dec,
+                            {"list_layer": n_layers})
+    paths["list_layer"]["list-EMS row (6)"] = replay["list_layer"]
+    check_list_decodes(graph, intr, list_dec, n_layers)
     if "--profile" in argv:
-        SUMMARY["list-EMS"][-1]["profile"] = profile_batch(mc, "list")
-        SUMMARY["list-EMS"][-1]["profile"].pop("spa_kernels")
-        SUMMARY["list-EMS"][-1]["profile"].pop("syn_kernels")
-        SUMMARY["list-EMS"][-1]["profile"].pop("bub_kernels")
+        prof = profile_batch(mc, "list")
+        for key in ("spa_kernels", "syn_kernels", "bub_kernels"):
+            prof.pop(key)
+        print(f"list-EMS trace: list_kernel {prof['list_pct']}% and argmin "
+              f"{prof['argmin_pct']}% of the kernel time; idle "
+              f"{100 - prof['busy_pct']:.2f}% of its wall", flush=True)
+        check_traced(prof, "list_kernel", n_layers, "list-EMS trace")
+        SUMMARY["list-EMS"][-1]["profile"] = prof
     free(mc)
-    del mc
+    del mc, intr
 
     phase("4d flooding EMS chain")
     fl_dec = DecoderConfig(max_iters=20, schedule="flooding", cn="ems", nm=32,
@@ -3446,6 +3780,23 @@ def main(argv) -> int:
         "flooding_plain_ms": b_flood["plain"],
         "flooding_bound_ms": b_flood["bound"],
         **bf16_fields(b16["bubble_layer"]),
+    }, {
+        "name": "list_checknode", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/list_checknode.cu",
+        "replaces": "ems_nbldpc_tpu/ops/listcn.py:79-378, "
+                    "ems_nbldpc_tpu/decoder/layered.py:567-611",
+        "entry_points": ["list_layer"],
+        "launches": paths["list_layer"]["list-EMS row (4c)"],
+        "paths": list(paths["list_layer"]),
+        "launches_by_path": paths["list_layer"], "max_abs_err": list_err,
+        "frames": list_times["bf16"]["frames"],
+        "rows": list_times["bf16"]["rows"], "ms": list_times["bf16"]["kernel"],
+        "plain_ms": list_times["bf16"]["plain"],
+        "bound_ms": list_times["bf16"]["bound"],
+        "bound_by": list_times["bf16"]["bound_by"], "library_ms": None,
+        "f32_ms": list_times["f32"]["kernel"],
+        "f32_plain_ms": list_times["f32"]["plain"],
+        "f32_bound_ms": list_times["f32"]["bound"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

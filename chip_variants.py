@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time design variants of the SPA, syndrome and bubble kernels against
-their committed sources, on one CUDA card.
+"""Time design variants of the SPA, syndrome, bubble and list kernels
+against their committed sources, on one CUDA card.
 
     python3 chip_variants.py                       # every SPA variant
     python3 chip_variants.py NAME ...              # some of them
@@ -12,6 +12,8 @@ their committed sources, on one CUDA card.
     python3 chip_variants.py --bubble --source PATH committed
                                        # another version of it (one without
                                        # the fused entry: the bare one only)
+    python3 chip_variants.py --list [NAME ...]     # the list kernel's (K3)
+    python3 chip_variants.py --list --source PATH [NAME ...]
 
 A variant is a kernel source of ``ems_nbldpc_torch/csrc/`` with a few text
 substitutions, written to a temporary directory, built by ``ops/_build.py``
@@ -35,6 +37,11 @@ dc = 4) at F = 128 with every frame active, 20 calls each by CUDA events:
   rows, and ``bubble_layer`` with nbOper = 0; each variant's
   ``bubble_layer`` output is held against ``bubble_layer_plain`` (the real
   variants must equal it bit for bit).  Built in parallel.
+* list (nm = 32, nbOper = 64, offset 0.3): ``list_layer`` on a bf16 and
+  an f32 compressed state (``chip_smoke.list_state``, "decoder"); each
+  variant's output is held against ``list_layer_plain`` (the real
+  variants must equal it bit for bit but the padding column and edge).
+  Built in parallel.
 
 "design" variants are alternatives the kernel does not take; "diagnostic"
 ones drop work (their results are wrong) to show what the time is spent
@@ -58,7 +65,8 @@ from ems_nbldpc_torch.decoder.flooding import _syndrome_tables, syn_key
 from ems_nbldpc_torch.decoder.graph import DeviceGraph
 from ems_nbldpc_torch.decoder.layered import _layer_plan
 from ems_nbldpc_torch.models.code import random_regular
-from ems_nbldpc_torch.ops import _build, cuda_bubble, cuda_spa, cuda_syndrome
+from ems_nbldpc_torch.ops import (_build, cuda_bubble, cuda_list, cuda_spa,
+                                  cuda_syndrome, listcn)
 
 EXP = ("x[j] = expf(-fminf(x[j], kLogEps));", "x[j] = -fminf(x[j], kLogEps);")
 LOG = ("y[j] = -logf(fmaxf(fmaxf(y[j] * invq, kOutFloor), kPFloor));",
@@ -451,6 +459,113 @@ def bubble_main(names) -> int:
     return 0
 
 
+LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
+    "committed": ("design", []),
+    # 6 or 4 blocks an SM (at most 80 or 128 registers a thread), not 8 (64)
+    "blocks_6": ("design", [("constexpr int BLOCKS_SM = 8;",
+                             "constexpr int BLOCKS_SM = 6;")]),
+    "blocks_4": ("design", [("constexpr int BLOCKS_SM = 8;",
+                             "constexpr int BLOCKS_SM = 4;")]),
+    # what the time is spent on (their results are wrong)
+    "no_merges": ("diagnostic", [("dc >= 3 && u <= dc - 2;",
+                                  "dc >= 3 && u <= 0;")]),
+    "no_candidates": ("diagnostic", [
+        ("for (int c = lane; c < npairs; c += 32) {",
+         "for (int c = lane; c < 0; c += 32) {")]),
+    "no_selections": ("diagnostic", [
+        ("  select_nm(k, nm, lane);\n", "\n"),
+        ("      select_nm(key, nm, lane);\n", "\n")]),
+    "no_rotations": ("diagnostic", [
+        ("  for (int b = 0; b < 8; ++b) out ^= (g >> b & 1) ? c[b] : 0;",
+         "  out = g;")]),
+    "no_writeback": ("diagnostic", [
+        ("          st(ap + s, __fadd_rn(mvc[k * q + s], d));",
+         "          if (d == -1.0f)\n"
+         "            st(ap + s, __fadd_rn(mvc[k * q + s], d));")]),
+}
+
+
+def list_main(names) -> int:
+    """Time the list kernel's variants ``names`` (see the module
+    docstring)."""
+    file = "list_checknode.cu"
+    base = os.path.join(_build.CSRC, file)
+    if names[:1] == ["--source"]:
+        base, names = names[1], names[2:]
+    names = names or list(LIST_VARIANTS)
+    unknown = [n for n in names if n not in LIST_VARIANTS]
+    if unknown:
+        raise SystemExit(f"FAIL: unknown list variants {unknown}")
+    with open(base) as f:
+        source = f.read()
+    print(f"variants of {base}", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        paths = {n: variant_source(n, LIST_VARIANTS, source, root, file)
+                 for n in names}
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            built = {n: pool.submit(_build.build, "list_checknode", True,
+                                    paths[n]) for n in names}
+            built = {n: fut.result() for n, fut in built.items()}
+    for n, (_, seconds, log) in built.items():
+        regs = [x.split(":", 1)[-1].strip() for x in log.splitlines()
+                if "registers" in x or "spill" in x]
+        print(f"built {n} in {seconds:.1f} s; {'; '.join(regs)}", flush=True)
+
+    def bind(path):
+        lib_path = path
+        return functools.lru_cache(None)(
+            lambda: cuda_list._bind(lib_path))
+
+    graph = DeviceGraph.from_code(random_regular(8100, 4050, 256, dv=2,
+                                                 seed=0))
+    p = _layer_plan(graph, "cuda")[0]
+    layer = (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
+             p["valid"])
+    cn = (cs.LIST_NM, cs.LIST_OPS, cs.OFFSET)
+    active = torch.ones(128, dtype=torch.bool, device="cuda")
+    states = {key: cs.list_state(128, graph.code.n + 1, graph.n_edges + 1,
+                                 256, cs.LIST_NM, p["cols"], p["edge_ids"],
+                                 "decoder", 7, dtype)[:4]
+              for key, dtype in (("bf16", cs.BF16), ("f32", torch.float32))}
+    want = {}
+    for key, state in states.items():
+        want[key] = [x.clone() for x in state]
+        listcn.list_layer_plain(*want[key], active, *layer, *cn)
+    exact, times = {}, collections.defaultdict(list)
+    for order in (names, names[::-1]):
+        for name in order:
+            cuda_list._lib = bind(built[name][0])
+            t, ok = [], True
+            for key, state in states.items():
+                got = [x.clone() for x in state]
+                cuda_list.list_layer(*got, active, *layer, *cn)
+                torch.cuda.synchronize()
+                ok = ok and all(torch.equal(a[:, :-1], b[:, :-1])
+                                for a, b in zip(got, want[key]))
+                t.append(cs.time_ms(lambda: cuda_list.list_layer(
+                    *got, active, *layer, *cn), REPS))
+                del got
+            exact[name] = ok
+            times[name].append(t)
+    for name in names:
+        cols = list(zip(*times[name]))
+        print(f"{name:16s} {LIST_VARIANTS[name][0]:10s} list_layer F=128 "
+              "bf16 " + " / ".join(f"{v:.4f}" for v in cols[0])
+              + " ms, f32 " + " / ".join(f"{v:.4f}" for v in cols[1])
+              + f" ms; bit-exact vs plain {exact[name]}", flush=True)
+    for name in names:
+        if LIST_VARIANTS[name][0] == "design" and not exact[name]:
+            raise SystemExit(f"FAIL: design variant {name} disagrees with "
+                             f"the plain version")
+    print(cs.card_line())
+    print(json.dumps({"list_variants": {n: {
+        "kind": LIST_VARIANTS[n][0],
+        "list_layer_bf16_ms": [t[0] for t in times[n]],
+        "list_layer_f32_ms": [t[1] for t in times[n]],
+        "bit_exact": exact[n]} for n in names}}))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this run needs a "
@@ -460,6 +575,8 @@ def main(argv) -> int:
         return syndrome_main(argv[1:])
     if argv[:1] == ["--bubble"]:
         return bubble_main(argv[1:])
+    if argv[:1] == ["--list"]:
+        return list_main(argv[1:])
     names = argv or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

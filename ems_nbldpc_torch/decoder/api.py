@@ -60,8 +60,10 @@ class DecoderConfig:
     nm: int = 0                 # 0 -> no truncation (pure min-sum)
     offset: float = 0.3         # saturation offset (reference arg 6)
     nboper: int = 0             # elementary-step candidate budget (reference
-    #                             arg 7); read by the list CN and the
-    #                             bubble CNs (0 -> 2 * nm for these)
+    #                             arg 7); read by the list CN (0: its
+    #                             exact mode, CPU only; the card's
+    #                             kernel needs >= 1) and the bubble CNs
+    #                             (0 -> 2 * nm for these)
     cn_impl: str = "auto"       # dense | topk | list | pallas (the
     #                             hand-written CUDA CN, ops/cuda_cn.py) |
     #                             auto | bubble | lbubble (the exact bubble

@@ -29,7 +29,7 @@ overwrites the buffers.
 Kernel launches: a replay runs the captured kernels without their Python
 wrappers, so the wrappers' eager counts (``ops/cuda_cn.launches``,
 ``ops/cuda_spa.launches``, ``ops/cuda_syndrome.launches``,
-``ops/cuda_bubble.launches``) do not move;
+``ops/cuda_bubble.launches``, ``ops/cuda_list.launches``) do not move;
 the kernels count their own launches on the card (``device_launches()``
 of each wrapper module).  The
 capture leaves the eager counts as it found them and records each
@@ -51,7 +51,8 @@ import weakref
 
 import torch
 
-from ..ops import _build, cuda_bubble, cuda_cn, cuda_spa, cuda_syndrome
+from ..ops import (_build, cuda_bubble, cuda_cn, cuda_list, cuda_spa,
+                   cuda_syndrome)
 from .graph import keep_tables
 
 MAX_CACHED = 2                   # loops kept by the cache
@@ -65,7 +66,8 @@ _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "syndrome_checknode": (cuda_syndrome, "launches"),
              "syndrome_layer": (cuda_syndrome, "layer_launches"),
              "bubble_checknode": (cuda_bubble, "launches"),
-             "bubble_layer": (cuda_bubble, "layer_launches")}
+             "bubble_layer": (cuda_bubble, "layer_launches"),
+             "list_layer": (cuda_list, "launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

@@ -30,10 +30,11 @@ Per super-layer (the reference's ``NB_LDPC.c:320-466``):
                                        F/B, rotate back, saturate; SPA:
                                        rotations folded into the transform)
   CtoV[edges] = mcv,  APP[cols] = mvc + mcv   (frozen frames keep theirs)
-For ``cn="spa"``, ``cn="syndrome"`` and ``cn_impl`` bubble / lbubble on
-the card the whole of it is one kernel launch (``ops/cuda_spa.spa_layer``,
-``ops/cuda_syndrome.syndrome_layer``, ``ops/cuda_bubble.bubble_layer``),
-with no [F, G, dc, q] temporaries; for ``cn_impl="pallas"`` the CN step
+For ``cn="spa"``, ``cn="syndrome"``, ``cn_impl`` bubble / lbubble and the
+truncated-list sweep on the card the whole of it is one kernel launch
+(``ops/cuda_spa.spa_layer``, ``ops/cuda_syndrome.syndrome_layer``,
+``ops/cuda_bubble.bubble_layer``, ``ops/cuda_list.list_layer``), with no
+[F, G, dc, q] temporaries; for ``cn_impl="pallas"`` the CN step
 is (``ops/cuda_cn.ems_rows``) between torch gathers and scatters.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import listcn
+from ..ops import cuda_list, listcn
 from ..ops.cuda_bubble import bubble_layer, bubble_layer_plain
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
@@ -415,81 +416,87 @@ def decode_layered_compressed(g, intrinsic, max_iters, nm, offset=0.3,
 
 # ---------------------------------------------------------------------------
 # truncated-list EMS (ops/listcn.py) with compressed CtoV storage: the
-# bench's EMS row.  The CN is sorts and elementwise ops on [.., nm] lists.
+# bench's EMS row.  One list_layer call (K3 on the card) per super-layer.
 # ---------------------------------------------------------------------------
 
 
+def _list_layer_step(g: DeviceGraph, nm: int, nboper: int, device,
+                     plain: bool = False):
+    """The list sweep's super-layer step for tensors on ``device``.
+
+    ``cuda_list.list_layer`` where K3 takes the shape (on the card: one
+    kernel launch; on CPU tensors: its plain version).  On CPU tensors
+    outside K3's limits (``cuda_list.limits_error``: the exact
+    ``nboper = 0`` mode, nm > 64, ...) ``listcn.list_layer_plain``; on the
+    card there a ``ValueError``: those modes are not ported to the card,
+    and nothing there gives way to the plain version.  ``plain`` (internal,
+    for holding K3 against it) takes ``list_layer_plain`` on any device.
+    """
+    if plain:
+        return listcn.list_layer_plain
+    err = cuda_list.limits_error(g.code.dc_max, g.q, nm, nboper)
+    if err is None:
+        return cuda_list.list_layer
+    if torch.device(device).type != "cpu":
+        raise ValueError(
+            f"list EMS on {device}: the card runs it only through K3 "
+            f"(ops/cuda_list.list_layer), which does not take this "
+            f"configuration: {err}")
+    return listcn.list_layer_plain
+
+
 def _make_list_iteration(g: DeviceGraph, nm: int, offset: float,
-                         nboper: int):
+                         nboper: int, plain: bool = False):
     """One layered sweep over all super-layers, truncated-list EMS CN.
 
     State: dense APP [F, N+1, q] + compressed CtoV (vals [F, E+1, nm],
     ids [F, E+1, nm] uint8, sat [F, E+1]), the reference's own CtoV
     content (nm sorted entries + saturated fill, bubble_decoder.c:262-278).
     Returns ``one_iteration(app, cv_v, cv_g, cv_sat, active)``, which
-    updates the four state tensors in place.
+    updates the four state tensors in place with one ``_list_layer_step``
+    call per super-layer: on the card the whole step in one hand-written
+    CUDA kernel launch (K3, ``ops/cuda_list.list_layer``), on CPU tensors
+    its plain version ``listcn.list_layer_plain``.
     """
-    q = g.q
-    # packed-key truncation quantizes to bf16 (the storage dtype); the
-    # exact (nboper = 0) mode keeps the f32 sort for bit-exact oracle tests
-    truncate = listcn.topk_list if nboper > 0 else topk_message
-
     def one_iteration(app, cv_v, cv_g, cv_sat, active):
-        keep = ~active[:, None, None]                        # [F, 1, 1]
+        layer_step = _list_layer_step(g, nm, nboper, app.device, plain)
         for p in _layer_plan(g, str(app.device)):
-            edge_ids, cols = p["edge_ids"], p["cols"]
-            app_rows = app[:, cols]                          # [F, G, dc, q]
-            cvv_rows = cv_v[:, edge_ids]
-            cvg_rows = cv_g[:, edge_ids]
-            sat_rows = cv_sat[:, edge_ids]
-            ctov_rows = listcn.expand_list(
-                cvv_rows.float(), cvg_rows, sat_rows.float(), q, app.dtype)
-            mvc = app_rows - ctov_rows
-            mvc = mvc - mvc.min(dim=-1, keepdim=True).values
-            # VN truncation (NB_LDPC.c:354-374) + rotation of the id lists
-            bv, bg = truncate(mvc.float(), nm)
-            bgr = listcn.rotate_ids(bg.to(torch.int32), p["rc_in"][None])
-            if p["valid"] is not None:
-                nv, ng = listcn.neutral_list(bv.shape[:-1], nm,
-                                             device=bv.device)
-                lane = p["valid"][None, ..., None]
-                bv = torch.where(lane, bv, nv)
-                bgr = torch.where(lane, bgr, ng)
-            ov, ogr = listcn.fb_checknode_list(bv, bgr, nm, nboper)
-            og = listcn.rotate_ids(ogr, p["rc_out"][None])
-            ov, sat = listcn.saturate_list(ov, offset)
-            dense = listcn.expand_list(ov, og, sat, q, app.dtype)
-
-            cv_v[:, edge_ids] = torch.where(keep[..., None], cvv_rows,
-                                            ov.to(cv_v.dtype))
-            cv_g[:, edge_ids] = torch.where(keep[..., None], cvg_rows,
-                                            og.to(cv_g.dtype))
-            cv_sat[:, edge_ids] = torch.where(keep, sat_rows,
-                                              sat.to(cv_sat.dtype))
-            app[:, cols] = torch.where(keep[..., None], app_rows,
-                                       (mvc + dense).to(app.dtype))
+            layer_step(app, cv_v, cv_g, cv_sat, active, p["cols32"],
+                       p["edge_ids32"], p["rc_in"], p["rc_out"], p["valid"],
+                       nm, nboper, offset)
 
     return one_iteration
 
 
 def make_layered_list_stepper(g: DeviceGraph, nm: int, offset: float = 0.3,
-                              nboper: int = 0, dtype=torch.bfloat16):
+                              nboper: int = 0, dtype=torch.bfloat16,
+                              plain: bool = False):
     """Host-loop list-EMS decoder: ``state = init_fn(intrinsic)``,
     ``state = step_fn(state)``; state = (app, cv_v, cv_g, cv_sat, decide,
     conv, iters), updated in place.  ``dtype`` is the storage dtype of
-    APP and the CtoV values and saturation levels."""
+    APP and the CtoV values and saturation levels.  On the card the sweep
+    runs K3, and ``init_fn`` raises ``ValueError`` for a configuration
+    outside its limits (``_list_layer_step``).  ``plain`` is internal: it
+    runs ``list_layer_plain`` on the card, for holding K3 against it."""
     if not 1 <= nm <= g.q:
         raise ValueError(f"list EMS needs 1 <= nm <= q, got nm={nm}, "
                          f"q={g.q}")
-    return _compressed_stepper(g, nm, dtype,
-                               _make_list_iteration(g, nm, offset, nboper))
+    init_fn, step_fn = _compressed_stepper(
+        g, nm, dtype, _make_list_iteration(g, nm, offset, nboper, plain))
+
+    def checked_init(intrinsic, state=None):
+        _list_layer_step(g, nm, nboper, intrinsic.device, plain)
+        return init_fn(intrinsic, state)
+
+    return checked_init, step_fn
 
 
 def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
-                                 nboper=0, dtype=torch.bfloat16):
+                                 nboper=0, dtype=torch.bfloat16,
+                                 plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
     return host_loop(
-        *make_layered_list_stepper(g, nm, offset, nboper, dtype),
+        *make_layered_list_stepper(g, nm, offset, nboper, dtype, plain),
         intrinsic, max_iters)
 
 

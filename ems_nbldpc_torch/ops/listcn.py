@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .minconv import INF, scatter_topk_dense
+from .minconv import INF, scatter_topk_dense, topk_message
 
 # value of deduplicated / unfilled slots; sorts after every real cost but
 # stays far from f32/bf16 saturation when offsets are added
@@ -241,3 +241,59 @@ def expand_list(ov, og, sat, q: int, dtype=None):
     dense = scatter_topk_dense(ov, og, q, fill=INF)
     dense = torch.minimum(dense, sat[..., None])
     return dense if dtype is None else dense.to(dtype)
+
+
+def list_layer_plain(app, cv_v, cv_g, cv_sat, active, cols, edges, rc_in,
+                     rc_out, valid, nm: int, nboper: int,
+                     offset: float) -> None:
+    """One layered truncated-list EMS super-layer, in place: the plain
+    torch step that ``ops/cuda_list.list_layer`` (K3) fuses, and, on CPU
+    tensors only, the route of ``nboper = 0`` and of shapes outside K3's
+    limits.
+
+    app: [F, N+1, q] dense APP; cv_v [F, E+1, nm], cv_g [F, E+1, nm]
+    uint8, cv_sat [F, E+1]: the compressed CtoV (the reference's nm sorted
+    entries + saturated fill, bubble_decoder.c:262-278), app, cv_v and
+    cv_sat of one dtype; active: [F] bool (False: converged, written back
+    as read); cols, edges: the layer's [G, dc] APP columns and CtoV edges
+    (int32 or int64; padded slots at column N and edge E); rc_in, rc_out:
+    [G, dc, logq] int32 GF(2)-basis columns (``mul_cols``) of h and h^-1;
+    valid: [G, dc] bool (False at padded slots) or None.  nboper > 0:
+    packed-key truncation (bf16 keys) and staircase merges; nboper = 0:
+    the exact f32 sorts.  Padded slots compute on the padding column and
+    edge and scatter there (several slots, one element).
+    """
+    q = app.shape[-1]
+    # packed-key truncation quantizes to bf16 (the storage dtype); the
+    # exact (nboper = 0) mode keeps the f32 sort for bit-exact oracle tests
+    truncate = topk_list if nboper > 0 else topk_message
+    edge_ids, cols = edges.long(), cols.long()
+    keep = ~active[:, None, None]                        # [F, 1, 1]
+    app_rows = app[:, cols]                              # [F, G, dc, q]
+    cvv_rows = cv_v[:, edge_ids]
+    cvg_rows = cv_g[:, edge_ids]
+    sat_rows = cv_sat[:, edge_ids]
+    ctov_rows = expand_list(
+        cvv_rows.float(), cvg_rows, sat_rows.float(), q, app.dtype)
+    mvc = app_rows - ctov_rows
+    mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+    # VN truncation (NB_LDPC.c:354-374) + rotation of the id lists
+    bv, bg = truncate(mvc.float(), nm)
+    bgr = rotate_ids(bg.to(torch.int32), rc_in[None])
+    if valid is not None:
+        nv, ng = neutral_list(bv.shape[:-1], nm, device=bv.device)
+        lane = valid[None, ..., None]
+        bv = torch.where(lane, bv, nv)
+        bgr = torch.where(lane, bgr, ng)
+    ov, ogr = fb_checknode_list(bv, bgr, nm, nboper)
+    og = rotate_ids(ogr, rc_out[None])
+    ov, sat = saturate_list(ov, offset)
+    dense = expand_list(ov, og, sat, q, app.dtype)
+
+    cv_v[:, edge_ids] = torch.where(keep[..., None], cvv_rows,
+                                    ov.to(cv_v.dtype))
+    cv_g[:, edge_ids] = torch.where(keep[..., None], cvg_rows,
+                                    og.to(cv_g.dtype))
+    cv_sat[:, edge_ids] = torch.where(keep, sat_rows, sat.to(cv_sat.dtype))
+    app[:, cols] = torch.where(keep[..., None], app_rows,
+                               (mvc + dense).to(app.dtype))

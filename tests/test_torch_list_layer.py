@@ -1,0 +1,480 @@
+"""The layered truncated-list EMS super-layer step: ``cuda_list.list_layer``
+(K3) and its plain version ``listcn.list_layer_plain``, against the JAX
+package's sweep body and against the port's sweep as it ran before the
+kernel; its place in the sweep, its route choice, its guards and its
+shared-memory layout.
+
+On a CPU tensor ``list_layer`` runs ``list_layer_plain``.  Inputs are
+made from seeded numpy generators.  Tolerance: none.
+* At an f32 state every step of the list sweep is exact in both packages
+  (single f32 adds and subtractions, selections of unique packed keys,
+  integer GF logic), so the plain step equals JAX's
+  ``_make_list_iteration_unrolled`` bit for bit.
+* The plain step is the former sweep body moved, so it equals that body
+  (kept here as ``pre_kernel_layer``) bit for bit at f32 and at bf16.
+* Both write their padded slots into the padding column N and edge E
+  (several slots, one element: which value lands is unspecified), so
+  those are left out of every comparison, as in
+  ``tests/test_torch_bubble_layer.py``; the kernel writes nothing there.
+States are decoder-like: compressed CtoV lists of integer levels ("ties",
+so that equal values and repeated GF ids are common) or of continuous
+values ("decoder"), with unfilled tails at the saturation, and the states
+the sweep itself makes after two steps.
+
+Only the comparison with JAX imports the JAX package (inside the test),
+so the card-only test is collected where JAX is absent.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ems_nbldpc_torch.decoder import device_loop, layered
+from ems_nbldpc_torch.decoder.api import DecoderConfig, decode
+from ems_nbldpc_torch.decoder.flooding import host_loop
+from ems_nbldpc_torch.decoder.graph import DeviceGraph
+from ems_nbldpc_torch.models.code import from_parsed
+from ems_nbldpc_torch.models.formats import ParsedMatrix
+from ems_nbldpc_torch.ops import cuda_list, listcn
+from ems_nbldpc_torch.ops.minconv import topk_message
+
+OFFSET = 0.3
+BF16 = torch.bfloat16
+
+
+def regular_rows(n, m, dc, rng):
+    """m rows of degree dc over n columns of equal degree m dc / n: a
+    configuration model whose repeated columns within a row are repaired
+    by swapping sockets with other rows.  The port's ``random_regular``
+    draws fresh shuffles instead, which never succeed at high dc (it must
+    draw as JAX's does, so it stays as it is)."""
+    sockets = np.repeat(np.arange(n), m * dc // n)
+    rng.shuffle(sockets)
+    rows = sockets.reshape(m, dc).copy()
+    for _ in range(100 * m * dc):
+        dup = [(r, k) for r in range(m) for k in range(dc)
+               if (rows[r] == rows[r, k]).sum() > 1]
+        if not dup:
+            return [np.sort(r) for r in rows]
+        r, k = dup[rng.integers(len(dup))]
+        s, j = rng.integers(m), rng.integers(dc)
+        if s != r and rows[s, j] not in rows[r] and rows[r, k] not in rows[s]:
+            rows[r, k], rows[s, j] = rows[s, j], rows[r, k]
+    raise RuntimeError("edge swaps did not repair the rows")
+
+
+def make_codes(kind, q, dc, seed=0):
+    """(the parsed matrix, the port's graph of its code): "regular"
+    (column degree 2, ``regular_rows``) or "irregular" (row degrees 2..dc,
+    the first dc), whose layers carry padded slots."""
+    rng = np.random.default_rng(seed)
+    if kind == "regular":
+        n, m = 4 * dc, 8
+        rows = regular_rows(n, m, dc, rng)
+    else:
+        n, m = 16, 8
+        degs = [dc] + list(rng.integers(2, dc + 1, m - 1))
+        rows = [np.sort(rng.choice(n, d, replace=False)) for d in degs]
+    coefs = [rng.integers(1, q, len(r)) for r in rows]
+    parsed = ParsedMatrix(n, m, q, rows, coefs)
+    return parsed, DeviceGraph.from_code(from_parsed(parsed))
+
+
+def list_state(g, f, nm, kind, seed, dtype=torch.float32):
+    """A decoder-like compressed state (APP [F, N+1, q], cv_v [F, E+1, nm],
+    cv_g uint8, cv_sat [F, E+1]) and active [F] with frames 1 and F-1
+    frozen.  CtoV lists ascending from 0 ("ties": levels 0..5, else
+    0..10), ids drawn with repeats, about a third with an unfilled tail at
+    the saturation, sat = last + offset; APP = X + every edge's expanded
+    CtoV (X one low-cost symbol a column and the rest 2..40, or levels
+    0..5); the padding column and edge as a decoder holds them."""
+    rng = np.random.default_rng(seed)
+    q, n, e = g.q, g.code.n, g.n_edges
+    if kind == "ties":
+        x = rng.integers(0, 6, (f, n + 1, q)).astype(np.float32)
+        cv_v = rng.integers(0, 6, (f, e + 1, nm)).astype(np.float32)
+    else:
+        x = (2 + 38 * rng.random((f, n + 1, q))).astype(np.float32)
+        best = rng.integers(0, q, (f, n + 1, 1))
+        np.put_along_axis(x, best, rng.random((f, n + 1, 1)).astype(
+            np.float32), -1)
+        cv_v = (10 * rng.random((f, e + 1, nm))).astype(np.float32)
+    cv_v = np.sort(cv_v, -1)
+    cv_v -= cv_v[..., :1]
+    sat = cv_v[..., -1] + np.float32(OFFSET)
+    tail = rng.random((f, e + 1)) < 1 / 3
+    sat[tail] = cv_v[tail, nm // 2 - 1] + np.float32(OFFSET)
+    cv_v[tail, nm // 2:] = sat[tail, None]
+    cv_g = rng.integers(0, q, (f, e + 1, nm)).astype(np.uint8)
+    cv_v[:, e], sat[:, e], x[:, n] = 0, 0, 0
+    cv_g[:, e] = np.arange(nm)
+    cv_v, cv_g, sat = (torch.from_numpy(a) for a in (cv_v, cv_g, sat))
+    app = torch.from_numpy(x)
+    ctov = listcn.expand_list(cv_v[:, :e], cv_g[:, :e], sat[:, :e], q)
+    app[:, :n].index_add_(1, torch.as_tensor(g.code.edge_col,
+                                             dtype=torch.int64), ctov)
+    active = torch.ones(f, dtype=torch.bool)
+    active[1] = active[-1] = False
+    return (app.to(dtype), cv_v.to(dtype), cv_g, sat.to(dtype)), active
+
+
+def decoded_state(g, f, nm, nboper, dtype, seed, steps=2):
+    """The state the sweep makes after ``steps`` steps from a
+    decoder-like intrinsic, with frames 1 and F-1 frozen afterwards."""
+    rng = np.random.default_rng(seed)
+    x = (2 + 20 * rng.random((f, g.code.n, g.q))).astype(np.float32)
+    x[..., 0] = rng.random((f, g.code.n))          # the all-zero word leads
+    init, step = layered.make_layered_list_stepper(g, nm, OFFSET, nboper,
+                                                   dtype)
+    state = init(torch.from_numpy(x - x.min(-1, keepdims=True)))
+    for _ in range(steps):
+        state = step(state)
+    active = torch.ones(f, dtype=torch.bool)
+    active[1] = active[-1] = False
+    return tuple(s.clone() for s in state[:4]), active
+
+
+def layer_args(p):
+    return (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
+            p["valid"])
+
+
+def pre_kernel_layer(app, cv_v, cv_g, cv_sat, active, p, nm, nboper,
+                     offset):
+    """The layered list sweep's body as it ran before K3
+    (``layered._make_list_iteration``'s ``one_iteration``, one plan)."""
+    q = app.shape[-1]
+    truncate = listcn.topk_list if nboper > 0 else topk_message
+    keep = ~active[:, None, None]
+    edge_ids, cols = p["edge_ids"], p["cols"]
+    app_rows = app[:, cols]
+    cvv_rows = cv_v[:, edge_ids]
+    cvg_rows = cv_g[:, edge_ids]
+    sat_rows = cv_sat[:, edge_ids]
+    ctov_rows = listcn.expand_list(
+        cvv_rows.float(), cvg_rows, sat_rows.float(), q, app.dtype)
+    mvc = app_rows - ctov_rows
+    mvc = mvc - mvc.min(dim=-1, keepdim=True).values
+    bv, bg = truncate(mvc.float(), nm)
+    bgr = listcn.rotate_ids(bg.to(torch.int32), p["rc_in"][None])
+    if p["valid"] is not None:
+        nv, ng = listcn.neutral_list(bv.shape[:-1], nm, device=bv.device)
+        lane = p["valid"][None, ..., None]
+        bv = torch.where(lane, bv, nv)
+        bgr = torch.where(lane, bgr, ng)
+    ov, ogr = listcn.fb_checknode_list(bv, bgr, nm, nboper)
+    og = listcn.rotate_ids(ogr, p["rc_out"][None])
+    ov, sat = listcn.saturate_list(ov, offset)
+    dense = listcn.expand_list(ov, og, sat, q, app.dtype)
+    cv_v[:, edge_ids] = torch.where(keep[..., None], cvv_rows,
+                                    ov.to(cv_v.dtype))
+    cv_g[:, edge_ids] = torch.where(keep[..., None], cvg_rows,
+                                    og.to(cv_g.dtype))
+    cv_sat[:, edge_ids] = torch.where(keep, sat_rows, sat.to(cv_sat.dtype))
+    app[:, cols] = torch.where(keep[..., None], app_rows,
+                               (mvc + dense).to(app.dtype))
+
+
+def bits(a):
+    """numpy view of a state tensor's bits (f32 as int32, bf16 as int16)."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16) if a.dtype == BF16 else a
+        a = a.numpy()
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def assert_same(got, want):
+    """Bit for bit but the padding column and edge (the last row of each
+    state tensor)."""
+    for name, a, b in zip(("app", "cv_v", "cv_g", "cv_sat"), got, want):
+        np.testing.assert_array_equal(bits(a)[:, :-1], bits(b)[:, :-1],
+                                      err_msg=name)
+
+
+def assert_frozen_kept(got, before, active):
+    for a, x in zip(got, before):
+        assert torch.equal(a[~active], x[~active])
+
+
+# (code kind, q, dc, nm, nboper, state kind)
+JAX_CASES = [
+    ("regular", 16, 4, 8, 16, "ties"),
+    ("irregular", 16, 5, 8, 16, "decoder"),
+    ("regular", 64, 4, 32, 64, "decoder"),
+    ("irregular", 64, 4, 32, 64, "ties"),
+    ("regular", 64, 4, 25, 24, "ties"),
+    ("irregular", 64, 5, 25, 24, "decoder"),
+    ("regular", 64, 20, 8, 16, "ties"),         # dc = 20, the Ahmed shape
+]
+
+
+@pytest.mark.parametrize("kind,q,dc,nm,nboper,state_kind", JAX_CASES)
+def test_plain_step_matches_jax_sweep(kind, q, dc, nm, nboper, state_kind):
+    """One list sweep (every super-layer) of ``list_layer_plain`` against
+    JAX's sweep body (jitted, as its decoders run it) on the same f32
+    state, frozen frames included."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from ems_nbldpc_tpu.decoder.graph import DeviceGraph as JGraph
+    from ems_nbldpc_tpu.decoder.layered import _layer_plan as jlayer_plan
+    from ems_nbldpc_tpu.decoder.layered import \
+        _make_list_iteration_unrolled as jlist_iteration
+    from ems_nbldpc_tpu.models.code import from_parsed as jfrom_parsed
+    from ems_nbldpc_tpu.models.formats import ParsedMatrix as JParsedMatrix
+
+    parsed, g = make_codes(kind, q, dc, seed=dc + nm)
+    plans = layered._layer_plan(g, "cpu")
+    assert (kind == "irregular") == any(p["valid"] is not None
+                                        for p in plans)
+    state, active = list_state(g, 4, nm, state_kind, seed=q + nm + dc)
+    jg = JGraph.from_code(jfrom_parsed(JParsedMatrix(
+        parsed.n, parsed.m, parsed.q, parsed.row_cols,
+        parsed.row_coefs_poly)))
+    # the same code, coloured into the same super-layers in both packages
+    for p, jp in zip(plans, jlayer_plan(jg), strict=True):
+        assert np.array_equal(p["cols"].numpy(), np.asarray(jp["cols"]))
+    sweep = jax.jit(jlist_iteration(jg, jlayer_plan(jg), nm, OFFSET,
+                                    nboper))
+    want = sweep(*(jnp.asarray(s.numpy()) for s in state),
+                 jnp.asarray(active.numpy()))
+    got = [s.clone() for s in state]
+    for p in plans:
+        listcn.list_layer_plain(*got, active, *layer_args(p), nm, nboper,
+                                OFFSET)
+    assert_same(got, want)
+    assert_frozen_kept(got, state, active)
+    assert not torch.equal(got[0][active], state[0][active])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("kind,q,dc,nm,nboper", [
+    ("regular", 16, 4, 8, 16),
+    ("irregular", 16, 6, 8, 16),
+    ("regular", 64, 4, 32, 64),
+    ("irregular", 64, 5, 25, 24),
+    ("regular", 64, 20, 32, 64),
+    ("irregular", 16, 4, 8, 0),                 # the exact mode
+])
+def test_list_layer_matches_pre_kernel_sweep(kind, q, dc, nm, nboper,
+                                             dtype):
+    """``list_layer`` (on CPU tensors: the plain version; the exact mode
+    through ``list_layer_plain`` itself) against the sweep body before the
+    kernel, layer by layer, from random and decoded states at f32 and
+    bf16; no kernel launch is counted."""
+    _, g = make_codes(kind, q, dc, seed=3 * dc + nm)
+    step = listcn.list_layer_plain if nboper == 0 else cuda_list.list_layer
+    before = cuda_list.launches
+    states = [list_state(g, 5, nm, k, seed=dc + i, dtype=dtype)
+              for i, k in enumerate(("ties", "decoder"))]
+    states.append(decoded_state(g, 5, nm, nboper, dtype, seed=dc))
+    for state, active in states:
+        for p in layered._layer_plan(g, "cpu"):
+            got = [s.clone() for s in state]
+            want = [s.clone() for s in state]
+            step(*got, active, *layer_args(p), nm, nboper, OFFSET)
+            pre_kernel_layer(*want, active, p, nm, nboper, OFFSET)
+            assert_same(got, want)
+            assert_frozen_kept(got, state, active)
+    assert cuda_list.launches == before
+
+
+def bpsk_intrinsic(g, f, ebn0, seed):
+    """Intrinsic costs [F, N, q] of the all-zero codeword over BPSK + AWGN
+    (rate 1/2 noise), from a numpy generator."""
+    rng = np.random.default_rng(seed)
+    m = g.q.bit_length() - 1
+    sigma = np.sqrt(1 / (2 * 0.5 * 10 ** (ebn0 / 10)))
+    y = 1 + sigma * rng.standard_normal((f, g.code.n, m))
+    bits = (np.arange(g.q)[:, None] >> np.arange(m)) & 1        # [q, m]
+    cost = (2 * y / sigma ** 2) @ bits.T                       # [F, N, q]
+    return torch.from_numpy((cost - cost.min(-1, keepdims=True)).astype(
+        np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["regular", "irregular"])
+def test_decode_unchanged_under_both_loops(kind, dtype):
+    """``decode(storage="compressed", nboper=64)`` under the host and the
+    device loop gives the decisions, iterations and convergence of the
+    sweep before the kernel."""
+    q, dc, nm = 16, 4, 8
+    _, g = make_codes(kind, q, dc, seed=11)
+    intr = bpsk_intrinsic(g, 24, 1.0, seed=5)
+    torch_dtype = getattr(torch, dtype)
+
+    def old_iteration(app, cv_v, cv_g, cv_sat, active):
+        for p in layered._layer_plan(g, "cpu"):
+            pre_kernel_layer(app, cv_v, cv_g, cv_sat, active, p, nm, 64,
+                             OFFSET)
+
+    want = host_loop(*layered._compressed_stepper(g, nm, torch_dtype,
+                                                  old_iteration),
+                     intr.to(torch_dtype), 10)
+    assert int(want[1].max()) > 1 and bool(want[2].any())   # informative
+    cfg = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=nm,
+                        offset=OFFSET, nboper=64, storage="compressed",
+                        dtype=dtype)
+    for loop in ("host", "device"):
+        got = decode(g, intr, dataclasses.replace(cfg, loop=loop))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), loop
+
+
+@pytest.mark.parametrize("nm,nboper,dc,kernel", [
+    (8, 64, 4, True), (8, 0, 4, False), (65, 64, 4, False),
+    (8, 64, 20, True)])
+def test_route_is_chosen_when_the_stepper_is_built(monkeypatch, nm, nboper,
+                                                   dc, kernel):
+    """One ``list_layer`` call per super-layer where K3 takes the shape;
+    on CPU tensors ``list_layer_plain`` for nboper = 0 and for nm > 64 (the
+    wrapper is never called there).  On the card those raise
+    ``ValueError`` when the stepper is given its first state, before any
+    step (here shown on a "meta" tensor, which is no CPU tensor either,
+    and on the route a "cuda" device gets); ``plain`` alone takes the
+    plain version there."""
+    q = 256 if nm > 64 else 16
+    _, g = make_codes("regular", q, dc, seed=1)
+    calls = {"list_layer": 0, "list_layer_plain": 0}
+
+    def counting(name, fn):
+        def wrapped(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(cuda_list, "list_layer",
+                        counting("list_layer", cuda_list.list_layer))
+    monkeypatch.setattr(listcn, "list_layer_plain",
+                        counting("list_layer_plain", listcn.list_layer_plain))
+    init, step = layered.make_layered_list_stepper(g, nm, OFFSET, nboper,
+                                                   torch.float32)
+    assert sum(calls.values()) == 0
+    step(init(bpsk_intrinsic(g, 2, 1.0, seed=0)))
+    layers = len(g.layers)
+    want = {"list_layer": layers if kernel else 0}
+    # the wrapper runs the plain version on CPU tensors, unpatched
+    want["list_layer_plain"] = 0 if kernel else layers
+    assert calls == want
+    assert cuda_list.takes(dc, q, nm, nboper) == kernel
+    cuda = torch.device("cuda")
+    meta = torch.empty((2, g.code.n, q), device="meta")
+    assert layered._list_layer_step(g, nm, nboper, cuda, plain=True) \
+        is listcn.list_layer_plain
+    if kernel:
+        assert layered._list_layer_step(g, nm, nboper, cuda) \
+            is cuda_list.list_layer
+    else:
+        with pytest.raises(ValueError, match="does not take"):
+            layered._list_layer_step(g, nm, nboper, cuda)
+        with pytest.raises(ValueError, match="does not take"):
+            init(meta)
+
+
+def test_device_loop_restores_the_list_count():
+    """The device loop restores ``cuda_list.launches`` after a capture."""
+    assert device_loop._COUNTERS["list_layer"] == (cuda_list, "launches")
+    assert "list_layer" in device_loop.launch_counts()
+
+
+def test_shared_memory_layout_mirrors_the_source():
+    """The staircase's candidates and one warp's shared memory at the
+    bench shape and the limits' corners (``warp_bytes`` mirrors ``layout``
+    in csrc/list_checknode.cu)."""
+    assert cuda_list.staircase_pairs(32, 64) == 216
+    assert cuda_list.staircase_pairs(25, 24) == sum(
+        min(25, 24 // (i + 1)) for i in range(25))
+    assert cuda_list.staircase_pairs(64, 4096) == 64 * 64
+    # mvc 4 KiB, 8 lists of 32 (f32 + uint8), the 256-entry table
+    assert cuda_list.warp_bytes(4, 256, 32) == 4096 + 1024 + 256 + 1024
+    assert cuda_list.warps_per_block(4, 256, 32, 64) == 4
+    assert cuda_list.warps_per_block(20, 256, 64, 4096) >= 1
+    assert cuda_list.takes(20, 256, 64, 4096)
+    assert cuda_list.takes(1, 16, 16, 1) and cuda_list.takes(2, 2, 2, 1)
+    assert not cuda_list.takes(4, 256, 65, 64)
+    assert not cuda_list.takes(4, 256, 32, 0)
+    assert not cuda_list.takes(4, 48, 8, 64)
+    assert not cuda_list.takes(400, 256, 64, 64)   # a row's memory
+
+
+def rejection_case(bad):
+    """A small valid list_layer call, then one thing made wrong."""
+    _, g = make_codes("irregular", 16, 4, seed=2)
+    p = layered._layer_plan(g, "cpu")[0]
+    (app, cv_v, cv_g, cv_sat), active = list_state(g, 3, 8, "ties", seed=0)
+    args = dict(app=app, cv_v=cv_v, cv_g=cv_g, cv_sat=cv_sat, active=active,
+                cols=p["cols32"], edges=p["edge_ids32"], rc_in=p["rc_in"],
+                rc_out=p["rc_out"], valid=p["valid"], nm=8, nboper=16,
+                offset=OFFSET)
+    change = {
+        "app_f16": dict(app=app.half()),
+        "cv_v_bf16": dict(cv_v=cv_v.to(BF16)),
+        "cv_g_int32": dict(cv_g=cv_g.int()),
+        "cv_sat_f64": dict(cv_sat=cv_sat.double()),
+        "app_2d": dict(app=app[0]),
+        "cv_v_nm": dict(cv_v=cv_v[..., :4].contiguous()),
+        "cv_g_shape": dict(cv_g=cv_g[:, :-1].contiguous()),
+        "active_int": dict(active=active.int()),
+        "cols_int64": dict(cols=p["cols"]),
+        "edges_shape": dict(edges=p["edge_ids32"][:, :2].contiguous()),
+        "rc_in_shape": dict(rc_in=p["rc_in"][..., :2].contiguous()),
+        "rc_out_none": dict(rc_out=None),
+        "valid_shape": dict(valid=p["valid"][:, :2].contiguous()),
+        "app_strided": dict(app=app.transpose(0, 1).contiguous()
+                            .transpose(0, 1)),
+        "nm_over_q": dict(nm=80, cv_v=torch.zeros(cv_v.shape[:2] + (80,)),
+                          cv_g=torch.zeros(cv_g.shape[:2] + (80,),
+                                           dtype=torch.uint8)),
+        "nboper_0": dict(nboper=0),
+        "no_rows": dict(cols=p["cols32"][:0], edges=p["edge_ids32"][:0]),
+    }
+    if bad is not None:
+        args.update(change[bad])
+    return args, change
+
+
+BAD = ["app_f16", "cv_v_bf16", "cv_g_int32", "cv_sat_f64", "app_2d",
+       "cv_v_nm", "cv_g_shape", "active_int", "cols_int64", "edges_shape",
+       "rc_in_shape", "rc_out_none", "valid_shape", "app_strided",
+       "nm_over_q", "nboper_0", "no_rows"]
+
+
+@pytest.mark.parametrize("bad", BAD)
+def test_list_layer_rejects_bad_inputs(bad):
+    args, _ = rejection_case(bad)
+    want = TypeError if bad.split("_")[-1] in (
+        "f16", "bf16", "int32", "f64") else ValueError
+    with pytest.raises(want):
+        cuda_list.list_layer(**args)
+
+
+def test_rejection_case_is_valid_when_nothing_is_bad():
+    args, change = rejection_case(None)
+    assert sorted(change) == sorted(BAD)
+    cuda_list.list_layer(**args)
+
+
+@pytest.mark.cuda
+def test_list_layer_matches_plain_on_card():
+    """K3 against its plain version at small shapes, bit for bit but the
+    padding column and edge, at f32 and bf16, on the card (chip_smoke.py
+    3f runs the full-size comparison)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for kind, q, dc, nm, nboper in [("regular", 256, 4, 32, 64),
+                                    ("irregular", 64, 5, 25, 24),
+                                    ("regular", 64, 20, 8, 16)]:
+        _, g = make_codes(kind, q, dc, seed=4)
+        for dtype in (torch.float32, BF16):
+            state, active = list_state(g, 6, nm, "ties", seed=q, dtype=dtype)
+            for p in layered._layer_plan(g, "cuda"):
+                got = [s.cuda() for s in state]
+                want = [s.cuda() for s in state]
+                cuda_list.list_layer(*got, active.cuda(), *layer_args(p), nm,
+                                     nboper, OFFSET)
+                listcn.list_layer_plain(*want, active.cuda(),
+                                        *layer_args(p), nm, nboper, OFFSET)
+                for a, b, x in zip(got, want, state):
+                    assert torch.equal(a[:, :-1], b[:, :-1])
+                    assert torch.equal(a[:, -1].cpu(), x[:, -1])
