@@ -126,9 +126,12 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    24 on one plan), at f32 and bf16, from random compressed states
    ("decoder" and "ties": lists with repeated GF ids and unfilled tails)
    and from the states two plain steps of the decoder made, about a
-   quarter of the frames frozen; on odd random layers with padded slots
-   (``LIST_ODD``: q = 16 / 64 / 256, dc = 1 / 2 / 3 / 4 / 5 / 6 / 20,
-   nm = 4..64, nbOper from 4 to every candidate, a negative offset);
+   quarter of the frames frozen, and on one plan from a "flat" state
+   (every value of a message ties: only the GF ids order the keys); on odd
+   random layers with padded slots (``LIST_ODD``: q = 2 / 16 / 64 / 256,
+   dc = 1 / 2 / 3 / 4 / 5 / 6 / 20 / 120, nm = 1..64, 33 the first past the
+   32-key selection, nbOper from 1 to every candidate, a negative
+   offset);
    times K3 and its plain version in turns at F = 128 on an f32 and a bf16
    state, beside each bound; first, the wrapper's copy of K3's limits and
    block shape against the library's ``list_block_warps`` over a grid of
@@ -1659,6 +1662,10 @@ LIST_ODD = [               # (F, G, dc, q, nm, nbOper, offset, padded slots)
     (8, 30, 2, 16, 4, 8, OFFSET, 2),          # dc = 2: the swap
     (8, 25, 1, 16, 4, 4, OFFSET, 1),          # dc = 1: the neutral list
     (8, 40, 4, 64, 16, 8, -0.2, 3),           # a negative offset
+    (8, 40, 4, 256, 1, 1, OFFSET, 3),         # nm = 1
+    (8, 40, 4, 256, 33, 64, OFFSET, 3),       # the first past 32 keys
+    (8, 30, 3, 2, 2, 4, OFFSET, 2),           # q = 2
+    (4, 8, 120, 256, 64, 200, OFFSET, 9),     # dc = 120: one warp a block
 ]
 
 
@@ -1683,7 +1690,10 @@ def list_state(f, n1, e1, q, nm, cols, edges, kind, seed, dtype):
     the saturation, sat = last + offset), APP = X + the expanded CtoV on
     the layer's slots (X as ``spa_state``'s, or levels 0..5), the padding
     column and edge as a decoder holds them (0, ids 0..nm-1), rounded to
-    ``dtype``; active [F] with about a quarter of the frames frozen."""
+    ``dtype``; active [F] with about a quarter of the frames frozen.
+    "flat": CtoV values and saturations 0 and X one level 0..5 a column,
+    so that every value of a message ties and only the GF ids order the
+    keys of each selection."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     app, active = decoder_rows(f, n1, q, gen)
@@ -1694,13 +1704,17 @@ def list_state(f, n1, e1, q, nm, cols, edges, kind, seed, dtype):
                              device="cuda").float()
     else:
         cv_v = 10 * torch.rand((f, e1, nm), generator=gen, device="cuda")
+    if kind == "flat":
+        app = torch.randint(0, 6, (f, n1, 1), generator=gen,
+                            device="cuda").float().expand(f, n1, q).clone()
+        cv_v = torch.zeros((f, e1, nm), device="cuda")
     cv_v = cv_v.sort(dim=-1).values
     cv_v = cv_v - cv_v[..., :1]
-    cv_sat = cv_v[..., -1] + OFFSET
+    cv_sat = cv_v[..., -1] + (0.0 if kind == "flat" else OFFSET)
     tail = (torch.rand((f, e1, 1), generator=gen, device="cuda") < 1 / 3) \
         & (torch.arange(nm, device="cuda") >= nm // 2)
-    cv_sat = torch.where(tail.any(-1), cv_v[..., nm // 2 - 1] + OFFSET,
-                         cv_sat)
+    cv_sat = torch.where(tail.any(-1) & (kind != "flat"),
+                         cv_v[..., nm // 2 - 1] + OFFSET, cv_sat)
     cv_v = torch.where(tail, cv_sat[..., None], cv_v)
     cv_g = torch.randint(0, q, (f, e1, nm), generator=gen, device="cuda",
                          dtype=torch.int32).to(torch.uint8)
@@ -1843,14 +1857,21 @@ def check_list_kernel(graph):
         for k, p in enumerate(plans):
             worst = max(worst, check_list_case(f"layer {k} decoded", state,
                                                tables(p), main))
+        state = list_state(128, n1, e1, q, LIST_NM, plans[0]["cols"],
+                           plans[0]["edge_ids"], "flat", 1330, dtype)
+        worst = max(worst, check_list_case("layer 0 flat", state,
+                                           tables(plans[0]), main))
         del state
     for i, (f, g, dc, qo, nm, ops, off, pads) in enumerate(LIST_ODD):
         cols, edges, coefs, n1o, e1o = odd_layer(g, dc, qo, pads,
                                                  seed=1350 + i)
-        gf = get_gf(qo)
-        rc_in, rc_out = (torch.as_tensor(
-            listcn.mul_cols(gf, coefs.cpu().numpy(), inv), device="cuda")
-            for inv in (False, True))
+        if qo == 2:  # GF(2), which gf.py leaves out: h^-1 = h (1, or 0)
+            rc_in = rc_out = coefs[..., None].contiguous()
+        else:
+            gf = get_gf(qo)
+            rc_in, rc_out = (torch.as_tensor(
+                listcn.mul_cols(gf, coefs.cpu().numpy(), inv),
+                device="cuda") for inv in (False, True))
         layer = (cols, edges, rc_in, rc_out, coefs != 0)
         for dtype in (torch.float32, BF16):
             for kind in ("decoder", "ties"):

@@ -466,22 +466,60 @@ LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
                              "constexpr int BLOCKS_SM = 6;")]),
     "blocks_4": ("design", [("constexpr int BLOCKS_SM = 8;",
                              "constexpr int BLOCKS_SM = 4;")]),
+    # every selection over all 256 keys (the 64-key form, out of line)
+    "no_fast_path": ("design", [("  if (nm <= 32) {\n    out[0] = top_fast",
+                                 "  if (false) {\n    out[0] = top_fast")]),
+    # the merges and the slow selections inlined where they are called
+    "inline_merges": ("design", [
+        ("__device__ __noinline__ void merge(", "__device__ void merge(")]),
+    "inline_slow": ("design", [
+        ("__device__ __noinline__ void select_slow(",
+         "__device__ __forceinline__ void select_slow(")]),
+    # the staircase's candidates four a lane in flight
+    "unroll_candidates": ("design", [
+        ("  for (int c = lane; c < npairs; c += 32) {",
+         "#pragma unroll 4\n  for (int c = lane; c < npairs; c += 32) {")]),
+    # the bf16 roundings of mvc and the expansions two values a conversion
+    "paired_roundings": ("design", [
+        ("  for (int i = 0; i < 8; ++i) v[i] = from_bits(bf16_raw(v[i]));",
+         "  for (int i = 0; i < 8; i += 2) {\n"
+         "    const unsigned u = bf16x2(v[i], v[i + 1]);\n"
+         "    v[i] = __uint_as_float(u << 16);\n"
+         "    v[i + 1] = __uint_as_float(u & 0xffff0000u);\n  }")]),
+    # APP rows by scalar loads and stores, not 8- / 16-byte vectors
+    "scalar_rows": ("design", [("  p.vec = p.q >= 4 &&",
+                                "  p.vec = false &&")]),
+    # warp minima and maxima by 5 shuffles, not one redux.sync
+    "shuffle_reductions": ("design", [
+        ("  return fval(__reduce_min_sync(FULL, fkey(v)));",
+         "  for (int o = 16; o > 0; o >>= 1)\n"
+         "    v = fminf(v, __shfl_xor_sync(FULL, v, o));\n  return v;"),
+        ("  return fval(__reduce_max_sync(FULL, fkey(v)));",
+         "  for (int o = 16; o > 0; o >>= 1)\n"
+         "    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));\n  return v;")]),
     # what the time is spent on (their results are wrong)
+    # no key inserted after the 128-key fast path (exact where none is due)
+    "fast_only": ("diagnostic", [
+        ("    insert_rest(k, out[0], nm, lane);\n", "")]),
     "no_merges": ("diagnostic", [("dc >= 3 && u <= dc - 2;",
                                   "dc >= 3 && u <= 0;")]),
     "no_candidates": ("diagnostic", [
         ("for (int c = lane; c < npairs; c += 32) {",
          "for (int c = lane; c < 0; c += 32) {")]),
     "no_selections": ("diagnostic", [
-        ("  select_nm(k, nm, lane);\n", "\n"),
-        ("      select_nm(key, nm, lane);\n", "\n")]),
+        ("select_nm(k, out, tab, nm, lane)",
+         "(out[0] = k[0], out[1] = k[1])"),
+        ("select_nm(key, out, tab, nm, lane)",
+         "(out[0] = key[0], out[1] = key[1])")]),
     "no_rotations": ("diagnostic", [
-        ("  for (int b = 0; b < 8; ++b) out ^= (g >> b & 1) ? c[b] : 0;",
-         "  out = g;")]),
+        ("  return __shfl_sync(FULL, table, g & 15) ^\n"
+         "         __shfl_sync(FULL, table, 16 | (g >> 4 & 15));",
+         "  return g;")]),
     "no_writeback": ("diagnostic", [
-        ("          st(ap + s, __fadd_rn(mvc[k * q + s], d));",
-         "          if (d == -1.0f)\n"
-         "            st(ap + s, __fadd_rn(mvc[k * q + s], d));")]),
+        ("      store_row(app + (f * p.app_rows + col) * q, o, q, vec, lane);",
+         "      if (o[0] == -1.0f)\n"
+         "        store_row(app + (f * p.app_rows + col) * q, o, q, vec, "
+         "lane);")]),
 }
 
 

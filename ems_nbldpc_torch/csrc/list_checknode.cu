@@ -38,7 +38,7 @@
 // the candidates are visited: the top-nm of a message is the nm smallest
 // of its 256 keys, in order; a merge takes each staircase candidate
 // {(i+1)(j+1) <= nbOper} once, folds it into a per-GF minimum of its bf16
-// bits with a shared-memory atomicMin, and sorts the 256 keys
+// bits with a shared-memory atomicMin, and selects from the 256 keys
 // (min bits << 8 | g), an absent g as the plain version's dup marker
 // 0x7FFFFFFF, which comes out as value 1e9 and id = the slot.  That is
 // "the first of each GF run, then the nm smallest" of the plain version's
@@ -50,31 +50,45 @@
 // rows and the compressed CtoV once and write them once: 843,264,000 B on
 // a bf16 state, 0.2517 ms, and 1,642,291,200 B on an f32 one, 0.4902 ms.
 // Its operations (216 candidate sums a merge, 6 merges a row) are far
-// below that at 67 TFLOP/s.  What is hard is that it is all selections:
-// 10 top-nm selections of 256 keys a row (4 truncations, 6 merges), each a
-// chain of warp exchanges, and a scatter-min into a dense message twice a
-// slot.
+// below that at 67 TFLOP/s.  What holds it is instruction work and its
+// latency, not bytes: 10 top-nm selections of 256 keys a row (4
+// truncations, 6 merges), each a chain of warp shuffles and integer
+// minima; 6 x 216 shared-memory atomics for the merges' per-GF minima;
+// 8 rotations and 8 dense expansions a row.
 //
 // What this design does about it.
 // * One warp owns one row at a time and walks the rows of a persistent
 //   grid; no block barrier after the staircase's pair table is built.
-// * A selection holds the 256 keys in registers, 8 a lane, and keeps the
-//   32 (nm <= 32) or 64 smallest: a bitonic sort of runs of 32 in the form
-//   whose comparators all ascend, then three rounds that keep the smaller
-//   half of two runs (min of one against the other reversed) and merge it
-//   (top_keys): no sort in device memory, no histogram, no bisection.
-// * The dense messages (the CtoV expansion and the output expansion) and
-//   the merges' per-GF minima go through one 256-entry table of the warp
-//   in shared memory with atomicMin; mvc stays in shared memory between
-//   the truncation and the write-back, so the state is read once and
-//   written once.  A rotation XORs basis columns held in registers, one
-//   list entry a lane.
-// Where it stands (chip_smoke.py 3f and chip_variants.py --list, NVIDIA
-// H100 80GB HBM3, 700 W): 3.25 ms a call on the bf16 state, 3.14 on the
-// f32 one, against 103 ms for the plain version.  The selections take
-// ~2.0 ms of it (1.26 ms without them), a full 256-key sort in their
-// place took 4.56 ms, and rotations by a bit loop over the columns in
-// device memory, one lane per 8 entries, 5.9 ms.
+// * A selection sorts each lane's 8 keys in registers, then runs a bitonic
+//   top-32 on the lanes' 4 smallest (128 keys), halving the registers a
+//   lane holds at each round (4 -> 2 -> 1) and moving each round's result
+//   into the next layout by shuffles; the few keys it leaves out that
+//   belong to the nm smallest (a lane's 5th or later, rare) are inserted
+//   one at a time.  nm > 32 runs a 64-key form on all 256 keys, out of
+//   line.  The former form sorted runs of 32 of all 256 keys and kept all
+//   8 registers through three rounds: 96 shuffles a selection against 44
+//   now (24 to sort the runs, 19 for the two halvings, 1 for the check).
+// * A warp keeps one 256-entry table, cleared (two 16-byte stores a lane)
+//   before each use (14 a row at dc = 4): the expansions' and the merges'
+//   per-GF minima and the 64-key form's scratch.  Two tables, the merges'
+//   epoch-tagged so as never to be cleared, ran 6% slower (PERF.md §6).
+// * A list entry is one u32 (the key), so a candidate reads two words and
+//   takes its value with one byte permute; the merge is one out-of-line
+//   function, so that its code is not copied three times (inlined, the
+//   kernel ran ~5% slower: the inline_merges variant).
+// * APP rows move as 8- or 16-byte vectors (4 symbols a lane a access);
+//   mvc stays in shared memory in the state's type; warp minima and maxima
+//   are one redux.sync on order-preserving keys.
+// * A rotation (multiplication by h or h^-1) is two 16-entry XOR tables
+//   held one entry a lane and read by two shuffles.
+// Where it stands (chip_variants.py --list, the former form and this one
+// in turns; NVIDIA H100 80GB HBM3, 700 W): 1.83 ms a call on the bf16
+// state (14% of its bound) and 1.73 on the f32 one (28%), against 3.28 /
+// 3.17 for the former form, with 64 registers and no spills (68-76 bytes
+// before); the plain version takes ~103 ms.  Diagnostics (bf16 / f32):
+// without its selections 1.04 / 0.97 ms (2.0 ms of selections before,
+// ~0.8 now), without the merges 1.02 / 0.93, without the merges'
+// candidates 1.58 / 1.48, without the rotations 1.71 / 1.62.
 // A column or an edge out of range traps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +106,8 @@ constexpr float BIG = 1e9f;             // ops/listcn.BIG = ops/minconv.INF
 constexpr float HALF_BIG = 5e8f;        // listcn.saturate_list's BIG / 2
 constexpr unsigned DUP = 0x7fffffffu;   // listcn._DUP
 constexpr unsigned ABSENT = 0xffffffffu;
+constexpr unsigned DUP_ENTRY = 0x014e6e00u;  // an unfilled list entry
+//                       (flag bit 24, bf16(BIG) bits, the slot as its id)
 constexpr int WARPS = 4;                // warps per block
 constexpr int BLOCKS_SM = 8;            // blocks an SM the registers aim at
 constexpr int THREADS = 32 * WARPS;
@@ -118,6 +134,7 @@ struct Params {
   const uint8_t* valid;        // [G, dc] (0 = padded slot) or null
   long long T, G;              // rows F * G, layer rows
   int dc, q, logq, nm, nboper, npairs;
+  int vec;                     // APP rows as 8- / 16-byte vectors
   float offset;
 };
 
@@ -132,18 +149,18 @@ __host__ __device__ inline int n_lists(int dc) {
 }
 
 // Shared memory of one warp, carved in this order (ops/cuda_list.py
-// warp_bytes mirrors it): mvc [dc, q] f32, the list values [lists, nm]
-// f32 and ids (uint8), the warp's table [256] (u32).
+// warp_bytes mirrors it): mvc [dc, q] in the state's type (elem bytes),
+// the lists [lists, nm] (one u32 an entry) and one table [256] (u32),
+// cleared before each use: the expansions' and the merges' per-GF minima,
+// and a slow selection's scratch.
 struct Layout {
-  long long lv, lg, tab, total;
+  long long lists, tab, total;
 };
 
-__host__ __device__ inline Layout layout(int dc, int q, int nm) {
-  const long long lists = n_lists(dc);
+__host__ __device__ inline Layout layout(int dc, int q, int nm, int elem) {
   Layout l;
-  l.lv = align16(4LL * dc * q);
-  l.lg = l.lv + align16(4LL * lists * nm);
-  l.tab = l.lg + align16(lists * nm);
+  l.lists = align16(static_cast<long long>(elem) * dc * q);
+  l.tab = l.lists + align16(4LL * n_lists(dc) * nm);
   l.total = l.tab + 4LL * TAB;
   return l;
 }
@@ -184,48 +201,156 @@ __device__ __forceinline__ float from_bits(unsigned b) {
   return __uint_as_float(b << 16);
 }
 
-// A state element: load widened to f32, round to the state's dtype,
-// store (rounded).
+// A list entry: its value's bf16 bits over its GF id, as a selection's
+// key; an unfilled one (the plain version's dup marker: value BIG, id the
+// slot) is DUP_ENTRY | slot.  In a merge's sums an unfilled entry may
+// stand for bf16(BIG) (sum_value): a sum with BIG or with bf16(BIG) (every
+// value is >= 0) rounds to the same bits, bf16(BIG), after the clamp at
+// BIG; the saturation and the stored values need BIG itself (value).
+__device__ __forceinline__ float sum_value(unsigned c) {
+  return __uint_as_float(__byte_perm(c, 0, 0x2144));  // bits 8..23 << 8
+}
+
+__device__ __forceinline__ float entry_value(unsigned c) {
+  return c >> 24 ? BIG : sum_value(c);
+}
+
+// warp-wide min and max of floats, by redux.sync on their keys
+__device__ __forceinline__ float warp_min(float v) {
+  return fval(__reduce_min_sync(FULL, fkey(v)));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  return fval(__reduce_max_sync(FULL, fkey(v)));
+}
+
+__device__ __forceinline__ unsigned short bf16_raw(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Two values rounded to bf16 by one conversion: their bits (x low).
+__device__ __forceinline__ unsigned bf16x2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// A lane's 8 values rounded to the state's type.
+template <class ST>
+__device__ __forceinline__ void rnd8(float (&v)[8]) {}
+
+template <>
+__device__ __forceinline__ void rnd8<bf16_t>(float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = from_bits(bf16_raw(v[i]));
+}
+
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 
 __device__ __forceinline__ float ld(const bf16_t* p) {
   return from_bits(*reinterpret_cast<const unsigned short*>(p));
 }
 
-template <class ST>
-__device__ __forceinline__ float rnd(float x) {
-  return x;
-}
-
-template <>
-__device__ __forceinline__ float rnd<bf16_t>(float x) {
-  return from_bits(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ void st(bf16_t* p, float v) {
-  *reinterpret_cast<unsigned short*>(p) =
-      __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  *reinterpret_cast<unsigned short*>(p) = bf16_raw(v);
 }
 
-__device__ __forceinline__ float warp_min(float v) {
+// A lane's 8 symbols of a q-row: s = 128 (i / 4) + 4 lane + i % 4, so that
+// four consecutive symbols make one 8- or 16-byte access and a warp's
+// accesses are contiguous (no bank conflicts in shared memory).
+__device__ __forceinline__ int sym(int lane, int i) {
+  return (i >> 2) * 128 + 4 * lane + (i & 3);
+}
+
+// Four consecutive elements of a row (at a multiple of 4) as f32, and
+// back, rounded to the row's type.
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void ld4(const bf16_t* p, float* v) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(x.x << 16); v[1] = __uint_as_float(x.x & 0xffff0000u);
+  v[2] = __uint_as_float(x.y << 16); v[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(bf16_t* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+}
+
+// A lane's 8 elements of a q-row (sym order); absent symbols are left.
+template <class ST>
+__device__ __forceinline__ void load_row(const ST* row, float (&v)[8], int q,
+                                         bool vec, int lane) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
+  for (int h = 0; h < 2; ++h) {
+    const int s = sym(lane, 4 * h);
+    if (vec) {
+      if (s < q) ld4(row + s, v + 4 * h);
+    } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
+      for (int i = 0; i < 4; ++i)
+        if (s + i < q) v[4 * h + i] = ld(row + s + i);
+    }
+  }
 }
 
-// The comparators of the selection below, all ascending: registers i < j
-// of one lane, and register i against the partner lane's value o (the
-// lane whose key comes later keeps the larger).
+template <class ST>
+__device__ __forceinline__ void store_row(ST* row, const float (&v)[8],
+                                          int q, bool vec, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = sym(lane, 4 * h);
+    if (vec) {
+      if (s < q) st4(row + s, v + 4 * h);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (s + i < q) st(row + s + i, v[4 * h + i]);
+    }
+  }
+}
+
+// The 256 u32 of a warp's table in sym order, and a fill of all of it.
+__device__ __forceinline__ void read_tab(const unsigned* tab, unsigned (&t)[8],
+                                         int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 x = *reinterpret_cast<const uint4*>(tab + sym(lane, 4 * h));
+    t[4 * h] = x.x; t[4 * h + 1] = x.y; t[4 * h + 2] = x.z; t[4 * h + 3] = x.w;
+  }
+}
+
+__device__ __forceinline__ void fill_tab(unsigned* tab, unsigned v,
+                                         int lane) {
+  const uint4 x = make_uint4(v, v, v, v);
+  *reinterpret_cast<uint4*>(tab + sym(lane, 0)) = x;
+  *reinterpret_cast<uint4*>(tab + sym(lane, 4)) = x;
+}
+
+// ---- the selection: the nm smallest of the warp's 256 unique keys ----
+//
+// Each lane first sorts its 8 keys (sort8).  Then a bitonic top-k in the
+// form whose comparators all ascend: sort runs of RUN keys (key p =
+// R lane + i in register i), then halve: of two ascending runs A, B keep
+// C[j] = min(A[j], B[RUN-1-j]) (the RUN smallest of both, a bitonic run)
+// and merge it.  Each halving also halves the registers a lane holds, so
+// that a later merge moves half the keys of the one before: a lane of A
+// computes the first half of its positions of C, its mirror lane of B the
+// second half, and one shuffle a register puts C in the blocked layout of
+// the next round.  For nm <= 32 it runs on the lanes' 4 smallest alone
+// (128 keys, R = 4 -> 2 -> 1), which misses only keys of a lane that
+// holds 5 or more of the nm smallest: those (its 5th key and on, while
+// below the nm-th found) are inserted one at a time.  nm > 32 runs on all
+// 256 keys with RUN = 64 (R = 8 -> 4 -> 2), out of line.
+// tests/test_torch_list_layer.py replays these steps on the CPU.
 __device__ __forceinline__ void cx(unsigned& a, unsigned& b) {
   const unsigned lo = min(a, b), hi = max(a, b);
   a = lo;
@@ -237,123 +362,211 @@ __device__ __forceinline__ unsigned cx_lane(unsigned a, unsigned o,
   return upper ? max(a, o) : min(a, o);
 }
 
-// Half-cleaners of strides run/2 .. 1 over runs of `run` keys (key e =
-// 8 lane + i in register i): a bitonic run comes out ascending.  Inlined
-// into unrolled loops, so `run` is a constant there.
-__device__ __forceinline__ void merge_runs(unsigned (&k)[8], int lane,
+// A lane's 8 keys ascending: the 19-comparator network.
+__device__ __forceinline__ void sort8(unsigned (&k)[8]) {
+  cx(k[0], k[2]); cx(k[1], k[3]); cx(k[4], k[6]); cx(k[5], k[7]);
+  cx(k[0], k[4]); cx(k[1], k[5]); cx(k[2], k[6]); cx(k[3], k[7]);
+  cx(k[0], k[1]); cx(k[2], k[3]); cx(k[4], k[5]); cx(k[6], k[7]);
+  cx(k[2], k[4]); cx(k[3], k[5]);
+  cx(k[1], k[4]); cx(k[3], k[6]);
+  cx(k[1], k[2]); cx(k[3], k[4]); cx(k[5], k[6]);
+}
+
+// Half-cleaners of strides run/2 .. 1 over a bitonic run of keys
+// p = R lane + i: it comes out ascending.
+template <int R>
+__device__ __forceinline__ void half_clean(unsigned (&k)[8], int lane,
                                            int run) {
 #pragma unroll
-  for (int stride = run >> 1; stride > 0; stride >>= 1) {
-    if (stride >= 8) {
-      const int d = stride >> 3;
+  for (int s = run >> 1; s > 0; s >>= 1) {
+    if (s >= R) {
+      const int d = s / R;
       const bool upper = (lane & d) != 0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < R; ++i)
         k[i] = cx_lane(k[i], __shfl_xor_sync(FULL, k[i], d), upper);
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (!(i & stride)) cx(k[i], k[i | stride]);
+      for (int i = 0; i < R; ++i)
+        if (!(i & s)) cx(k[i], k[i | s]);
     }
   }
 }
 
-// The warp's 256 keys (key e = 8 lane + i in register i) -> the RUN
-// smallest, ascending, as keys 0..RUN-1 (lanes 0..RUN/8-1).  A bitonic
-// sort of runs of RUN keys in the form whose comparators are all
-// ascending (each merge opens by comparing key e with e ^ (size - 1)),
-// then log2(256 / RUN) rounds that keep, of two ascending runs A and B,
-// min(A[j], B[RUN-1-j]) (the RUN smallest of both, a bitonic run) and
-// merge it.  Compared with a full sort of the 256 keys it drops the
-// stages past RUN; the keys past RUN are left in no order.
-template <int RUN>
-__device__ __forceinline__ void top_keys(unsigned (&k)[8], int lane) {
+// One halving: runs of RUN keys over L lanes with R registers each ->
+// half as many runs over 2L lanes with R/2 registers, merged.  Position
+// nlo R/2 + i of the merged run comes from register i of lane nlo / 2 of
+// A (nlo even) or of its mirror lane in B (nlo odd).
+template <int RUN, int R, int L>
+__device__ __forceinline__ void halve(unsigned (&k)[8], int lane) {
+  constexpr int R2 = R / 2;
+  const bool upper = (lane & L) != 0;
+  unsigned c[R2];
 #pragma unroll
-  for (int size = 2; size <= RUN; size <<= 1) {
-    if (size <= 8) {
+  for (int i = 0; i < R2; ++i) {
+    const unsigned o =
+        __shfl_xor_sync(FULL, upper ? k[R - 1 - i] : k[R2 + i], 2 * L - 1);
+    c[i] = upper ? min(o, k[R2 - 1 - i]) : min(k[i], o);
+  }
+  const int nlo = lane & (2 * L - 1);
+  const int src = (lane & ~(2 * L - 1)) +
+                  ((nlo & 1) ? L + ((nlo >> 1) ^ (L - 1)) : nlo >> 1);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int j = i ^ (size - 1);
-        if (j > i) cx(k[i], k[j]);
-      }
-    } else {
-      const int m = (size - 1) >> 3;           // lanes of the mirror
-      const bool upper = (lane & (size >> 4)) != 0;
-      unsigned o[8];
+  for (int i = 0; i < R2; ++i) k[i] = __shfl_sync(FULL, c[i], src);
+  half_clean<R2>(k, lane, RUN);
+}
+
+// Ascending runs of RUN keys p = R lane + i from ascending runs of R in
+// each lane: each merge of two runs opens by comparing key p with
+// p ^ (size - 1).
+template <int R, int RUN>
+__device__ __forceinline__ void sort_runs(unsigned (&k)[8], int lane) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = __shfl_xor_sync(FULL, k[7 - i], m);
+  for (int size = 2 * R; size <= RUN; size <<= 1) {
+    const int m = (size - 1) / R;              // lanes of the mirror
+    const bool upper = (lane & (size / (2 * R))) != 0;
+    unsigned o[R];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) k[i] = cx_lane(k[i], o[i], upper);
+    for (int i = 0; i < R; ++i) o[i] = __shfl_xor_sync(FULL, k[R - 1 - i], m);
+#pragma unroll
+    for (int i = 0; i < R; ++i) k[i] = cx_lane(k[i], o[i], upper);
+    half_clean<R>(k, lane, size >> 1);
+  }
+}
+
+// The 64 smallest of 256 keys whose lanes hold them ascending (sort8):
+// entry e = 2 l + i in register i of lane l.
+__device__ __forceinline__ void top64(unsigned (&k)[8], int lane) {
+  sort_runs<8, 64>(k, lane);
+  halve<64, 8, 8>(k, lane);
+  halve<64, 4, 16>(k, lane);
+}
+
+// nm <= 32, the lanes' keys ascending: the 32 smallest of the lanes' 4
+// smallest (128 keys), the same steps on half the registers; lane j gets
+// the j-th.
+__device__ __forceinline__ unsigned top_fast(const unsigned (&k)[8],
+                                             int lane) {
+  unsigned w[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = k[i];
+  sort_runs<4, 32>(w, lane);
+  halve<32, 4, 8>(w, lane);
+  halve<32, 2, 16>(w, lane);
+  return w[0];
+}
+
+// The keys top_fast left out that belong to the nm smallest: while a
+// lane's next key (its 5th, 6th, ...) lies below the nm-th of the warp's
+// list w (lane j its j-th), insert it there (the list's last drops).  A
+// lane's keys ascend, so once its next is not below the nm-th, none of
+// the rest is.  Rarely any: a lane must hold 5 or more of the nm smallest.
+__device__ __forceinline__ void insert_rest(const unsigned (&k)[8],
+                                            unsigned& w, int nm, int lane) {
+  unsigned t = __shfl_sync(FULL, w, nm - 1);
+  unsigned next = k[4];
+  int i = 4;
+  for (unsigned ball; (ball = __ballot_sync(FULL, next < t)) != 0;) {
+    const int src = __ffs(ball) - 1;
+    const unsigned x = __shfl_sync(FULL, next, src);
+    const unsigned below = __shfl_up_sync(FULL, w, 1);
+    w = w < x ? w : (lane == 0 || below < x ? x : below);
+    t = __shfl_sync(FULL, w, nm - 1);
+    if (lane == src) {
+      ++i;
+      next = i == 5 ? k[5] : i == 6 ? k[6] : i == 7 ? k[7] : ABSENT;
     }
-    merge_runs(k, lane, size >> 1);
-  }
-#pragma unroll
-  for (int off = RUN >> 3; off < 32; off <<= 1) {
-    const int m = off | ((RUN >> 3) - 1);      // B's lanes, reversed
-    unsigned o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = __shfl_xor_sync(FULL, k[7 - i], m);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) k[i] = min(k[i], o[i]);
-    merge_runs(k, lane, RUN);
   }
 }
 
-// The nm smallest of the warp's 256 keys, ascending, as keys 0..nm-1.
-__device__ __forceinline__ void select_nm(unsigned (&k)[8], int nm,
-                                          int lane) {
-  if (nm <= 32)
-    top_keys<32>(k, lane);
-  else
-    top_keys<64>(k, lane);
+// The 64 smallest of the 256 keys at scr (key 8 lane + i: the lane's
+// i-th, each lane's ascending), written back ascending to scr[0, 64).
+// Out of line: it runs only for nm > 32, and one copy keeps the kernel's
+// code small.
+__device__ __noinline__ void select_slow(unsigned* scr, int lane) {
+  unsigned k[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 x = *reinterpret_cast<const uint4*>(scr + 8 * lane + 4 * h);
+    k[4 * h] = x.x; k[4 * h + 1] = x.y; k[4 * h + 2] = x.z; k[4 * h + 3] = x.w;
+  }
+  __syncwarp();
+  top64(k, lane);
+  *reinterpret_cast<uint2*>(scr + 2 * lane) = make_uint2(k[0], k[1]);
+  __syncwarp();
 }
 
-// A slot's GF(2)-basis columns (rc_in or rc_out), one a register; and
-// listcn.rotate_ids of one id: the XOR of the columns of its bits.
-__device__ __forceinline__ void load_cols(int (&c)[8], const int* col,
-                                          int logq) {
-#pragma unroll
-  for (int b = 0; b < 8; ++b) c[b] = b < logq ? __ldg(col + b) : 0;
+// The nm smallest of the warp's 256 keys, ascending: out[u] = entry
+// lane + 32 u (u < 2; entries past nm are unspecified).  For nm > 32 it
+// overwrites the 256 words at scr, which may be the table the keys were
+// just read from: every lane's reads end before the first write.
+__device__ __forceinline__ void select_nm(unsigned (&k)[8],
+                                          unsigned (&out)[2], unsigned* scr,
+                                          int nm, int lane) {
+  sort8(k);
+  out[1] = DUP;
+  if (nm <= 32) {
+    out[0] = top_fast(k, lane);
+    insert_rest(k, out[0], nm, lane);
+    return;
+  }
+  __syncwarp();
+  *reinterpret_cast<uint4*>(scr + 8 * lane) = make_uint4(k[0], k[1], k[2], k[3]);
+  *reinterpret_cast<uint4*>(scr + 8 * lane + 4) =
+      make_uint4(k[4], k[5], k[6], k[7]);
+  __syncwarp();
+  select_slow(scr, lane);
+  out[0] = scr[lane];
+  out[1] = scr[lane + 32];
+  __syncwarp();
 }
 
-__device__ __forceinline__ int rotate(int g, const int (&c)[8]) {
-  int out = 0;
+// A slot's rotation (listcn.rotate_ids: the XOR of the GF(2)-basis
+// columns, rc_in or rc_out, of an id's bits) as two 16-entry tables held
+// one entry a lane: lane n < 16 the XOR of the columns of n's bits 0-3,
+// lane 16 + n of n's bits 4-7.  rotate is warp-wide (every lane calls it).
+__device__ __forceinline__ int rot_table(const int* col, int logq,
+                                         int lane) {
+  const int n = lane & 15, first = lane >> 4 << 2;
+  int t = 0;
 #pragma unroll
-  for (int b = 0; b < 8; ++b) out ^= (g >> b & 1) ? c[b] : 0;
-  return out;
+  for (int b = 0; b < 4; ++b)
+    if ((n >> b & 1) && first + b < logq) t ^= __ldg(col + first + b);
+  return t;
+}
+
+__device__ __forceinline__ int rotate(int g, int table) {
+  return __shfl_sync(FULL, table, g & 15) ^
+         __shfl_sync(FULL, table, 16 | (g >> 4 & 15));
 }
 
 // One staircase merge (list_combine, nbOper > 0): out = the nm smallest
-// distinct-GF sums of the lists a and b.
-__device__ void merge(const float* av, const uint8_t* ag, const float* bv,
-                      const uint8_t* bg, float* ov, uint8_t* og,
-                      unsigned* tab, const uint16_t* pairs, int npairs,
-                      int nm, int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) tab[i * 32 + lane] = ABSENT;
+// distinct-GF sums of the lists a and b, the per-GF minima of their bf16
+// bits folded into the warp's table.  Out of line (one copy).
+__device__ __noinline__ void merge(const unsigned* la, const unsigned* lb,
+                                   unsigned* lo, unsigned* tab,
+                                   const uint16_t* pairs, int npairs, int nm,
+                                   int lane) {
+  fill_tab(tab, ABSENT, lane);
   __syncwarp();
   for (int c = lane; c < npairs; c += 32) {
     const unsigned p = pairs[c];
-    const int i = p >> 8, j = p & 0xff;
-    atomicMin(tab + (ag[i] ^ bg[j]), bf16_bits(__fadd_rn(av[i], bv[j])));
+    const unsigned a = la[p >> 8], b = lb[p & 0xff];
+    atomicMin(tab + ((a ^ b) & 0xff),
+              bf16_bits(__fadd_rn(sum_value(a), sum_value(b))));
   }
   __syncwarp();
   unsigned k[8];
+  read_tab(tab, k, lane);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int s = i * 32 + lane;
-    const unsigned t = tab[s];
-    k[i] = t == ABSENT ? DUP : (t << 8 | s);
-  }
-  select_nm(k, nm, lane);
+  for (int i = 0; i < 8; ++i)
+    k[i] = k[i] != ABSENT ? (k[i] << 8 | sym(lane, i)) : DUP;
+  unsigned out[2];
+  select_nm(k, out, tab, nm, lane);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int e = lane * 8 + i;
-    if (e < nm) {
-      const bool dup = k[i] == DUP;
-      ov[e] = dup ? BIG : from_bits(k[i] >> 8);
-      og[e] = static_cast<uint8_t>(dup ? e : k[i] & 0xff);
-    }
+  for (int u = 0; u < 2; ++u) {
+    const int e = lane + 32 * u;
+    if (e < nm) lo[e] = out[u] == DUP ? (DUP_ENTRY | e) : out[u];
   }
   __syncwarp();
 }
@@ -364,6 +577,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
   const int dc = p.dc, q = p.q, nm = p.nm, logq = p.logq;
+  const bool vec = p.vec != 0;
   // the staircase's (i, j) pairs, once a block
   uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw);
   for (int idx = threadIdx.x; idx < nm * nm; idx += blockDim.x) {
@@ -378,14 +592,14 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const Layout lay = layout(dc, q, nm);
+  const Layout lay = layout(dc, q, nm, sizeof(ST));
   unsigned char* base =
       smem_raw + align16(2LL * p.npairs) + lay.total * warp;
-  float* mvc = reinterpret_cast<float*>(base);
-  float* lv = reinterpret_cast<float*>(base + lay.lv);
-  uint8_t* lg = base + lay.lg;
+  ST* mvc = reinterpret_cast<ST*>(base);
+  unsigned* lists = reinterpret_cast<unsigned*>(base + lay.lists);
   unsigned* tab = reinterpret_cast<unsigned*>(base + lay.tab);
-  // list L: values lv + L nm, ids lg + L nm; F[t] = dc + t - 1 (F[0] = 0),
+  const unsigned empty = fkey(BIG);  // an expansion's absent symbol
+  // list L: entries lists + L nm; F[t] = dc + t - 1 (F[0] = 0),
   // B[t] = 2 dc - 3 + t (B[dc-1] = dc - 1)
   auto fwd = [&](int t) { return t == 0 ? 0 : dc + t - 1; };
   auto bwd = [&](int t) { return t == dc - 1 ? dc - 1 : 2 * dc - 3 + t; };
@@ -401,67 +615,62 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
     const int* redges = p.edges + r * dc;
     // 1. the slots' lists: gathers, VN extrinsic, truncation, rotation
     for (int k = 0; k < dc; ++k) {
-      float* lvk = lv + k * nm;
-      uint8_t* lgk = lg + k * nm;
+      unsigned* lk = lists + k * nm;
       if (p.valid && !__ldg(p.valid + r * dc + k)) {
-        for (int e = lane; e < nm; e += 32) {
-          lvk[e] = e == 0 ? 0.0f : BIG;
-          lgk[e] = static_cast<uint8_t>(e);
-        }
+        for (int e = lane; e < nm; e += 32)
+          lk[e] = e == 0 ? 0u : (DUP_ENTRY | e);
         continue;
       }
       const int col = __ldg(rcols + k), edge = __ldg(redges + k);
       if (col < 0 || col >= p.app_rows || edge < 0 || edge >= p.cv_rows)
         __trap();
-      const ST* ap = app + (f * p.app_rows + col) * q;
       const long long ce = f * p.cv_rows + edge;
-      float a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i * 32 + lane < q) a[i] = ld(ap + i * 32 + lane);
-      const unsigned inf_key = fkey(BIG);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tab[i * 32 + lane] = inf_key;
+      const int rt = rot_table(p.rc_in + (r * dc + k) * logq, logq, lane);
+      float a[8] = {};
+      load_row(app + (f * p.app_rows + col) * q, a, q, vec, lane);
+      fill_tab(tab, empty, lane);
       __syncwarp();
-      for (int e = lane; e < nm; e += 32)
-        atomicMin(tab + p.cv_g[ce * nm + e], fkey(ld(cv_v + ce * nm + e)));
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = lane + 32 * u;
+        if (e < nm)
+          atomicMin(tab + p.cv_g[ce * nm + e], fkey(ld(cv_v + ce * nm + e)));
+      }
       const float sat = ld(cv_sat + ce);
       __syncwarp();
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], c[i]);
+      rnd8<ST>(a);
       float mn = __int_as_float(0x7f800000);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int s = i * 32 + lane;
-        if (s < q) {
-          const float c = rnd<ST>(fminf(fval(tab[s]), sat));
-          a[i] = rnd<ST>(__fsub_rn(a[i], c));
-          mn = fminf(mn, a[i]);
-        }
-      }
+      for (int i = 0; i < 8; ++i)
+        if (sym(lane, i) < q) mn = fminf(mn, a[i]);
       mn = warp_min(mn);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
+      rnd8<ST>(a);
       unsigned key[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int s = i * 32 + lane;
-        if (s < q) {
-          a[i] = rnd<ST>(__fsub_rn(a[i], mn));
-          mvc[k * q + s] = a[i];
-          key[i] = bf16_bits(a[i]) << 8 | s;
-        } else {
-          key[i] = ABSENT;
-        }
+        const int s = sym(lane, i);
+        key[i] = s < q ? bf16_bits(a[i]) << 8 | s : ABSENT;
       }
-      int rc[8];
-      load_cols(rc, p.rc_in + (r * dc + k) * logq, logq);
-      select_nm(key, nm, lane);
-      // the nm smallest through the table (free now): one entry a lane
+      store_row(mvc + k * q, a, q, q >= 4, lane);
+      unsigned out[2];
+      select_nm(key, out, tab, nm, lane);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (lane * 8 + i < nm) tab[lane * 8 + i] = key[i];
-      __syncwarp();
-      for (int e = lane; e < nm; e += 32) {
-        const unsigned t = tab[e];
-        lvk[e] = from_bits(t >> 8);
-        lgk[e] = static_cast<uint8_t>(rotate(t & 0xff, rc));
+      for (int u = 0; u < 2; ++u) {
+        const int e = lane + 32 * u;
+        if (u == 0 || nm > 32) {
+          const int g = rotate(out[u] & 0xff, rt) & 0xff;
+          if (e < nm) lk[e] = (out[u] & 0xffffff00u) | g;
+        }
       }
       __syncwarp();
     }
@@ -469,25 +678,22 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
     // the swap, else the forward and backward merges, then the middles
     // (out[k] into list k, which no later merge reads)
     if (dc == 1) {
-      for (int e = lane; e < nm; e += 32) {
-        lv[e] = e == 0 ? 0.0f : BIG;
-        lg[e] = static_cast<uint8_t>(e);
-      }
+      for (int e = lane; e < nm; e += 32)
+        lists[e] = e == 0 ? 0u : (DUP_ENTRY | e);
       __syncwarp();
     }
-    const uint16_t* pr = pairs;
     for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
       const int a = fwd(u - 1), o = fwd(u);
-      merge(lv + a * nm, lg + a * nm, lv + u * nm, lg + u * nm, lv + o * nm,
-            lg + o * nm, tab, pr, p.npairs, nm, lane);
+      merge(lists + a * nm, lists + u * nm, lists + o * nm, tab, pairs,
+            p.npairs, nm, lane);
       const int v = dc - 1 - u, b = bwd(v + 1), ob = bwd(v);
-      merge(lv + b * nm, lg + b * nm, lv + v * nm, lg + v * nm, lv + ob * nm,
-            lg + ob * nm, tab, pr, p.npairs, nm, lane);
+      merge(lists + b * nm, lists + v * nm, lists + ob * nm, tab, pairs,
+            p.npairs, nm, lane);
     }
     for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
       const int a = fwd(u - 1), b = bwd(u + 1);
-      merge(lv + a * nm, lg + a * nm, lv + b * nm, lg + b * nm, lv + u * nm,
-            lg + u * nm, tab, pr, p.npairs, nm, lane);
+      merge(lists + a * nm, lists + b * nm, lists + u * nm, tab, pairs,
+            p.npairs, nm, lane);
     }
     // 3. rotate out, saturate, write back the real slots
     for (int k = 0; k < dc; ++k) {
@@ -496,29 +702,26 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
                       : dc == 2 ? 1 - k
                       : k == 0 ? bwd(1)
                       : k == dc - 1 ? fwd(dc - 2) : k;
-      const float* ov = lv + src * nm;
-      const uint8_t* ogr = lg + src * nm;
-      int rc[8];
-      load_cols(rc, p.rc_out + (r * dc + k) * logq, logq);
-      const float v0 = ov[0];
+      const unsigned* ol = lists + src * nm;
+      const int rt = rot_table(p.rc_out + (r * dc + k) * logq, logq, lane);
+      const float v0 = entry_value(ol[0]);
       float v[2];
       int g[2];
       float last = 0.0f;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int e = lane + 32 * u;
+        const unsigned c = e < nm ? ol[e] : 0u;
+        g[u] = u == 0 || nm > 32 ? rotate(c & 0xff, rt) & 0xff : 0;
         if (e < nm) {
-          v[u] = __fsub_rn(ov[e], v0);
-          g[u] = rotate(ogr[e], rc) & 0xff;
+          v[u] = __fsub_rn(entry_value(c), v0);
           if (v[u] < HALF_BIG) last = fmaxf(last, v[u]);
         }
       }
       const float sat = __fadd_rn(warp_max(last), p.offset);
       const int col = __ldg(rcols + k), edge = __ldg(redges + k);
       const long long ce = f * p.cv_rows + edge;
-      const unsigned inf_key = fkey(BIG);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tab[i * 32 + lane] = inf_key;
+      fill_tab(tab, empty, lane);
       __syncwarp();
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -532,35 +735,42 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
       }
       if (lane == 0) st(cv_sat + ce, sat);
       __syncwarp();
-      ST* ap = app + (f * p.app_rows + col) * q;
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float m[8] = {}, o[8];
+      load_row(mvc + k * q, m, q, q >= 4, lane);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int s = i * 32 + lane;
-        if (s < q) {
-          const float d = rnd<ST>(fminf(fval(tab[s]), sat));
-          st(ap + s, __fadd_rn(mvc[k * q + s], d));
-        }
-      }
+      for (int i = 0; i < 8; ++i) o[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(o);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(m[i], o[i]);
+      store_row(app + (f * p.app_rows + col) * q, o, q, vec, lane);
       __syncwarp();
     }
   }
 }
 
 // Warps a block for a list CN the kernel takes (q a power of two <= 256,
-// 1 <= nm <= min(q, 64), nboper >= 1, dc >= 1): WARPS, fewer where their
-// shared memory and the staircase's pair table do not fit one block; 0
-// where it does not take the shape or not even one warp fits.
-// ops/cuda_list.py mirrors it (warps_per_block and limits_error), and
-// chip_smoke.py holds the two against each other (list_block_warps).
-int block_warps(int dc, int q, int nm, int nboper) {
+// 1 <= nm <= min(q, 64), nboper >= 1, dc >= 1) on a state of `elem`
+// bytes a value: WARPS, fewer where their shared memory and the
+// staircase's pair table do not fit one block; 0 where the kernel does
+// not take the shape or not even one warp fits.
+int warps_for(int dc, int q, int nm, int nboper, int elem) {
   if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q ||
       nm > MAX_NM || nboper < 1 || dc < 1)
     return 0;
-  const long long wb = layout(dc, q, nm).total;
   const long long room =
       BLOCK_LIMIT - align16(2LL * staircase_pairs(nm, nboper));
-  const long long w = room / wb;
+  const long long w = room / layout(dc, q, nm, elem).total;
   return static_cast<int>(w < WARPS ? (w < 0 ? 0 : w) : WARPS);
+}
+
+// The limits and block shape of an f32 state (a bf16 state's warps are
+// smaller: its block holds as many).  ops/cuda_list.py mirrors it
+// (warps_per_block and limits_error), and chip_smoke.py holds the two
+// against each other (list_block_warps).
+int block_warps(int dc, int q, int nm, int nboper) {
+  return warps_for(dc, q, nm, nboper, 4);
 }
 
 // A launch configuration, found once for each device, state type and
@@ -587,8 +797,11 @@ int launch_config(const Params& p, Config& out) {
       return 0;
     }
   Config c = {dev, p.dc, p.q, p.nm, p.nboper, 0, 0, 0};
-  c.wpb = block_warps(p.dc, p.q, p.nm, p.nboper);
-  c.smem = align16(2LL * p.npairs) + c.wpb * layout(p.dc, p.q, p.nm).total;
+  const int elem = static_cast<int>(sizeof(ST));
+  c.wpb = warps_for(p.dc, p.q, p.nm, p.nboper, elem);
+  if (c.wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  c.smem = align16(2LL * p.npairs) +
+           c.wpb * layout(p.dc, p.q, p.nm, elem).total;
   auto kern = list_kernel<ST>;
   // the same value for every shape, so no shape's setting undoes another's
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -612,11 +825,14 @@ int launch_config(const Params& p, Config& out) {
 }
 
 template <class ST>
-int launch(const Params& p, void* stream) {
+int launch(Params p, void* stream) {
   if (p.T <= 0) return 0;
   Config c;
   const int err = launch_config<ST>(p, c);
   if (err) return err;
+  // 4 consecutive values as one access: 16 (f32) or 8 (bf16) bytes
+  p.vec = p.q >= 4 &&
+          reinterpret_cast<uintptr_t>(p.app) % (4 * sizeof(ST)) == 0;
   const long long need = (p.T + c.wpb - 1) / c.wpb;
   list_kernel<ST><<<static_cast<unsigned>(need < c.resident ? need
                                                             : c.resident),

@@ -117,18 +117,20 @@ def staircase_pairs(nm: int, nboper: int) -> int:
 
 
 def warp_bytes(dc: int, q: int, nm: int) -> int:
-    """Shared memory of one warp (mirrors ``layout`` in the .cu source):
-    mvc [dc, q] f32, the lists' values (f32) and ids (uint8), dc of them
-    for dc <= 2 and 3 dc - 4 otherwise, and the warp's 256-entry table."""
+    """Shared memory of one warp on an f32 state (mirrors ``layout`` in
+    the .cu source; a bf16 state's mvc takes half): mvc [dc, q], the
+    lists (one u32 an entry: a value's bf16 bits over its GF id), dc of
+    them for dc <= 2 and 3 dc - 4 otherwise, and one 256-entry u32 table,
+    cleared before each use."""
     lists = dc if dc <= 2 else 3 * dc - 4
-    return (_a16(4 * dc * q) + _a16(4 * lists * nm) + _a16(lists * nm)
-            + 4 * TAB)
+    return _a16(4 * dc * q) + _a16(4 * lists * nm) + 4 * TAB
 
 
 def warps_per_block(dc: int, q: int, nm: int, nboper: int) -> int:
-    """Warps a block holds: WARPS, fewer where their shared memory and the
-    staircase's pair table do not fit one block, 0 if not even one warp
-    fits.  Where ``takes``, it equals the library's ``list_block_warps``
+    """Warps a block holds on an f32 state (a bf16 state's block holds as
+    many): WARPS, fewer where their shared memory and the staircase's pair
+    table do not fit one block; 0 if not even one warp fits.  Where
+    ``takes``, it equals the library's ``list_block_warps``
     (``block_warps`` in the .cu source, 0 outside its limits), which
     ``chip_smoke.py`` 3f holds it against on the card."""
     room = _build.SMEM_LIMIT - _a16(2 * staircase_pairs(nm, nboper))

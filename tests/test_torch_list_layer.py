@@ -386,8 +386,10 @@ def test_shared_memory_layout_mirrors_the_source():
     assert cuda_list.staircase_pairs(25, 24) == sum(
         min(25, 24 // (i + 1)) for i in range(25))
     assert cuda_list.staircase_pairs(64, 4096) == 64 * 64
-    # mvc 4 KiB, 8 lists of 32 (f32 + uint8), the 256-entry table
-    assert cuda_list.warp_bytes(4, 256, 32) == 4096 + 1024 + 256 + 1024
+    # mvc 4 KiB (f32), 8 lists of 32 u32 entries, one 256-entry u32 table
+    assert cuda_list.warp_bytes(4, 256, 32) == 4096 + 1024 + 1024
+    assert cuda_list.warp_bytes(120, 256, 64) == 122880 + 91136 + 1024
+    assert cuda_list.warps_per_block(120, 256, 64, 200) == 1
     assert cuda_list.warps_per_block(4, 256, 32, 64) == 4
     assert cuda_list.warps_per_block(20, 256, 64, 4096) >= 1
     assert cuda_list.takes(20, 256, 64, 4096)
@@ -396,6 +398,186 @@ def test_shared_memory_layout_mirrors_the_source():
     assert not cuda_list.takes(4, 256, 32, 0)
     assert not cuda_list.takes(4, 48, 8, 64)
     assert not cuda_list.takes(400, 256, 64, 64)   # a row's memory
+
+
+def _pr14_warps(dc, q, nm, nboper):
+    """Warps a block of the kernel's former layout: mvc in f32, the lists
+    as f32 values and uint8 ids, one 256-entry table."""
+    if (q < 2 or q > 256 or q & (q - 1) or not 1 <= nm <= min(q, 64)
+            or nboper < 1 or dc < 1):
+        return 0
+    a16 = cuda_list._a16
+    lists = dc if dc <= 2 else 3 * dc - 4
+    wb = a16(4 * dc * q) + a16(4 * lists * nm) + a16(lists * nm) + 1024
+    room = 232448 - a16(2 * cuda_list.staircase_pairs(nm, nboper))
+    return max(0, min(4, room // wb))
+
+
+def test_taken_shapes_keep_the_former_limits():
+    """Every shape the former layout took is taken.  On the grid that
+    chip_smoke.py 3f holds the wrapper against the library, the taken set
+    is the former one but for dc = 400, q = 64, nm = 25, which the 4-byte
+    list entries (5 before) bring within a block."""
+    grid = [(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 400)
+            for q in (2, 16, 48, 64, 256, 512)
+            for nm in (1, 4, 8, 12, 25, 32, 64, 65)
+            for ops in (0, 1, 4, 24, 64, 4096)]
+    more = [k for k in grid if cuda_list.takes(*k) != (_pr14_warps(*k) > 0)]
+    assert more == [(400, 64, 25, ops) for ops in (1, 4, 24, 64, 4096)]
+    assert all(cuda_list.takes(*k) for k in more)
+    for dc in range(1, 300, 7):
+        for q in (4, 64, 256):
+            for nm in (1, 8, 33, 64):
+                if _pr14_warps(dc, q, nm, 64):
+                    assert cuda_list.takes(dc, q, nm, 64)
+
+
+# ---- a model of K3's selection (select_nm in csrc/list_checknode.cu) ----
+#
+# The warp's 256 keys as a [32 lanes, 8 registers] array, a warp shuffle as
+# a permutation of the lanes: the same steps on the same positions as the
+# kernel, held against a sort.
+
+_NET8 = [(0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6), (3, 7),
+         (0, 1), (2, 3), (4, 5), (6, 7), (2, 4), (3, 5), (1, 4), (3, 6),
+         (1, 2), (3, 4), (5, 6)]
+_LANE = np.arange(32)
+_DUP = 0x7FFFFFFF
+
+
+def _cx(k, i, j):
+    lo, hi = np.minimum(k[:, i], k[:, j]), np.maximum(k[:, i], k[:, j])
+    k[:, i], k[:, j] = lo, hi
+
+
+def _cx_lane(k, o, upper):
+    return np.where(upper[:, None], np.maximum(k, o), np.minimum(k, o))
+
+
+def _half_clean(k, r, run):
+    s = run >> 1
+    while s > 0:
+        if s >= r:
+            d = s // r
+            k = _cx_lane(k, k[_LANE ^ d], (_LANE & d) != 0)
+        else:
+            for i in range(r):
+                if not i & s:
+                    _cx(k, i, i | s)
+        s >>= 1
+    return k
+
+
+def _sort_runs(k, r, run):
+    size = 2 * r
+    while size <= run:
+        o = k[_LANE ^ ((size - 1) // r)][:, ::-1]
+        k = _half_clean(_cx_lane(k, o, (_LANE & (size // (2 * r))) != 0),
+                        r, size >> 1)
+        size <<= 1
+    return k
+
+
+def _halve(k, r, lanes, run):
+    r2, upper = r // 2, (_LANE & lanes) != 0
+    c = np.empty((32, r2), dtype=k.dtype)
+    for i in range(r2):
+        o = np.where(upper, k[:, r - 1 - i], k[:, r2 + i])[_LANE ^ (2 * lanes
+                                                                    - 1)]
+        c[:, i] = np.where(upper, np.minimum(o, k[:, r2 - 1 - i]),
+                           np.minimum(k[:, i], o))
+    nlo = _LANE & (2 * lanes - 1)
+    src = (_LANE & ~(2 * lanes - 1)) + np.where(
+        nlo & 1, lanes + ((nlo >> 1) ^ (lanes - 1)), nlo >> 1)
+    return _half_clean(c[src], r2, run)
+
+
+def _top64(k):
+    """top64 on lanes whose keys ascend: the 64 smallest, ascending."""
+    k = _sort_runs(k, 8, 64)
+    return _halve(_halve(k, 8, 8, 64), 4, 16, 64).reshape(-1)
+
+
+def _insert_rest(k, w, nm):
+    """insert_rest: while a lane's next key (its 5th, 6th, ...) lies below
+    the nm-th of w, insert it into w (the last drops); returns (w, the
+    number of keys inserted)."""
+    nxt, used, n = k[:, 4].copy(), np.full(32, 4), 0
+    while (nxt < w[nm - 1]).any():
+        src = int(np.flatnonzero(nxt < w[nm - 1])[0])
+        x = nxt[src]
+        below = np.concatenate([w[:1], w[:-1]])
+        w = np.where(w < x, w, np.where((_LANE == 0) | (below < x), x, below))
+        used[src] += 1
+        nxt[src] = k[src, used[src]] if used[src] < 8 else 0xFFFFFFFF
+        n += 1
+    return w, n
+
+
+def select_model(keys, nm):
+    """(the nm smallest of 256 keys by K3's steps, the keys inserted after
+    the 128-key fast path): keys [256] in the kernel's symbol order
+    sym(lane, i) = 128 (i / 4) + 4 lane + i % 4."""
+    sym = np.array([128 * (i >> 2) + 4 * lane + (i & 3) for lane in range(32)
+                    for i in range(8)])
+    k = keys[sym].reshape(32, 8).copy()
+    for i, j in _NET8:                      # sort8: each lane ascending
+        _cx(k, i, j)
+    if nm > 32:                             # select_slow: all 256 keys
+        return _top64(k)[:nm], 0
+    w = _sort_runs(k[:, :4].copy(), 4, 32)  # top_fast: the lanes' 4 smallest
+    w = _halve(_halve(w, 4, 8, 32), 2, 16, 32)[:, 0]
+    w, n = _insert_rest(k, w, nm)
+    return w[:nm], n
+
+
+def _model_keys(kind, nm, rng):
+    """256 packed keys (bf16 bits << 8 | id) of one selection: "random"
+    values, "ties" (three levels), "flat" (one value: only the ids
+    order them), "absent" (fewer present ids than nm, the rest the dup
+    marker, as in a merge's table), "one_lane" (the smallest keys in one
+    lane's symbols, so that the fast path cannot hold)."""
+    ids = np.arange(256, dtype=np.int64)
+    vals = {"random": rng.integers(0, 0x4E6E, 256),
+            "ties": rng.integers(0x3F80, 0x3F83, 256),
+            "flat": np.full(256, 0x4000),
+            "absent": rng.integers(0, 0x4E6E, 256),
+            "one_lane": rng.integers(0x4000, 0x4E6E, 256)}[kind]
+    keys = vals.astype(np.int64) << 8 | ids
+    if kind == "absent":
+        keys[rng.permutation(256)[rng.integers(0, nm):]] = _DUP
+    if kind == "one_lane":
+        lane = rng.integers(32)
+        for i in range(8):
+            s = 128 * (i >> 2) + 4 * lane + (i & 3)
+            keys[s] = i << 8 | s
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "flat", "absent",
+                                  "one_lane"])
+@pytest.mark.parametrize("nm", [1, 31, 32, 33, 64])
+def test_selection_model_equals_a_sort(kind, nm):
+    """K3's selection steps (sort8, the 128-key fast path and the keys it
+    left out inserted, or past 32 the 256-key runs of 64 and halvings)
+    give the nm smallest keys, ascending, on tie-heavy, absent-heavy and
+    one-lane inputs; the flat input needs no insertion, the one-lane one
+    needs them; the 256-key form is also held alone, at every nm."""
+    rng = np.random.default_rng(nm * 7 + len(kind))
+    inserted = []
+    for _ in range(40):
+        keys = _model_keys(kind, nm, rng)
+        got, n = select_model(keys, nm)
+        np.testing.assert_array_equal(got, np.sort(keys)[:nm])
+        inserted.append(n)
+        sym = np.array([128 * (i >> 2) + 4 * lane + (i & 3)
+                        for lane in range(32) for i in range(8)])
+        k = np.sort(keys[sym].reshape(32, 8), axis=1)
+        np.testing.assert_array_equal(_top64(k)[:nm], np.sort(keys)[:nm])
+    if kind == "flat" and nm <= 32:
+        assert not any(inserted)
+    if kind == "one_lane" and 6 <= nm <= 32:
+        assert all(inserted)
 
 
 def rejection_case(bad):
