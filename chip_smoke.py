@@ -29,7 +29,19 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    tie order of the lists matters); at the four main shapes, times the
    fused kernel, the torch route around the bare kernel, the plain
    composition and the bare kernel in turns, beside the bound (bytes
-   at 3.35 TB/s against candidates at 67 TFLOP/s);
+   at 3.35 TB/s against candidates at 67 TFLOP/s); then K1's two further
+   modes, bit for bit: the dense min-convolution (``ems_rows(...,
+   dense=True)``: lists of all q entries) against ``ems_rows_plain(...,
+   dense=True)`` (``minconv.fb_checknode_dense``) at the layered and
+   flooding shapes (F = 16) with truncation at nm = 200 and without, and
+   on the odd shapes; padded rows past a block's shared memory, from K1's
+   workspace (``ROWS_WS``: q = 256, dc = 34 and 40 dense, dc = 66 and 70
+   top-k at nm = 32) and of dc = 2 and 1 (the swapped pair and the delta
+   message), both modes; the bare entry on bf16 rows against
+   ``fb_checknode_topk`` on the same bf16 rows (dc = 1, 2 and 40 among
+   them); the dense mode timed at the layered shape F = 128 in turns with
+   its plain version, the workspace at dc = 40 likewise, and the bare
+   entry on bf16 rows in turns with it on f32 rows;
 3b. SPA kernel against plain, both entries.  The bare
    ``ops/cuda_spa.spa_checknode`` against ``fht.spa_checknode_plain`` at
    the main paths' shapes (layered F = 16 and 128 with G = 1350
@@ -133,9 +145,22 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    32-key selection, nbOper from 1 to every candidate, a negative
    offset);
    times K3 and its plain version in turns at F = 128 on an f32 and a bf16
-   state, beside each bound; first, the wrapper's copy of K3's limits and
-   block shape against the library's ``list_block_warps`` over a grid of
-   shapes (``--only-3f``: phases 1, 2 and 3f alone, no result line);
+   state, beside each bound; first, the library's ``list_path`` refuses
+   what the wrapper's ``limits_error`` refuses over a grid of shapes, and
+   puts the bench row on the fast step (``--only-3f``: phases 1, 2 and 3f
+   alone, no result line);
+3g. K3's general step against ``list_layer_plain`` as 3f: the exact merge
+   (nbOper = 0) on the real code's three layer plans at F = 128, nm = 32,
+   f32 and bf16, from "decoder", "ties", "flat" and decoded states; odd
+   padded layers (``LIST_GENERAL``: nm 1 to q = 256 on both merges, q = 2
+   to 256, dc = 1 to 400, rows from the workspace at dc = 120 (exact) and
+   dc = 400 (staircase), a negative offset); a decode from the workspace
+   (20 rows of degree 34, nm = q, exact) under the device loop against the
+   host loop (6's checks) and through K3 against its plain version; then
+   timed at F = 128 beside the bound: the exact mode at nm = 32 in turns
+   with its plain version on both dtypes, at nm = q (the plain version
+   does not fit: not timed), and the staircase at nm = 65 (``--only-3g``:
+   phases 1, 2 and 3g alone, no result line);
 3b / 3c / 3e at bf16: each fused entry (``spa_layer``, ``syndrome_layer``,
    ``bubble_layer`` with both variants) on a bf16 state against its bf16
    plain version, on the real code's three layer plans at F = 128 and on
@@ -158,8 +183,8 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    decoder steps, that the generated codewords satisfy the syndrome,
    avg_it < 10 and FER <= 0.25;
 5. EMS determinism: one batch of 16 frames decoded (host loop) with the
-   kernel and with the plain torch CN gives identical decisions and
-   iteration counts;
+   kernel and with the plain torch CN (``plain``) gives identical
+   decisions and iteration counts, K1 3 launches a step, none plain;
 4b. SPA chain at full width (the SPA row of ``bench.py``): layered SPA,
    20 iterations, dense f32, 1.8 dB, F = 128, 256 frames, under the device
    loop and the host loop in turns (device, host, host, device, each loop
@@ -187,9 +212,18 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    traces one batch: 3 ``list_kernel`` a step, K3's and argmin's shares;
 5l. list-EMS decode both ways (host loop), at full width: 16 frames of
    the chain's first batch through K3 and through ``list_layer_plain`` on
-   the card (``plain``, no launch): identical decisions, iterations and
-   convergence (the differing frames printed); ``decode`` with nboper = 0
-   or nm = 65 (outside K3's limits) raises ``ValueError`` on the card;
+   the card (``plain``, no launch), at 4c's settings, with nbOper = 0 and
+   with nm = 65 (both on K3's general step): identical decisions,
+   iterations and convergence (the differing frames printed), 3
+   ``list_layer`` a step on the kernel side;
+4j. list-EMS chain with the exact merge: 4c's settings with nbOper = 0
+   (the CLI's default), device loop; checks 3 ``list_layer`` a step counted
+   on the card, none eager, no other kernel, avg_it < 10, FER <= 0.25;
+4k. the CLI's default decoder as a chain: layered EMS with nm = 0 under
+   ``cn_impl="auto"`` (no truncation: K1's dense min-convolution, lists of
+   256), 10 iterations, dense f32, 2.0 dB, F = 128, 256 frames, device
+   loop; checks 3 ``ems_rows`` a step counted on the card, none eager, no
+   other kernel, avg_it < 10, FER <= 0.25;
 4d. flooding EMS chain at full width: ``schedule="flooding"``, nm = 32,
    offset 0.3, ``cn_impl="pallas"``, 20 iterations, dense f32, 2.0 dB,
    F = 128, 256 frames, device loop; checks EMS kernel launches = 1 per
@@ -277,15 +311,19 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    version
    (``plain``): identical decisions and convergence, iteration counts
    within 1 (differences printed);
-5f. the plain dense min-conv CN, the compressed dense-CN decoder and
-   min-sum through the EMS kernel on the card: random_regular(96, 48, 16),
-   64 frames at 1.5 dB, one set of intrinsics, decoded by flooding and
-   layered ``cn="minsum"`` (nm = 0, the exact min-sum CN), layered
-   ``cn_impl="dense"``, layered ``storage="compressed", cn_impl="topk"``
-   (f32), and flooding and layered ``cn="minsum", cn_impl="pallas"``
-   (nm = 8), each on the card and on the CPU (plain versions there):
-   identical decisions, iterations and convergence; no kernel launch but
-   for the two ``pallas`` decodes (1 per flooding step, 1 per super-layer);
+5f. every EMS / min-sum ``cn_impl`` through K1 on the card:
+   random_regular(96, 48, 16), 64 frames at 1.5 dB, one set of
+   intrinsics, decoded by flooding and layered ``cn="minsum"`` (nm = 0,
+   the exact min-sum CN: K1's dense min-convolution), layered and flooding
+   ``cn_impl="dense"`` (nm = 8: truncation, then lists of all q), layered
+   ``"auto"`` at nm = 12 (> q/2: dense) and nm = 8 (top-k), flooding
+   ``"auto"``, layered ``"topk"``, layered ``storage="compressed",
+   cn_impl="topk"`` at f32 and bf16 (K1's bare entry), and flooding and
+   layered ``cn="minsum", cn_impl="pallas"`` (nm = 8), each on the card
+   and on the CPU (plain versions there; the compressed decoder at bf16
+   against its plain route on the card, as torch's CPU and card bf16
+   arithmetic round apart): identical decisions, iterations and
+   convergence; K1 launches 1 per flooding step, 1 per super-layer;
 6b. odd batches, F = 5, layered SPA and flooding EMS, each against the
    host loop as in 6: uniform random costs (no frame converges: the budget
    ends the loop, 20 steps) and the noiseless all-zero word (every frame
@@ -297,10 +335,17 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    ``--cn syndrome --iters 10`` (the syndrome chain's), with the QAM
    chain's (``--channel qam --rayleigh --cn spa --iters 20`` at
    ``QAM_SNR``), with the bubble chain's (``--cn-impl bubble --nm 32
-   --nboper 64 --iters 10`` at ``BUBBLE_DB``) and with 4i's (``--dtype
-   bfloat16 --cn spa --iters 20``), each against
+   --nboper 64 --iters 10`` at ``BUBBLE_DB``), with 4i's (``--dtype
+   bfloat16 --cn spa --iters 20``), in the reference's positional form
+   ``256 10 <file> 2.0 32 0.3 0`` (EMS nm = 32 through K1 under
+   ``--cn-impl auto``), with ``--storage compressed --nm 32 --iters 10``
+   at 1.8 dB and the default ``--nboper 0`` (K3's exact merge), and with
+   ``--cn ems --iters 10`` at 2.0 dB and the defaults otherwise (nm = 0,
+   ``--cn-impl auto``: K1's dense min-convolution), each against
    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
-   file: frames, frame errors, bit errors and iteration sum equal.
+   file: frames, frame errors, bit errors and iteration sum equal; the
+   launches of each CLI run, counted by the kernels on the card, all of
+   the one check-node kernel its decoder runs (K8 aside, on QAM).
 8a. iteration-budget snapshots (``sim/snapshots.run_snapshots``) of one
    batch (F = 128) at the EMS chain's settings, budgets (2, 5, 10): frame
    and bit errors do not rise with the budget and equal at 10 those of the
@@ -357,10 +402,12 @@ times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
 64-APSK shapes, for K9 the fused step at F = 128 (both variants, its old
 route) and the bare entry at the layered and flooding shapes, beside its
 plain version's and its bound; for K2, K7 and K9 the ``bf16_*`` fields of
-the fused entry on a bf16 state; for K3 ``list_layer`` at F = 128 on the
-bf16 state of the bench row, and ``f32_*`` on an f32 one), and ``{"ok":
-true, "device":
-{...}}``.  The run prints its time.  No JAX is imported.
+the fused entry on a bf16 state; for K1 the ``dense_*`` fields of its
+dense min-convolution at the layered shape; for K3 the ``exact_*``,
+``exact_nmq_*`` and ``stair65_*`` fields of 3g beside ``list_layer`` at
+F = 128 on the bf16 state of the bench row, and ``f32_*`` on an f32
+one), and ``{"ok": true, "device": {...}}``.  The run prints its time.
+No JAX is imported.
 """
 from __future__ import annotations
 
@@ -389,6 +436,7 @@ from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
 from ems_nbldpc_torch.decoder.graph import (DeviceGraph, clear_tables,
                                             rotation_table, upload)
 from ems_nbldpc_torch.decoder.layered import (_layer_plan,
+                                              decode_layered_compressed,
                                               decode_layered_hostloop,
                                               decode_layered_list_hostloop,
                                               make_layered_list_stepper)
@@ -398,7 +446,7 @@ from ems_nbldpc_torch.decoder.stats import (decode_flooding_stats,
 from ems_nbldpc_torch.gf import get_gf
 from ems_nbldpc_torch.models import channels, tools
 from ems_nbldpc_torch.models.channels import ChannelSpec
-from ems_nbldpc_torch.models.code import load, random_regular
+from ems_nbldpc_torch.models.code import from_parsed, load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
 from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_demap,
@@ -1728,16 +1776,16 @@ def list_state(f, n1, e1, q, nm, cols, edges, kind, seed, dtype):
     return (app.to(dtype), cv_v.to(dtype), cv_g, cv_sat.to(dtype), active)
 
 
-def decoded_list_state(graph, f, dtype, seed, steps=2):
+def decoded_list_state(graph, f, dtype, seed, steps=2, nboper=LIST_OPS):
     """A state the decoder itself made: ``steps`` steps of the list
-    stepper through its plain version on the card from a decoder-like
-    intrinsic (``spa_state``'s APP), with about a quarter of the frames
-    frozen afterwards."""
+    stepper (nm = LIST_NM, ``nboper``) through its plain version on the
+    card from a decoder-like intrinsic (``spa_state``'s APP), with about a
+    quarter of the frames frozen afterwards."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     x, active = decoder_rows(f, graph.code.n, graph.q, gen)
     intr = (x - x.min(dim=-1, keepdim=True).values).to(dtype)
-    init, step = make_layered_list_stepper(graph, LIST_NM, OFFSET, LIST_OPS,
+    init, step = make_layered_list_stepper(graph, LIST_NM, OFFSET, nboper,
                                            dtype, plain=True)
     state = init(intr)
     for _ in range(steps):
@@ -1750,11 +1798,13 @@ def list_layer_bound_ms(f_active, g, dc, q, nm, nb_oper, elem):
     and the compressed CtoV (``elem`` bytes a value, one a GF id) of the
     active frames read once and written once at 3.35 TB/s, against the
     operations (the VN extrinsic, its min and the two dense expansions,
-    6 a symbol; 3 (dc - 2) merges of a sum and a min a staircase
-    candidate) at 67 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    6 a symbol; 3 (dc - 2) merges of a sum and a min a candidate: the
+    staircase's, or all nm^2 in the exact mode, nbOper <= 0) at 67
+    TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    pairs = (nm * nm if nb_oper <= 0
+             else cuda_list.staircase_pairs(nm, nb_oper))
     nbytes = 2 * f_active * g * dc * (q * elem + nm * (elem + 1) + elem)
-    ops = f_active * g * (6 * dc * q + 3 * max(dc - 2, 0) * 2
-                          * cuda_list.staircase_pairs(nm, nb_oper))
+    ops = f_active * g * (6 * dc * q + 3 * max(dc - 2, 0) * 2 * pairs)
     return bound(nbytes, ops)
 
 
@@ -1795,29 +1845,33 @@ def check_list_case(label, state, layer, cn):
     return err
 
 
-def check_list_limits():
-    """3f: the wrapper's copy of K3's limits and block shape
-    (``cuda_list.takes``, ``warps_per_block``) against the built library's
-    own (``list_block_warps``, 0 outside its limits) over a grid of shapes
-    around the limits, LIST_ODD's and the bench row's included."""
+def check_list_limits(graph):
+    """3f: the library refuses exactly the list CNs that the wrapper's
+    ``limits_error`` (the plain version's limits) refuses, over a grid of
+    shapes around the limits, LIST_ODD's and LIST_GENERAL's included; the
+    bench row's shape runs the fast step, and the exact mode there the
+    general step in shared memory."""
     lib = cuda_list._lib()
-    shapes = {(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 400)
+    shapes = {(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 120,
+                                          400)
               for q in (2, 16, 48, 64, 256, 512)
-              for nm in (1, 4, 8, 12, 25, 32, 64, 65)
-              for ops in (0, 1, 4, 24, 64, 4096)}
-    shapes |= {(dc, q, nm, ops) for _, _, dc, q, nm, ops, _, _ in LIST_ODD}
-    bad = []
-    for dc, q, nm, ops in sorted(shapes):
-        want = (cuda_list.warps_per_block(dc, q, nm, ops)
-                if cuda_list.takes(dc, q, nm, ops) else 0)
-        got = lib.list_block_warps(dc, q, nm, ops)
-        if got != want:
-            bad.append(((dc, q, nm, ops), got, want))
-    print(f"list_layer limits: {len(shapes)} shapes, "
-          f"{sum(cuda_list.takes(*k) for k in shapes)} taken, the wrapper "
-          f"and the library agree on {len(shapes) - len(bad)}", flush=True)
-    check(not bad, f"cuda_list's limits differ from the library's "
-                   f"(shape, library, wrapper): {bad[:5]}")
+              for nm in (1, 4, 8, 12, 25, 32, 64, 65, 128, 256)
+              for ops in (-1, 0, 1, 4, 24, 64, 4096)}
+    shapes |= {(dc, q, nm, ops) for _, _, dc, q, nm, ops, _, _
+               in LIST_ODD + LIST_GENERAL}
+    bad = [k for k in sorted(shapes)
+           if (lib.list_path(*k) != 0) != cuda_list.takes(*k[:3])]
+    paths = collections.Counter(cuda_list.path(*k) for k in shapes)
+    print(f"list_layer limits: {len(shapes)} shapes, {paths[None]} refused "
+          f"by the library (paths {dict(paths)}), the wrapper's limits "
+          f"agree on {len(shapes) - len(bad)}", flush=True)
+    check(not bad, f"the library's limits differ from limits_error: "
+                   f"{bad[:5]}")
+    dc, q = graph.code.dc_max, graph.q
+    check(cuda_list.path(dc, q, LIST_NM, LIST_OPS) == "fast"
+          and cuda_list.path(dc, q, LIST_NM, 0) == "shared",
+          "the bench row does not run the fast step, or its exact mode "
+          "the general step in shared memory")
 
 
 def check_list_kernel(graph):
@@ -1830,7 +1884,7 @@ def check_list_kernel(graph):
     version at F = 128, every frame active, on both dtypes.  Returns (the
     largest error, {dtype: times})."""
     phase("3f list kernel (K3) against plain")
-    check_list_limits()
+    check_list_limits(graph)
     worst = 0.0
     code = graph.code
     plans = _layer_plan(graph, "cuda")
@@ -1863,20 +1917,11 @@ def check_list_kernel(graph):
                                            tables(plans[0]), main))
         del state
     for i, (f, g, dc, qo, nm, ops, off, pads) in enumerate(LIST_ODD):
-        cols, edges, coefs, n1o, e1o = odd_layer(g, dc, qo, pads,
-                                                 seed=1350 + i)
-        if qo == 2:  # GF(2), which gf.py leaves out: h^-1 = h (1, or 0)
-            rc_in = rc_out = coefs[..., None].contiguous()
-        else:
-            gf = get_gf(qo)
-            rc_in, rc_out = (torch.as_tensor(
-                listcn.mul_cols(gf, coefs.cpu().numpy(), inv),
-                device="cuda") for inv in (False, True))
-        layer = (cols, edges, rc_in, rc_out, coefs != 0)
+        layer, n1o, e1o = odd_list_layer(g, dc, qo, pads, seed=1350 + i)
         for dtype in (torch.float32, BF16):
             for kind in ("decoder", "ties"):
-                state = list_state(f, n1o, e1o, qo, nm, cols, edges, kind,
-                                   1360 + i, dtype)
+                state = list_state(f, n1o, e1o, qo, nm, layer[0], layer[1],
+                                   kind, 1360 + i, dtype)
                 worst = max(worst, check_list_case(f"odd {kind}", state,
                                                    layer, (nm, ops, off)))
     p = plans[0]
@@ -1909,6 +1954,332 @@ def check_list_kernel(graph):
               + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
               f"{100 * b_ms / times[key]['kernel']:.2f}% of it", flush=True)
         del state, copies, fns
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+LIST_GENERAL = [           # (F, G, dc, q, nm, nbOper, offset, padded
+    # slots) of list_layer's general step on random layer tables
+    (8, 60, 4, 256, 32, 0, OFFSET, 3),       # exact, the bench's nm
+    (8, 50, 3, 16, 8, 0, OFFSET, 3),
+    (8, 100, 6, 64, 12, 0, OFFSET, 5),
+    (8, 40, 4, 256, 1, 0, OFFSET, 3),        # nm = 1
+    (8, 30, 3, 2, 2, 0, OFFSET, 2),          # q = 2, nm = q
+    (8, 30, 2, 16, 4, 0, OFFSET, 2),         # dc = 2: the swap
+    (8, 25, 1, 16, 4, 0, OFFSET, 1),         # dc = 1: the neutral list
+    (8, 40, 4, 64, 16, 0, -0.2, 3),          # a negative offset
+    (8, 40, 3, 16, 16, 0, OFFSET, 12),       # nm = q, many neutral lists
+    (6, 40, 4, 64, 64, 0, OFFSET, 3),        # nm = q = 64
+    (2, 8, 4, 256, 256, 0, OFFSET, 2),       # nm = q = 256
+    (4, 40, 4, 256, 65, 0, OFFSET, 3),       # exact, past the fast step
+    (4, 8, 120, 256, 64, 0, OFFSET, 9),      # dc = 120: the workspace
+    (2, 4, 400, 64, 32, 64, OFFSET, 9),      # the staircase, workspace
+    (8, 40, 4, 256, 65, 64, OFFSET, 3),      # the staircase, nm = 65
+    (4, 20, 4, 256, 256, 64, OFFSET, 3),     # the staircase, nm = q
+    (4, 20, 4, 256, 256, 4096, OFFSET, 3),
+    (6, 20, 5, 256, 100, 300, -0.2, 2),
+]
+
+
+def odd_list_layer(g, dc, q, pads, seed):
+    """``odd_layer``'s random tables as a list layer: (cols, edges, rc_in,
+    rc_out, valid) and N + 1, E + 1."""
+    cols, edges, coefs, n1, e1 = odd_layer(g, dc, q, pads, seed)
+    if q == 2:  # GF(2), which gf.py leaves out: h^-1 = h (1, or 0)
+        rc_in = rc_out = coefs[..., None].contiguous()
+    else:
+        gf = get_gf(q)
+        rc_in, rc_out = (torch.as_tensor(
+            listcn.mul_cols(gf, coefs.cpu().numpy(), inv), device="cuda")
+            for inv in (False, True))
+    return (cols, edges, rc_in, rc_out, coefs != 0), n1, e1
+
+
+def check_list_general(graph):
+    """3g: K3's general step (the exact merge, nbOper = 0; lists up to
+    q = 256 on both merges; rows from the workspace) against
+    ``list_layer_plain``, bit for bit: the real code's three layer plans at
+    F = 128, nm = 32, nbOper = 0, f32 and bf16, from "decoder", "ties",
+    "flat" and decoded states; the odd padded layers of LIST_GENERAL; a
+    decode from the workspace (``check_workspace_decodes``); then timed at
+    F = 128 on layer 0 beside the bound: the exact mode at nm = 32
+    in turns with its plain version, at nm = q (the plain version's
+    [F, G, 2, 65536] candidates do not fit the card: not timed), and the
+    staircase at nm = 65 with its plain version.  Returns (the largest
+    error, {label: times})."""
+    phase("3g list kernel (K3): the exact mode, long lists, the workspace")
+    worst = 0.0
+    code = graph.code
+    plans = _layer_plan(graph, "cuda")
+    n1, e1, q = code.n + 1, graph.n_edges + 1, code.q
+
+    def tables(p):
+        return (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
+                p["valid"])
+
+    exact = (LIST_NM, 0, OFFSET)
+    check(cuda_list.path(code.dc_max, q, LIST_NM, 0) == "shared",
+          "the exact mode does not run the general step")
+    for dtype in (torch.float32, BF16):
+        for k, p in enumerate(plans):
+            for kind in ("decoder", "ties", "flat"):
+                state = list_state(128, n1, e1, q, LIST_NM, p["cols"],
+                                   p["edge_ids"], kind, 1400 + k, dtype)
+                worst = max(worst, check_list_case(
+                    f"layer {k} {kind}", state, tables(p), exact))
+                del state
+        state = decoded_list_state(graph, 128, dtype, seed=1420, nboper=0)
+        for k, p in enumerate(plans):
+            worst = max(worst, check_list_case(f"layer {k} decoded", state,
+                                               tables(p), exact))
+        del state
+    for i, (f, g, dc, qo, nm, ops, off, pads) in enumerate(LIST_GENERAL):
+        layer, n1o, e1o = odd_list_layer(g, dc, qo, pads, seed=1450 + i)
+        where = cuda_list.path(dc, qo, nm, ops)
+        check(where != "fast", f"LIST_GENERAL {i} runs the fast step")
+        for dtype in (torch.float32, BF16):
+            for kind in ("decoder", "ties"):
+                state = list_state(f, n1o, e1o, qo, nm, layer[0], layer[1],
+                                   kind, 1460 + i, dtype)
+                worst = max(worst, check_list_case(
+                    f"odd {where} {kind}", state, layer, (nm, ops, off)))
+                del state
+    check_workspace_decodes()
+    p = plans[0]
+    g, dc = p["cols32"].shape
+    f = 128
+    active = torch.ones(f, dtype=torch.bool, device="cuda")
+    times = {}
+    for label, nm, ops, dtypes, plain in (
+            ("exact", LIST_NM, 0, ((torch.float32, 4), (BF16, 2)), True),
+            ("exact_nmq", q, 0, ((BF16, 2), (torch.float32, 4)), False),
+            ("stair65", 65, LIST_OPS, ((BF16, 2),), True)):
+        for dtype, elem in dtypes:
+            state = list_state(f, n1, e1, q, nm, p["cols"], p["edge_ids"],
+                               "decoder", 8, dtype)[:4]
+            copies = {k: [x.clone() for x in state]
+                      for k in ("kernel", "plain")}
+            fns = {"kernel": lambda: cuda_list.list_layer(
+                       *copies["kernel"], active, *tables(p), nm, ops,
+                       OFFSET),
+                   "plain": lambda: listcn.list_layer_plain(
+                       *copies["plain"], active, *tables(p), nm, ops,
+                       OFFSET)}
+            order = (("plain", "kernel", "kernel", "plain") if plain
+                     else ("kernel", "kernel"))
+            got = collections.defaultdict(list)
+            reps = {"kernel": 10 if nm <= 2 * LIST_NM else 2, "plain": 2}
+            for name in order:
+                got[name].append(time_ms(fns[name], reps[name]))
+            b_ms, b_by = list_layer_bound_ms(f, g, dc, q, nm, ops, elem)
+            key = f"{label}_{'bf16' if dtype == BF16 else 'f32'}"
+            times[key] = dict({k: sum(v) / len(v) for k, v in got.items()},
+                              bound=b_ms, bound_by=b_by, nm=nm, nboper=ops)
+            times[key].setdefault("plain", None)
+            print(f"list_layer {label} {dtype} F={f} G={g} dc={dc} q={q} "
+                  f"nm={nm} nbOper={ops} ({cuda_list.path(dc, q, nm, ops)} "
+                  f"path): kernel "
+                  + " / ".join(f"{v:.4f}" for v in got["kernel"])
+                  + " ms, plain "
+                  + (" / ".join(f"{v:.4f}" for v in got["plain"])
+                     if plain else "not measured")
+                  + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+                  f"{100 * b_ms / times[key]['kernel']:.2f}% of it",
+                  flush=True)
+            del state, copies, fns
+            torch.cuda.empty_cache()
+    return worst, times
+
+
+def check_workspace_decodes():
+    """3g: a list-EMS decode whose rows run from K3's workspace (a code of
+    20 rows of degree 34 over 120 GF(256) columns, nm = q = 256, the
+    exact merge: 235,520 B a warp), under the device loop (the workspace
+    is allocated inside the graph's capture) against the host loop, and
+    the host loop through K3 against ``list_layer_plain`` on the card:
+    identical decisions, iterations and convergence."""
+    rng = np.random.default_rng(5)
+    n, m, dc, q = 120, 20, 34, 256
+    rows = [np.sort(rng.choice(n, dc, replace=False)) for _ in range(m)]
+    code = from_parsed(ParsedMatrix(n, m, q, rows,
+                                    [rng.integers(1, q, dc) for _ in rows]))
+    graph = DeviceGraph.from_code(code)
+    check(cuda_list.path(dc, q, q, 0) == "workspace",
+          "the workspace decode does not run from the workspace")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    x, _ = decoder_rows(4, n, q, gen)
+    intr = x - x.min(dim=-1, keepdim=True).values
+    dec = DecoderConfig(max_iters=3, schedule="layered", cn="ems", nm=q,
+                        offset=OFFSET, nboper=0, storage="compressed",
+                        dtype="float32")
+    n_layers = len(code.layers)
+    check_loops("list-EMS workspace", graph, intr, dec,
+                {"list_layer": n_layers})
+    outs = {}
+    for plain in (False, True):
+        reset_launches()
+        outs[plain] = tuple(x.cpu() for x in decode_layered_list_hostloop(
+            graph, intr, dec.max_iters, dec.nm, dec.offset, dec.nboper,
+            torch.float32, plain=plain)) + (
+            read_host_launches("3g workspace"),)
+    same = all(torch.equal(a, b) for a, b in zip(outs[False][:3],
+                                                  outs[True][:3]))
+    steps = int(outs[False][1].max())
+    print(f"list-EMS workspace F=4 N={n} M={m} dc={dc} nm={q} nbOper=0, "
+          f"kernel vs plain decode (host loop): identical decisions/"
+          f"iterations/convergence {same}; steps {steps}; launches kernel "
+          f"{outs[False][3]['list_layer']}, plain "
+          f"{sum(outs[True][3].values())}", flush=True)
+    check(same and outs[False][3]["list_layer"] == n_layers * steps > 0
+          and sum(outs[True][3].values()) == 0,
+          "the workspace decode differs from its plain version")
+    device_loop.clear()
+
+
+# (T, G, dc, q, nm, truncate, dense) of ems_rows on K1's further rows:
+# from its workspace (a warp's rows past a block's shared memory: lists of
+# all 256 entries from dc = 34, of 32 from dc = 66) and of dc <= 2
+ROWS_WS = [
+    (1200, 40, 34, 256, 200, True, True),
+    (800, 40, 40, 256, 256, False, True),
+    (600, 30, 66, 256, 32, True, False),
+    (300, 30, 70, 256, 32, True, False),
+    (2000, 50, 2, 256, 32, True, False),
+    (2000, 50, 2, 256, 200, True, True),
+    (999, 37, 1, 16, 4, True, False),
+    (999, 37, 1, 16, 16, False, True),
+    (640, 64, 2, 16, 16, False, True),
+]
+
+
+def check_kernel_modes(graph):
+    """3: K1's modes against their plain versions, bit for bit: the
+    dense min-convolution (``ems_rows(..., dense=True)``, lists of all q
+    entries) against ``ems_rows_plain(..., dense=True)``
+    (``fb_checknode_dense``) at the layered shape (G = 1350, F = 16) and
+    the flooding one (G = 4050, F = 16), with truncation at nm = 200 (ties
+    with the nm-th kept) and without, and on ROWS_ODD's padded shapes;
+    ROWS_WS's padded rows from K1's workspace (dc = 34 to 70 at q = 256,
+    dense and top-k) and of dc <= 2; the bare entry on bf16 rows against
+    ``fb_checknode_topk`` on the same bf16 rows; then the dense mode timed
+    at the layered shape F = 128 in turns with its plain version, the
+    workspace at dc = 40 (dense) likewise, and the bare entry on bf16 rows
+    in turns with it on f32 rows at the layered shape, each beside its
+    bound.  Returns (the largest error, times)."""
+    phase("3 EMS kernel (K1): the dense min-convolution, the workspace, "
+          "dc <= 2 and bf16 rows")
+    worst = 0.0
+    layer = _layer_plan(graph, "cuda")[0]
+    rows = _cn_row_tables(graph, "cuda")
+    main = {"layered": (layer["rot_in8"], layer["rot_out8"], layer["valid"]),
+            "flooding": (rows["rot_in"], rows["rot_out"], rows["valid"])}
+    cases = [(path, 16 * main[path][0].shape[0], *main[path], nm, truncate)
+             for path in ("layered", "flooding")
+             for nm, truncate in ((200, True), (256, False))]
+    cases = [case + (True,) for case in cases]
+    for i, (t, g, dc, q, nm, truncate) in enumerate(ROWS_ODD):
+        cases.append(("odd", t, *odd_tables(g, dc, q, seed=i), max(1, nm),
+                      truncate and nm < q, True))
+    for i, (t, g, dc, q, nm, truncate, dense) in enumerate(ROWS_WS):
+        cases.append(("workspace" if dc > 2 else f"dc={dc}", t,
+                      *odd_tables(g, dc, q, seed=40 + i), nm, truncate,
+                      dense))
+    for i, (path, t, rin, rout, valid, nm, truncate, dense) in enumerate(
+            cases):
+        for kind in KINDS:
+            _, dc, q = rin.shape
+            x = rows_input(t, dc, q, kind, seed=500 + i)
+            got = cuda_cn.ems_rows(x, rin, rout, valid, nm, OFFSET, truncate,
+                                   dense=dense)
+            want = cuda_cn.ems_rows_plain(x, rin, rout, valid, nm, OFFSET,
+                                          truncate, dense=dense)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            exact = torch.equal(got, want)
+            print(f"ems_rows {'dense' if dense else 'top-k'} {path} T={t} "
+                  f"G={rin.shape[0]} dc={dc} q={q} nm={nm} "
+                  f"truncate={truncate} {kind}: bit-exact={exact} "
+                  f"max_abs_err={err}", flush=True)
+            check(exact, f"ems_rows != plain at {path} T={t} dc={dc} "
+                         f"dense={dense} {kind}")
+            worst = max(worst, err)
+            del x, got, want
+    for i, (t, dc, q, nm) in enumerate(KERNEL_SHAPES[:1] + KERNEL_SHAPES[4:]
+                                       + [(500, 2, 256, 32), (300, 1, 16, 4),
+                                          (200, 40, 256, 32)]):
+        for kind in KINDS:
+            vr = kernel_input(t, dc, q, nm, kind, seed=600 + i).to(BF16)
+            got = cuda_cn.fb_checknode(vr, nm)
+            want = fb_checknode_topk(vr, nm)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            exact = torch.equal(got, want) and got.dtype == BF16
+            print(f"fb_checknode bf16 T={t} dc={dc} q={q} nm={nm} {kind}: "
+                  f"bit-exact={exact} max_abs_err={err}", flush=True)
+            check(exact, f"fb_checknode bf16 != plain at {(t, dc, q, nm)}")
+            worst = max(worst, err)
+            del vr, got, want
+    t = 128 * SLICE_ROWS
+    rin, rout, valid = main["layered"]
+    x = rows_input(t, 4, 256, "uniform", seed=9)
+    fns = {"kernel": lambda: cuda_cn.ems_rows(x, rin, rout, valid, 256,
+                                              OFFSET, False, dense=True),
+           "plain": lambda: cuda_cn.ems_rows_plain(x, rin, rout, valid, 256,
+                                                   OFFSET, False,
+                                                   dense=True)}
+    got = collections.defaultdict(list)
+    for name in ("plain", "kernel", "kernel", "plain"):
+        got[name].append(time_ms(fns[name], 5 if name == "kernel" else 1))
+    b_ms, b_by = ems_bound_ms(t, SLICE_ROWS, 4, 256, 256)
+    times = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                 bound_by=b_by, rows=t)
+    print(f"ems_rows dense layered T={t} G={SLICE_ROWS} dc=4 q=256 (lists "
+          f"of 256): kernel " + " / ".join(f"{v:.4f}" for v in got["kernel"])
+          + " ms, plain (fb_checknode_dense) "
+          + " / ".join(f"{v:.4f}" for v in got["plain"])
+          + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+          f"{100 * b_ms / times['kernel']:.2f}% of it", flush=True)
+    del x, fns
+    # the workspace: dense rows of dc = 40, 20 tables' worth of padded rows
+    t, g, dc = 4000, 40, 40
+    rin, rout, valid = odd_tables(g, dc, 256, seed=77)
+    x = rows_input(t, dc, 256, "uniform", seed=10)
+    fns = {"kernel": lambda: cuda_cn.ems_rows(x, rin, rout, valid, 200,
+                                              OFFSET, True, dense=True),
+           "plain": lambda: cuda_cn.ems_rows_plain(x, rin, rout, valid, 200,
+                                                   OFFSET, True,
+                                                   dense=True)}
+    got = collections.defaultdict(list)
+    for name in ("plain", "kernel", "kernel", "plain"):
+        got[name].append(time_ms(fns[name], 3 if name == "kernel" else 1))
+    b_ms, b_by = ems_bound_ms(t, g, dc, 256, 256)
+    times["ws"] = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
+                       bound_by=b_by, rows=t, dc=dc)
+    print(f"ems_rows dense workspace T={t} G={g} dc={dc} q=256 nm=200: "
+          f"kernel " + " / ".join(f"{v:.4f}" for v in got["kernel"])
+          + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
+          + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
+          f"{100 * b_ms / times['ws']['kernel']:.2f}% of it", flush=True)
+    del x, fns
+    # the bare entry on bf16 rows (converted to f32 and back around the
+    # kernel) in turns with it on the same rows in f32, layered shape
+    t, dc, q, nm = KERNEL_SHAPES[1]
+    vr = kernel_input(t, dc, q, nm, "uniform", seed=11)
+    vb = vr.to(BF16)
+    fns = {"bf16": lambda: cuda_cn.fb_checknode(vb, nm),
+           "f32": lambda: cuda_cn.fb_checknode(vr, nm)}
+    got = collections.defaultdict(list)
+    for name in ("f32", "bf16", "bf16", "f32"):
+        got[name].append(time_ms(fns[name], 5))
+    b_ms, b_by = bound(2 * 2 * t * dc * q, 2 * t * 3 * (dc - 2) * nm * q)
+    times["bare"] = dict({k: sum(v) / 2 for k, v in got.items()},
+                         bf16_bound=b_ms, bf16_bound_by=b_by, rows=t)
+    print(f"fb_checknode bare T={t} dc={dc} q={q} nm={nm}: bf16 rows "
+          + " / ".join(f"{v:.4f}" for v in got["bf16"]) + " ms, f32 rows "
+          + " / ".join(f"{v:.4f}" for v in got["f32"]) + " ms per call; "
+          f"bf16 bound {b_ms:.4f} ms ({b_by})", flush=True)
+    del vr, vb, fns
     torch.cuda.empty_cache()
     return worst, times
 
@@ -2232,38 +2603,42 @@ def check_bubble_decodes(mc, dec):
 def check_list_decodes(graph, intr, dec, n_layers):
     """5l: 16 frames of ``intr`` decoded (host loop) through K3 (3
     ``list_layer`` launches a step) and through ``list_layer_plain`` on the
-    card (no launch): identical decisions, iterations and convergence, the
-    frames that differ printed."""
+    card (no launch), at ``dec``'s settings, then with nbOper = 0 (the
+    exact merge) and with nm = 65 (the staircase past the fast step), both
+    on K3's general step: identical decisions, iterations and convergence,
+    the frames that differ printed.  Returns the kernel side's launches by
+    label."""
     phase("5l list-EMS kernel vs plain decode at full width")
     intr = intr[:16].to(dec.torch_dtype()).contiguous()
-    outs = {}
-    for plain in (False, True):
-        reset_launches()
-        outs[plain] = tuple(x.cpu() for x in decode_layered_list_hostloop(
-            graph, intr, dec.max_iters, dec.nm, dec.offset, dec.nboper,
-            dec.torch_dtype(), plain=plain)) + (read_host_launches("5l"),)
-    (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
-    differ = ((d_k != d_p).any(dim=1) | (it_k != it_p) | (c_k != c_p))
-    steps = int(it_k.max())
-    print(f"F=16: frames whose decisions, iterations or convergence differ: "
-          f"{differ.nonzero().flatten().tolist()}; iters {it_k.tolist()}; "
-          f"converged {int(c_k.sum())}/16; launches kernel {l_k}, plain "
-          f"{l_p}", flush=True)
-    check(not bool(differ.any()), "list-EMS kernel and plain decodes differ")
-    check(l_k["list_layer"] == n_layers * steps > 0
-          and sum(l_k.values()) == l_k["list_layer"]
-          and sum(l_p.values()) == 0,
-          f"list-EMS launches {l_k} (plain {l_p}) for {steps} steps")
-    # outside K3's limits the card raises; nothing gives way to plain
-    for label, change in (("nboper=0", dict(nboper=0)),
+    ran = {}
+    for label, change in (("", {}), ("nboper=0", dict(nboper=0)),
                           ("nm=65", dict(nm=65))):
-        bad = dataclasses.replace(dec, loop="host", **change)
-        try:
-            decode(graph, intr, bad)
-        except ValueError as err:
-            print(f"{label} on the card: ValueError ({err})", flush=True)
-        else:
-            check(False, f"a list-EMS decode with {label} ran on the card")
+        cfg = dataclasses.replace(dec, **change)
+        outs = {}
+        for plain in (False, True):
+            reset_launches()
+            outs[plain] = tuple(x.cpu() for x in decode_layered_list_hostloop(
+                graph, intr, cfg.max_iters, cfg.nm, cfg.offset, cfg.nboper,
+                cfg.torch_dtype(), plain=plain)) + (
+                read_host_launches(f"5l {label}"),)
+        (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
+        differ = ((d_k != d_p).any(dim=1) | (it_k != it_p) | (c_k != c_p))
+        steps = int(it_k.max())
+        where = cuda_list.path(graph.code.dc_max, graph.q, cfg.nm,
+                               cfg.nboper)
+        print(f"F=16 nm={cfg.nm} nbOper={cfg.nboper} ({where} path): frames whose decisions, iterations or convergence "
+              f"differ: {differ.nonzero().flatten().tolist()}; iters "
+              f"{it_k.tolist()}; converged {int(c_k.sum())}/16; launches "
+              f"kernel {l_k}, plain {l_p}", flush=True)
+        check(not bool(differ.any()),
+              f"list-EMS kernel and plain decodes differ {label}")
+        check(l_k["list_layer"] == n_layers * steps > 0
+              and sum(l_k.values()) == l_k["list_layer"]
+              and sum(l_p.values()) == 0,
+              f"list-EMS launches {l_k} (plain {l_p}) for {steps} steps "
+              f"{label}")
+        ran[label or "bench"] = l_k["list_layer"]
+    return ran
 
 
 def check_native(mc, dec, frames=32):
@@ -2593,39 +2968,70 @@ def read_host_launches(what) -> dict:
 
 
 def check_small_card_decodes():
-    """5f: the plain dense CN paths and the min-sum route through the EMS
-    kernel on the card against the same decodes on the CPU (plain
-    versions there), from one set of intrinsics made on the CPU."""
-    phase("5f dense min-conv CN, compressed dense-CN decoder and min-sum "
-          "through the EMS kernel, card vs CPU")
+    """5f: every ``cn_impl`` of the EMS and min-sum CNs on dense storage
+    and the compressed dense-CN decoder through K1 on the card (the dense
+    min-convolution: lists of all q entries; the compressed decoder: the
+    bare entry, at f32 and bf16) against the same decodes on the CPU
+    (plain versions there), from one set of intrinsics made on the CPU;
+    the compressed decoder at bf16 against its plain route on the card
+    (``plain``: torch's bf16 arithmetic rounds apart on the CPU and on the
+    card, ROADMAP Queue 3).  Returns each decode's K1 launches."""
+    phase("5f every EMS / min-sum cn_impl, the dense min-conv CN and the "
+          "compressed dense-CN decoder through K1, card vs CPU")
     code = random_regular(96, 48, 16, seed=0)
     cfg = SimConfig(ebn0_db=1.5, frames_per_batch=64, encode="device")
     _, intr = MonteCarlo(code, cfg, device="cpu").gen(0)
     base = DecoderConfig(max_iters=15, cn="ems", nm=8, offset=0.3,
                          loop="host", storage="dense", dtype="float32")
+    layers = len(code.layers)
+    graph = DeviceGraph.from_code(code)
+    ran = {}
     for name, dec, per_step in (
             ("flooding minsum", dataclasses.replace(
-                base, schedule="flooding", cn="minsum", nm=0), 0),
+                base, schedule="flooding", cn="minsum", nm=0), 1),
             ("layered minsum", dataclasses.replace(base, cn="minsum", nm=0,
-                                                   cn_impl="auto"), 0),
-            ("layered dense", dataclasses.replace(base, cn_impl="dense"), 0),
+                                                   cn_impl="auto"), layers),
+            ("layered dense", dataclasses.replace(base, cn_impl="dense"),
+             layers),
+            ("flooding dense", dataclasses.replace(
+                base, schedule="flooding", cn_impl="dense"), 1),
+            ("layered auto nm=12", dataclasses.replace(base, nm=12), layers),
+            ("layered auto", base, layers),
+            ("flooding auto", dataclasses.replace(base, schedule="flooding"),
+             1),
+            ("layered topk", dataclasses.replace(base, cn_impl="topk"),
+             layers),
             ("layered compressed topk", dataclasses.replace(
-                base, cn_impl="topk", storage="compressed"), 0),
+                base, cn_impl="topk", storage="compressed"), layers),
+            ("layered compressed topk bf16", dataclasses.replace(
+                base, cn_impl="topk", storage="compressed",
+                dtype="bfloat16"), layers),
             ("flooding minsum pallas", dataclasses.replace(
                 base, schedule="flooding", cn="minsum", cn_impl="pallas"), 1),
             ("layered minsum pallas", dataclasses.replace(
-                base, cn="minsum", cn_impl="pallas"), len(code.layers))):
+                base, cn="minsum", cn_impl="pallas"), layers)):
         reset_launches()
         card = [x.cpu() for x in decode(code, intr.cuda(), dec)]
         launches = read_host_launches(name)
-        host = decode(code, intr, dec)
+        if dec.dtype == "bfloat16":
+            ref = "the plain route on the card"
+            reset_launches()
+            host = [x.cpu() for x in decode_layered_compressed(
+                graph, intr.cuda().to(torch.bfloat16), dec.max_iters, dec.nm,
+                dec.offset, torch.bfloat16, plain=True)]
+            check(sum(read_host_launches(name).values()) == 0,
+                  f"{name}: the plain route launched a kernel")
+        else:
+            ref = "the CPU"
+            host = decode(code, intr, dec)
         same = all(torch.equal(a, b) for a, b in zip(card, host))
         steps = int(card[1].max())
-        print(f"{name}: identical decisions/iterations/convergence {same}; "
+        print(f"{name}: identical decisions/iterations/convergence to "
+              f"{ref} {same}; "
               f"iters max {steps} mean "
               f"{float(card[1].float().mean()):.4f}, converged "
               f"{int(card[2].sum())}/64; launches {launches}", flush=True)
-        check(same, f"{name}: card and CPU decodes differ")
+        check(same, f"{name}: the card's decode and {ref}'s differ")
         check(steps > 1, f"{name}: uninformative batch")
         check(launches == {"fb_checknode": per_step * steps,
                            "spa_checknode": 0, "spa_layer": 0,
@@ -2633,6 +3039,8 @@ def check_small_card_decodes():
                            "bubble_checknode": 0, "bubble_layer": 0,
                            "list_layer": 0},
               f"{name}: launched {launches} in {steps} steps")
+        ran[f"{name} (5f)"] = launches["fb_checknode"]
+    return ran
 
 
 def check_demap_decodes(mc, spec, dec, what):
@@ -2825,13 +3233,12 @@ def check_loops(path, graph, intr, dec, per_step):
 def plain_decode(graph, intr, dec, plain=True):
     """The host-loop decode of ``dec`` on ``intr`` (cast to its dtype)
     through the kernels (``plain=False``) or through their plain versions on
-    the card: ``plain`` for the SPA, syndrome and bubble steps, and the
-    plain torch CN ``cn_impl="topk"`` for K1's ``"pallas"``."""
+    the card (``plain``: the SPA, syndrome and bubble steps' plain versions
+    and the plain torch CN in place of K1)."""
     run = (decode_layered_hostloop if dec.schedule == "layered"
            else decode_flooding_hostloop)
-    impl = "topk" if plain and dec.cn_impl == "pallas" else dec.cn_impl
     return run(graph, intr.to(dec.torch_dtype()), dec.max_iters, nm=dec.nm,
-               offset=dec.offset, cn=dec.cn, cn_impl=impl,
+               offset=dec.offset, cn=dec.cn, cn_impl=dec.cn_impl,
                nboper=dec.nboper, plain=plain)
 
 
@@ -2894,15 +3301,30 @@ def check_odd_batches(code, decs):
     device_loop.clear()
 
 
-def check_cli(code):
+# the check-node kernels' launch counts (read_launches' keys), and the one
+# each fused entry's launches are a part of
+CN_TOPS = ("fb_checknode", "spa_checknode", "syndrome_checknode",
+           "bubble_checknode", "list_layer")
+TOP_OF = {"spa_layer": "spa_checknode", "syndrome_layer": "syndrome_checknode",
+          "bubble_layer": "bubble_checknode"}
+
+
+def check_cli(code, paths):
     """7: the CLI at full width on the code written as a UBS file, with the
     SPA row's settings, with the syndrome chain's (``--cn syndrome``, the
     ``DecoderConfig`` defaults), with the QAM chain's (4f: ``--channel
-    qam --rayleigh``), with the bubble chain's (4h: ``--cn-impl bubble``)
-    and with the dense bf16 SPA chain's (4i: ``--dtype bfloat16``), each
-    against ``MonteCarlo.run`` of the same config
-    and seed on ``load`` of that file: frames, frame errors, bit errors and
-    iteration sum equal."""
+    qam --rayleigh``), with the bubble chain's (4h: ``--cn-impl bubble``),
+    with the dense bf16 SPA chain's (4i: ``--dtype bfloat16``), in the
+    reference's positional form (``256 10 <file> 2.0 32 0.3 0``: EMS nm =
+    32 under ``--cn-impl auto``, K1's top-k route), with ``--storage
+    compressed --nm 32`` and the default ``--nboper 0`` (K3's exact merge
+    on an f32 state) and with ``--cn ems`` alone (the defaults: nm = 0
+    under ``--cn-impl auto``, K1's dense min-convolution), each against
+    ``MonteCarlo.run`` of the same config and seed on ``load`` of that
+    file: frames, frame errors, bit errors and iteration sum equal.  Each
+    CLI run's launches, counted by the kernels on the card, are all of the
+    one check-node kernel (entry) its decoder runs; they go into ``paths``
+    as "7 cli <label>"."""
     phase("7 CLI at full width")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "code_N8100_GF256.txt")
@@ -2912,26 +3334,44 @@ def check_cli(code):
             [code.row_coefs[r, :d] for r, d in enumerate(code.row_deg)]),
             path)
         bubble = dict(nm=BUBBLE_NM, nboper=BUBBLE_OPS, cn_impl="bubble")
-        for label, cn, iters, flags, spec, db, dec in (
-                ("--cn spa", "spa", 20, [], ChannelSpec(), 1.8, {}),
+        for label, cn, iters, flags, spec, db, dec, kernel in (
+                ("256 10 <file> 2.0 32 0.3 0", "ems", 10, None,
+                 ChannelSpec(), 2.0, dict(nm=32, offset=0.3, nboper=0),
+                 "fb_checknode"),
+                ("--cn ems", "ems", 10, [], ChannelSpec(), 2.0, {},
+                 "fb_checknode"),
+                ("--storage compressed --nm 32", "ems", 10,
+                 ["--storage", "compressed", "--nm", "32"], ChannelSpec(),
+                 1.8, dict(nm=32, storage="compressed"), "list_layer"),
+                ("--cn spa", "spa", 20, [], ChannelSpec(), 1.8, {},
+                 "spa_layer"),
                 ("--cn syndrome", "syndrome", 10, [], ChannelSpec(), 1.8,
-                 {}),
+                 {}, "syndrome_layer"),
                 ("--channel qam --rayleigh --cn spa", "spa", 20,
-                 ["--channel", "qam", "--rayleigh"], QAM_SPEC, QAM_SNR, {}),
+                 ["--channel", "qam", "--rayleigh"], QAM_SPEC, QAM_SNR, {},
+                 "spa_layer"),
                 ("--cn-impl bubble", "ems", 10,
                  ["--cn-impl", "bubble", "--nm", str(BUBBLE_NM),
                   "--nboper", str(BUBBLE_OPS)], ChannelSpec(), BUBBLE_DB,
-                 bubble),
+                 bubble, "bubble_layer"),
                 ("--dtype bfloat16 --cn spa", "spa", 20,
                  ["--dtype", "bfloat16"], ChannelSpec(), 1.8,
-                 {"dtype": "bfloat16"})):
-            out = os.path.join(tmp, f"out_{len(flags)}_{cn}")
+                 {"dtype": "bfloat16"}, "spa_layer")):
+            out = os.path.join(tmp, f"out_{len(label)}_{cn}")
+            if flags is None:  # the reference's positional form
+                argv = ["256", str(iters), path, str(db), "32", "0.3", "0",
+                        "--batch", "128"]
+            else:
+                argv = ["--matrix", path, "--cn", cn, "--iters", str(iters),
+                        "--batch", "128", "--max-frames", "256", "--ebn0",
+                        str(db), *flags]
+            reset_launches()
             t0 = time.perf_counter()
-            rc = cli.main(["--matrix", path, "--cn", cn, "--iters",
-                           str(iters), "--batch", "128", "--max-frames",
-                           "256", "--ebn0", str(db), "--out", out, "--quiet",
-                           *flags])
+            rc = cli.main(argv + ["--out", out, "--quiet"])
             seconds = time.perf_counter() - t0
+            launches = read_launches()
+            top = TOP_OF.get(kernel, kernel)
+            ran = {k: launches[k] for k in CN_TOPS if launches[k]}
             with open(os.path.join(out, "results.jsonl")) as f:
                 (rec,) = [json.loads(line) for line in f]
             device_loop.clear()
@@ -2955,9 +3395,15 @@ def check_cli(code):
             print(f"cli {label}: rc {rc} in {seconds:.1f} s (load, "
                   f"encoder, capture and 256 frames): frames, frame errors, "
                   f"bit errors, iteration sum {cli_counts}; MonteCarlo.run "
-                  f"{mc_counts}; text result file {text}", flush=True)
+                  f"{mc_counts}; text result file {text}; check-node "
+                  f"launches counted by the kernels {ran} ({kernel} "
+                  f"{launches[kernel]})", flush=True)
             check(rc == 0 and text and cli_counts == mc_counts,
                   f"the CLI's {label} run differs from MonteCarlo.run")
+            check(launches[kernel] > 0 and ran == {top: launches[kernel]},
+                  f"the CLI's {label} run launched {ran}, not {kernel} "
+                  f"alone")
+            paths[top][f"7 cli {label}"] = launches[kernel]
 
 
 def check_modules(code, enc, graph, paths):
@@ -3250,6 +3696,10 @@ def main(argv) -> int:
         check_list_kernel(graph)
         print("--only-3f: the other phases were not run", flush=True)
         return 0
+    if "--only-3g" in argv:
+        check_list_general(graph)
+        print("--only-3g: the other phases were not run", flush=True)
+        return 0
     if "--only-8" in argv:
         t0 = time.perf_counter()
         check_modules(code, gaussian_elimination(code), graph,
@@ -3263,11 +3713,13 @@ def main(argv) -> int:
         print("--only-bf16: the other phases were not run", flush=True)
         return 0
     max_err, k_times = check_kernel(graph)
+    modes_err, dense_times = check_kernel_modes(graph)
     spa_err, spa_times, layer_times = check_spa_kernel(graph)
     syn_err, syn_times, syn_layer = check_syndrome_kernel(graph)
     demap_err, demap_times = check_demap_kernel()
     bub_err, bub_times = check_bubble_kernel(graph)
     list_err, list_times = check_list_kernel(graph)
+    gen_err, gen_times = check_list_general(graph)
     b16 = {entry: check_bf16_layers(graph, entry) for entry in BF16_PHASES}
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
@@ -3300,14 +3752,21 @@ def main(argv) -> int:
     phase("5 EMS kernel vs plain decode at full width")
     intr16 = intr[:16].contiguous()
     outs = {}
-    for impl in ("pallas", "topk"):
-        d, it, conv = decode(graph, intr16, dataclasses.replace(
-            dec, cn_impl=impl, loop="host"))
-        outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
-    same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
+    for plain in (False, True):
+        reset_launches()
+        outs[plain] = tuple(x.cpu() for x in plain_decode(graph, intr16, dec,
+                                                          plain)) + (
+            read_host_launches("5"),)
+    same = all(torch.equal(a, b) for a, b in zip(outs[False][:3],
+                                                  outs[True][:3]))
     print(f"F=16: identical decisions/iterations/convergence: {same}; "
-          f"iters {outs['pallas'][1].tolist()}", flush=True)
+          f"iters {outs[False][1].tolist()}; launches kernel {outs[False][3]}"
+          f", plain {outs[True][3]}", flush=True)
     check(same, "kernel and plain decodes differ")
+    check(outs[False][3]["fb_checknode"]
+          == n_layers * int(outs[False][1].max()) > 0
+          and sum(outs[True][3].values()) == 0,
+          f"EMS launches {outs[False][3]} (plain {outs[True][3]})")
     check_bf16_path("layered EMS", graph, intr, dec,
                     {"fb_checknode": n_layers})
     if "--profile" in argv:
@@ -3437,7 +3896,7 @@ def main(argv) -> int:
     _, replay = check_loops("layered list-EMS", graph, intr, list_dec,
                             {"list_layer": n_layers})
     paths["list_layer"]["list-EMS row (6)"] = replay["list_layer"]
-    check_list_decodes(graph, intr, list_dec, n_layers)
+    ran_5l = check_list_decodes(graph, intr, list_dec, n_layers)
     if "--profile" in argv:
         prof = profile_batch(mc, "list")
         for key in ("spa_kernels", "syn_kernels", "bub_kernels"):
@@ -3449,6 +3908,33 @@ def main(argv) -> int:
         SUMMARY["list-EMS"][-1]["profile"] = prof
     free(mc)
     del mc, intr
+    paths["list_layer"].update({f"5l {k}": v for k, v in ran_5l.items()})
+
+    phase("4j list-EMS chain with the exact merge (nbOper = 0)")
+    exact_dec = dataclasses.replace(list_dec, nboper=0)
+    mc, ex_res, ex_launches = run_chain("list-EMS exact", code, enc,
+                                        exact_dec, 1.8)
+    check(ex_launches["list_layer"] == n_layers * ex_res.decoder_steps > 0
+          and sum(ex_launches.values()) == ex_launches["list_layer"],
+          f"list-EMS exact launches {ex_launches} for "
+          f"{ex_res.decoder_steps} decoder steps")
+    paths["list_layer"]["list-EMS exact (4j)"] = ex_launches["list_layer"]
+    free(mc)
+    del mc
+
+    phase("4k the CLI's default decoder (layered EMS, nm = 0, cn_impl auto)")
+    default_dec = DecoderConfig(max_iters=10, schedule="layered", cn="ems",
+                                nm=0, offset=0.3, cn_impl="auto",
+                                storage="dense", dtype="float32")
+    mc, df_res, df_launches = run_chain("default EMS (dense K1)", code, enc,
+                                        default_dec, 2.0)
+    check(df_launches["fb_checknode"] == n_layers * df_res.decoder_steps > 0
+          and sum(df_launches.values()) == df_launches["fb_checknode"],
+          f"default EMS launches {df_launches} for {df_res.decoder_steps} "
+          f"decoder steps")
+    paths["fb_checknode"]["default EMS (4k)"] = df_launches["fb_checknode"]
+    free(mc)
+    del mc
 
     phase("4d flooding EMS chain")
     fl_dec = DecoderConfig(max_iters=20, schedule="flooding", cn="ems", nm=32,
@@ -3470,10 +3956,9 @@ def main(argv) -> int:
     phase("5d flooding EMS kernel vs plain decode at full width")
     intr16 = mc.gen(0)[1][:16].contiguous()
     outs, fl_calls = {}, {}
-    for impl in ("pallas", "topk"):
+    for impl, plain in (("pallas", False), ("topk", True)):
         reset_launches()
-        d, it, conv = decode(graph, intr16, dataclasses.replace(
-            fl_dec, cn_impl=impl, loop="host"))
+        d, it, conv = plain_decode(graph, intr16, fl_dec, plain)
         outs[impl] = (d.cpu(), it.cpu(), conv.cpu())
         fl_calls[impl] = read_host_launches("5d")
     same = all(torch.equal(a, b) for a, b in zip(outs["pallas"], outs["topk"]))
@@ -3701,8 +4186,8 @@ def main(argv) -> int:
         "layered SPA": (spa_dec, {"spa_checknode": n_layers,
                                   "spa_layer": n_layers}),
         "flooding EMS": (fl_dec, {"fb_checknode": 1})})
-    check_small_card_decodes()
-    check_cli(code)
+    paths["fb_checknode"].update(check_small_card_decodes())
+    check_cli(code, paths)
     check_modules(code, enc, graph, paths)
 
     print(f"smoke run {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3718,7 +4203,8 @@ def main(argv) -> int:
         "entry_points": ["ems_rows", "fb_checknode"],
         "launches": sum(paths["fb_checknode"].values()),
         "paths": list(paths["fb_checknode"]),
-        "launches_by_path": paths["fb_checknode"], "max_abs_err": max_err,
+        "launches_by_path": paths["fb_checknode"],
+        "max_abs_err": max(max_err, modes_err),
         "rows": 128 * SLICE_ROWS, "ms": k_main["fused"],
         "plain_ms": k_main["plain"], "old_route_ms": k_main["old"],
         "bare_ms": k_main["bare"], "bound_ms": k_main["bound"],
@@ -3728,6 +4214,17 @@ def main(argv) -> int:
         "flooding_old_route_ms": k_flood["old"],
         "flooding_bare_ms": k_flood["bare"],
         "flooding_bound_ms": k_flood["bound"],
+        "dense_rows": dense_times["rows"], "dense_ms": dense_times["kernel"],
+        "dense_plain_ms": dense_times["plain"],
+        "dense_bound_ms": dense_times["bound"],
+        "dense_bound_by": dense_times["bound_by"],
+        "ws_rows": dense_times["ws"]["rows"], "ws_dc": dense_times["ws"]["dc"],
+        "ws_ms": dense_times["ws"]["kernel"],
+        "ws_plain_ms": dense_times["ws"]["plain"],
+        "ws_bound_ms": dense_times["ws"]["bound"],
+        "bare_bf16_ms": dense_times["bare"]["bf16"],
+        "bare_f32_ms": dense_times["bare"]["f32"],
+        "bare_bf16_bound_ms": dense_times["bare"]["bf16_bound"],
     }, {
         "name": "spa_checknode", "route": "cuda",
         "source": "ems_nbldpc_torch/csrc/spa_checknode.cu",
@@ -3809,7 +4306,8 @@ def main(argv) -> int:
         "entry_points": ["list_layer"],
         "launches": paths["list_layer"]["list-EMS row (4c)"],
         "paths": list(paths["list_layer"]),
-        "launches_by_path": paths["list_layer"], "max_abs_err": list_err,
+        "launches_by_path": paths["list_layer"],
+        "max_abs_err": max(list_err, gen_err),
         "frames": list_times["bf16"]["frames"],
         "rows": list_times["bf16"]["rows"], "ms": list_times["bf16"]["kernel"],
         "plain_ms": list_times["bf16"]["plain"],
@@ -3818,6 +4316,10 @@ def main(argv) -> int:
         "f32_ms": list_times["f32"]["kernel"],
         "f32_plain_ms": list_times["f32"]["plain"],
         "f32_bound_ms": list_times["f32"]["bound"],
+        **{f"{key}_{field}": val for key, t in gen_times.items()
+           for field, val in (("ms", t["kernel"]), ("plain_ms", t["plain"]),
+                              ("bound_ms", t["bound"]), ("nm", t["nm"]),
+                              ("nboper", t["nboper"]))},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

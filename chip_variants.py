@@ -38,10 +38,11 @@ dc = 4) at F = 128 with every frame active, 20 calls each by CUDA events:
   ``bubble_layer`` output is held against ``bubble_layer_plain`` (the real
   variants must equal it bit for bit).  Built in parallel.
 * list (nm = 32, nbOper = 64, offset 0.3): ``list_layer`` on a bf16 and
-  an f32 compressed state (``chip_smoke.list_state``, "decoder"); each
-  variant's output is held against ``list_layer_plain`` (the real
-  variants must equal it bit for bit but the padding column and edge).
-  Built in parallel.
+  an f32 compressed state (``chip_smoke.list_state``, "decoder"), the
+  staircase (the fast step) and beside it the exact merge (nbOper = 0,
+  the general step); each variant's output is held against
+  ``list_layer_plain`` in both modes (the real variants must equal it bit
+  for bit but the padding column and edge).  Built in parallel.
 
 "design" variants are alternatives the kernel does not take; "diagnostic"
 ones drop work (their results are wrong) to show what the time is spent
@@ -559,30 +560,33 @@ def list_main(names) -> int:
     p = _layer_plan(graph, "cuda")[0]
     layer = (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
              p["valid"])
-    cn = (cs.LIST_NM, cs.LIST_OPS, cs.OFFSET)
+    modes = {"": (cs.LIST_NM, cs.LIST_OPS, cs.OFFSET),   # the staircase
+             "exact ": (cs.LIST_NM, 0, cs.OFFSET)}
     active = torch.ones(128, dtype=torch.bool, device="cuda")
     states = {key: cs.list_state(128, graph.code.n + 1, graph.n_edges + 1,
                                  256, cs.LIST_NM, p["cols"], p["edge_ids"],
                                  "decoder", 7, dtype)[:4]
               for key, dtype in (("bf16", cs.BF16), ("f32", torch.float32))}
     want = {}
-    for key, state in states.items():
-        want[key] = [x.clone() for x in state]
-        listcn.list_layer_plain(*want[key], active, *layer, *cn)
+    for mode, cn in modes.items():
+        for key, state in states.items():
+            want[mode + key] = [x.clone() for x in state]
+            listcn.list_layer_plain(*want[mode + key], active, *layer, *cn)
     exact, times = {}, collections.defaultdict(list)
     for order in (names, names[::-1]):
         for name in order:
             cuda_list._lib = bind(built[name][0])
             t, ok = [], True
-            for key, state in states.items():
-                got = [x.clone() for x in state]
-                cuda_list.list_layer(*got, active, *layer, *cn)
-                torch.cuda.synchronize()
-                ok = ok and all(torch.equal(a[:, :-1], b[:, :-1])
-                                for a, b in zip(got, want[key]))
-                t.append(cs.time_ms(lambda: cuda_list.list_layer(
-                    *got, active, *layer, *cn), REPS))
-                del got
+            for mode, cn in modes.items():
+                for key, state in states.items():
+                    got = [x.clone() for x in state]
+                    cuda_list.list_layer(*got, active, *layer, *cn)
+                    torch.cuda.synchronize()
+                    ok = ok and all(torch.equal(a[:, :-1], b[:, :-1])
+                                    for a, b in zip(got, want[mode + key]))
+                    t.append(cs.time_ms(lambda: cuda_list.list_layer(
+                        *got, active, *layer, *cn), REPS))
+                    del got
             exact[name] = ok
             times[name].append(t)
     for name in names:
@@ -590,6 +594,9 @@ def list_main(names) -> int:
         print(f"{name:16s} {LIST_VARIANTS[name][0]:10s} list_layer F=128 "
               "bf16 " + " / ".join(f"{v:.4f}" for v in cols[0])
               + " ms, f32 " + " / ".join(f"{v:.4f}" for v in cols[1])
+              + " ms; exact (nbOper = 0) bf16 "
+              + " / ".join(f"{v:.4f}" for v in cols[2])
+              + " ms, f32 " + " / ".join(f"{v:.4f}" for v in cols[3])
               + f" ms; bit-exact vs plain {exact[name]}", flush=True)
     for name in names:
         if LIST_VARIANTS[name][0] == "design" and not exact[name]:
@@ -600,6 +607,8 @@ def list_main(names) -> int:
         "kind": LIST_VARIANTS[n][0],
         "list_layer_bf16_ms": [t[0] for t in times[n]],
         "list_layer_f32_ms": [t[1] for t in times[n]],
+        "exact_bf16_ms": [t[2] for t in times[n]],
+        "exact_f32_ms": [t[3] for t in times[n]],
         "bit_exact": exact[n]} for n in names}}))
     return 0
 

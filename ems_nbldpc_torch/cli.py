@@ -62,9 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nboper", type=int, default=0,
                    help="elementary-step candidate budget (reference arg 7);"
                         " 0 = exact top-nm merge; honored by the compressed"
-                        " truncated-list EMS path (whose CUDA kernel needs"
-                        " >= 1 on a card: 0 runs on --device cpu only) and"
-                        " by --cn-impl bubble / lbubble (0 = 2 nm there)")
+                        " truncated-list EMS path and by --cn-impl bubble /"
+                        " lbubble (0 = 2 nm there)")
     p.add_argument("--schedule", default="layered",
                    choices=["layered", "flooding"])
     p.add_argument("--cn", default="ems",

@@ -26,6 +26,24 @@
 // reference.  Every step is a selection, a gather, an exact min or one f32
 // add, so the result equals the plain composition (ops/cuda_cn.py,
 // ems_rows_plain) bit for bit.
+// Two modes widen it to the decoder's other EMS / min-sum routes:
+// * `lst` (the lists' length, nm or q) apart from nm (the truncation and
+//   saturation rank): lists of all q entries make step 4 the dense
+//   min-convolution (minconv.fb_checknode_dense) of the truncated inputs,
+//   since each output is then the exact minimum of the same f32 sums;
+// * `round_bf16`: every merge's output rounded to bf16 (nearest even), as
+//   fb_checknode_topk computes on bf16 tensors (each sum rounded, and
+//   rounding is monotone, so the minimum of the rounded sums is the
+//   rounded minimum); the bare entry's inputs are then bf16 values.
+// Rows of dc <= 2 have no merge: dc = 2 is the swapped pair and dc = 1 the
+// delta message (fb_checknode_dense's cases), with steps 1-3 and 5-7
+// around them as for any row.  Rows whose warp does not fit a block's
+// shared memory (lists of all 256 entries from dc = 34 on, of 32 entries
+// from dc = 66 on, at q = 256) run the same code from a workspace in
+// device memory: each warp of the grid owns one slot for F, B and the
+// lists, reads its row in place and stages nothing.  The caller allocates
+// the workspace for each call (ems_rows_workspace_bytes), so a CUDA
+// graph's capture takes it into the graph's pool.
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores).  At the layered call [172,800, 4, 256], nm = 32, it must read
@@ -62,7 +80,10 @@
 // dc = 4), each step 8 subtractions, 8 sign-bit adds and one warp
 // reduction per message, and its merges read 1 KB of shared memory per
 // warp per list entry.  At q = 256 a thread holds 128 registers, so 16
-// warps share an SM.
+// warps share an SM.  The dense mode (lists of all 256 entries) takes
+// 16.4 ms a layered call against 829 ms for fb_checknode_dense's torch
+// route and a 2.03 ms bound (its 1.4e11 candidate adds and minima).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +93,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float INF_COST = 1e9f;          // ops/minconv.INF
 constexpr int NB = 2;                     // messages bisected side by side
 constexpr int MAX_WARPS = 4;              // warps (rows in flight) per block
+constexpr long long BLOCK_LIMIT = 232448;  // dynamic shared memory a block
+constexpr long long WS_CAP = 256LL << 20;  // workspace bytes a call, at most
 
 // Launches of ems_rows_kernel on this device, counted by the kernel itself,
 // so that the launches a CUDA graph replays count too (ems_rows_launches).
@@ -87,7 +110,11 @@ struct Params {
   const uint8_t* valid;
   int truncate, normalize, vec16;  // truncate: steps 1 and 6
   float offset;
-  int warp_bytes;
+  int warp_bytes;                  // one warp's shared memory (no workspace)
+  int lst;                         // list length: nm, or q (dense)
+  int round_bf16;                  // round each merge's output to bf16
+  unsigned char* ws;               // the workspace, or null: shared memory
+  long long ws_warp_bytes;         // one warp's slot of the workspace
 };
 
 // Order-preserving unsigned key of a float (-0 maps to +0's key).
@@ -167,6 +194,31 @@ __device__ __forceinline__ void kth_keys(const unsigned (&key)[NB][PER],
     kth_keys_n<PER, 2>(key, nm, r);
 }
 
+// The list boundaries of the first nb messages for lists of n entries:
+// their n-th smallest keys, or for lists of all q symbols ~0u, above every
+// symbol's key (take_list then takes them all, with no bisection).
+template <int PER>
+__device__ __forceinline__ void list_bounds(const unsigned (&key)[NB][PER],
+                                            int nb, int n, int q,
+                                            unsigned (&r)[NB]) {
+  if (n >= q) {
+#pragma unroll
+    for (int m = 0; m < NB; ++m) r[m] = ~0u;
+  } else {
+    kth_keys<PER>(key, nb, n, r);
+  }
+}
+
+// A merge's outputs rounded to bf16, nearest even (round_bf16).
+template <int PER, int K>
+__device__ __forceinline__ void round_out(float (&o)[K][PER]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      o[k][i] = __bfloat162float(__float2bfloat16_rn(o[k][i]));
+}
+
 // The nm smallest (value, GF id) pairs of a message v (this lane reads its
 // own symbols s[i]) whose nm-th smallest key is `kth`: every entry below
 // it, then those equal to it in GF id order until nm are taken.  Slots are
@@ -244,18 +296,28 @@ __device__ __forceinline__ void stage(const Params& p, float* X,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int PER>
+// WS: the rows run from the workspace (a template argument, so that the
+// shared-memory form's pointers stay shared-memory ones: generic loads in
+// its merges cost it 1.6x)
+template <int PER, bool WS>
 __global__ void ems_rows_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int dc = p.dc, q = p.q, nm = p.nm, L = dc - 2;
+  const int dc = p.dc, q = p.q, nm = p.nm, lst = p.lst, L = dc - 2;
   const int n = dc * q;
+  // the staged row, then F, B and the lists, in shared memory; or F, B
+  // and the lists in this warp's workspace slot, the row read in place
   float* X = reinterpret_cast<float*>(smem_raw + warp * p.warp_bytes);
-  float* Fs = X + n;                      // F[k] at k*q, k = 0..dc-2
+  // F[k] at k*q, k = 0..dc-2
+  float* Fs = WS ? reinterpret_cast<float*>(
+                       p.ws + (static_cast<long long>(blockIdx.x) *
+                                   (blockDim.x >> 5) + warp) *
+                                  p.ws_warp_bytes)
+                 : X + n;
   float* Bs = Fs + (dc - 1) * q;          // B[k] at (k-1)*q, k = 1..dc-1
-  // 2L lists of nm pairs: slot k-1 = list(in[k]), k = 1..L;
+  // 2L lists of lst pairs: slot k-1 = list(in[k]), k = 1..L;
   // slot L+k-2 = list(B[k]), k = 2..dc-1
   float2* Lst = reinterpret_cast<float2*>(Bs + (dc - 1) * q);
   const unsigned key_inf = fkey(INF_COST);
@@ -270,10 +332,11 @@ __global__ void ems_rows_kernel(const Params p) {
                           (blockDim.x >> 5);
   long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
                   warp;
-  if (row < p.T) stage(p, X, row, lane);
+  if (!WS && row < p.T) stage(p, X, row, lane);
   for (; row < p.T; row += warps) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncwarp();
+    const float* Xr = WS ? p.x + row * n : X;
     const long long g = row % p.G;
     const uint8_t* rin = p.rot_in ? p.rot_in + g * n : nullptr;
     const uint8_t* rout = p.rot_out ? p.rot_out + g * n : nullptr;
@@ -282,8 +345,14 @@ __global__ void ems_rows_kernel(const Params p) {
     // prologue: rotate in, truncate, mask, parking each input in[k] at
     // its home (F[k] for k <= dc-2, whose slots the chain overwrites only
     // after their lists are taken; B[dc-1] for k = dc-1); registers hold
-    // the keys, and each lane touches only its own symbols of a home
-    for (int k0 = 0; k0 < dc; k0 += NB) {
+    // the keys, and each lane touches only its own symbols of a home.  A
+    // row of dc = 1 reads no input: its output, the delta message, is
+    // parked at F[0], where the epilogue reads out[dc-1].
+    if (dc == 1 && on) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) Fs[s[i]] = s[i] == 0 ? 0.0f : INF_COST;
+    }
+    for (int k0 = 0; k0 < (dc > 1 ? dc : 0); k0 += NB) {
       const int nb = min(NB, dc - k0);
       unsigned key[NB][PER], kth[NB];
 #pragma unroll
@@ -294,7 +363,7 @@ __global__ void ems_rows_kernel(const Params p) {
 #pragma unroll
           for (int i = 0; i < PER; ++i) {
             const int src = rin ? __ldg(rin + k * q + s[i]) : s[i];
-            const float v = X[k * q + src];
+            const float v = Xr[k * q + src];
             key[m][i] = on ? fkey(v) : ~0u;
             if (on) home[s[i]] = v;
           }
@@ -332,13 +401,15 @@ __global__ void ems_rows_kernel(const Params p) {
             }
           }
           // the truncation threshold is the list boundary of a valid slot
+          // whose lists are nm long
           const bool mid = k >= 1 && k <= L;
-          if (mid && !(p.truncate && ok && kth[m] <= key_inf)) want |= 1u << m;
+          if (mid && !(p.truncate && ok && kth[m] <= key_inf && lst == nm))
+            want |= 1u << m;
         }
       }
       if (want) {
         unsigned kth2[NB];
-        kth_keys<PER>(key, nb, nm, kth2);
+        list_bounds<PER>(key, nb, lst, q, kth2);
 #pragma unroll
         for (int m = 0; m < NB; ++m)
           if (want >> m & 1u) kth[m] = kth2[m];
@@ -347,21 +418,23 @@ __global__ void ems_rows_kernel(const Params p) {
       for (int m = 0; m < NB; ++m) {
         const int k = k0 + m;
         if (m < nb && k >= 1 && k <= L)
-          take_list<PER>(key[m], Fs + k * q, s, on, kth[m], nm, lane,
-                         Lst + (k - 1) * nm);
+          take_list<PER>(key[m], Fs + k * q, s, on, kth[m], lst, lane,
+                         Lst + (k - 1) * lst);
       }
     }
     __syncwarp();
     // X is consumed: stage the next row while this one computes
-    if (row + warps < p.T) stage(p, X, row + warps, lane);
+    if (!WS && row + warps < p.T) stage(p, X, row + warps, lane);
 
     // forward and backward chains, one step of each per pass
     for (int st = 1; st <= L; ++st) {
       const int kb = dc - 1 - st;
       const float* const acc[2] = {Fs + (st - 1) * q, Bs + kb * q};
-      const float2* const lst[2] = {Lst + (st - 1) * nm, Lst + (kb - 1) * nm};
+      const float2* const ls[2] = {Lst + (st - 1) * lst,
+                                   Lst + (kb - 1) * lst};
       float o[2][PER];
-      combine<PER, 2>(acc, lst, nm, s, o);
+      combine<PER, 2>(acc, ls, lst, s, o);
+      if (p.round_bf16) round_out<PER, 2>(o);
       if (on) {
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
@@ -384,12 +457,12 @@ __global__ void ems_rows_kernel(const Params p) {
             key[m][i] = on ? fkey(Bs[(k0 + m - 1) * q + s[i]]) : ~0u;
         }
       }
-      kth_keys<PER>(key, nb, nm, kth);
+      list_bounds<PER>(key, nb, lst, q, kth);
 #pragma unroll
       for (int m = 0; m < NB; ++m)
         if (m < nb)
-          take_list<PER>(key[m], Bs + (k0 + m - 1) * q, s, on, kth[m], nm,
-                         lane, Lst + (L + k0 + m - 2) * nm);
+          take_list<PER>(key[m], Bs + (k0 + m - 1) * q, s, on, kth[m], lst,
+                         lane, Lst + (L + k0 + m - 2) * lst);
     }
     __syncwarp();
 
@@ -398,10 +471,11 @@ __global__ void ems_rows_kernel(const Params p) {
     for (int i0 = 1; i0 <= L; i0 += 2) {
       if (i0 < L) {
         const float* const acc[2] = {Fs + (i0 - 1) * q, Fs + i0 * q};
-        const float2* const lst[2] = {Lst + (L + i0 - 1) * nm,
-                                      Lst + (L + i0) * nm};
+        const float2* const ls[2] = {Lst + (L + i0 - 1) * lst,
+                                     Lst + (L + i0) * lst};
         float o[2][PER];
-        combine<PER, 2>(acc, lst, nm, s, o);
+        combine<PER, 2>(acc, ls, lst, s, o);
+        if (p.round_bf16) round_out<PER, 2>(o);
         if (on) {
 #pragma unroll
           for (int i = 0; i < PER; ++i) {
@@ -411,9 +485,10 @@ __global__ void ems_rows_kernel(const Params p) {
         }
       } else {
         const float* const acc[1] = {Fs + (i0 - 1) * q};
-        const float2* const lst[1] = {Lst + (L + i0 - 1) * nm};
+        const float2* const ls[1] = {Lst + (L + i0 - 1) * lst};
         float o[1][PER];
-        combine<PER, 1>(acc, lst, nm, s, o);
+        combine<PER, 1>(acc, ls, lst, s, o);
+        if (p.round_bf16) round_out<PER, 1>(o);
         if (on) {
 #pragma unroll
           for (int i = 0; i < PER; ++i) Bs[i0 * q + s[i]] = o[0][i];
@@ -423,8 +498,9 @@ __global__ void ems_rows_kernel(const Params p) {
     __syncwarp();
 
     // epilogue: rotate out, saturate, normalise, store; out[k] sits at
-    // Bs[k] for k <= dc-2 and at F[dc-2] for k = dc-1
+    // Bs[k] for k <= dc-2 and at F[max(dc-2, 0)] for k = dc-1
     float* y = p.out + row * n;
+    const int last = L > 0 ? L : 0;
     for (int k0 = 0; k0 < dc; k0 += NB) {
       const int nb = min(NB, dc - k0);
       unsigned key[NB][PER], kth[NB];
@@ -432,7 +508,7 @@ __global__ void ems_rows_kernel(const Params p) {
       for (int m = 0; m < NB; ++m) {
         if (m < nb) {
           const int k = k0 + m;
-          const float* src = k <= L ? Bs + k * q : Fs + L * q;
+          const float* src = k <= L ? Bs + k * q : Fs + last * q;
 #pragma unroll
           for (int i = 0; i < PER; ++i) {
             const int c = rout ? __ldg(rout + k * q + s[i]) : s[i];
@@ -445,7 +521,7 @@ __global__ void ems_rows_kernel(const Params p) {
       for (int m = 0; m < NB; ++m) {
         if (m < nb) {
           const int k = k0 + m;
-          const float* src = k <= L ? Bs + k * q : Fs + L * q;
+          const float* src = k <= L ? Bs + k * q : Fs + last * q;
           float thr = __int_as_float(0x7f800000);
           if (p.truncate) thr = __fadd_rn(fval(kth[m]), p.offset);
           float mn = 0.0f;
@@ -472,15 +548,28 @@ __global__ void ems_rows_kernel(const Params p) {
   }
 }
 
-template <int PER>
-int launch(const Params& p, void* stream) {
-  const int warps = max(1, min(MAX_WARPS, 232448 / p.warp_bytes));
-  const int smem = warps * p.warp_bytes;
+// The grid of a call: warps a block, dynamic shared memory a block, and
+// blocks.  A row in shared memory where one warp's fits a block (as many
+// warps as fit, at most MAX_WARPS), else MAX_WARPS warps from the
+// workspace, its blocks capped so that the workspace stays within WS_CAP
+// (but one block a multiprocessor).
+struct Grid {
+  int warps, smem;
+  long long blocks;
+};
+
+template <int PER, bool WS>
+int plan(const Params& p, Grid& gr) {
+  const bool shared = !WS;
+  gr.warps = shared ? max(1, min(MAX_WARPS, static_cast<int>(
+                                                BLOCK_LIMIT / p.warp_bytes)))
+                    : MAX_WARPS;
+  gr.smem = shared ? gr.warps * p.warp_bytes : 0;
   cudaError_t e = cudaFuncSetAttribute(
-      ems_rows_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      ems_rows_kernel<PER, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gr.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(ems_rows_kernel<PER>,
+  e = cudaFuncSetAttribute(ems_rows_kernel<PER, WS>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -489,40 +578,76 @@ int launch(const Params& p, void* stream) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ems_rows_kernel<PER>, 32 * warps, smem);
+      &per_sm, ems_rows_kernel<PER, WS>, 32 * gr.warps, gr.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long need = (p.T + warps - 1) / warps;
+  const long long need = (p.T + gr.warps - 1) / gr.warps;
   const long long resident = static_cast<long long>(sms) * max(per_sm, 1);
-  const unsigned blocks = static_cast<unsigned>(need < resident ? need
-                                                                : resident);
-  ems_rows_kernel<PER><<<blocks, 32 * warps, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  gr.blocks = need < resident ? need : resident;
+  if (!shared) {
+    long long cap = WS_CAP / (gr.warps * p.ws_warp_bytes);
+    cap = cap > sms ? cap : sms;
+    gr.blocks = gr.blocks < cap ? gr.blocks : cap;
+  }
+  return 0;
+}
+
+// The workspace a call needs, in bytes: one slot a warp of the grid where
+// a row does not fit shared memory, else 0.
+template <int PER>
+long long workspace_bytes(const Params& p) {
+  if (p.warp_bytes <= BLOCK_LIMIT) return 0;
+  Grid gr;
+  const int err = plan<PER, true>(p, gr);
+  if (err) return -err;
+  return gr.blocks * gr.warps * p.ws_warp_bytes;
+}
+
+template <int PER>
+int launch(Params p, long long ws_bytes, void* stream) {
+  Grid gr;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (p.warp_bytes <= BLOCK_LIMIT) {
+    const int err = plan<PER, false>(p, gr);
+    if (err) return err;
+    ems_rows_kernel<PER, false>
+        <<<static_cast<unsigned>(gr.blocks), 32 * gr.warps, gr.smem, st>>>(p);
+  } else {
+    const int err = plan<PER, true>(p, gr);
+    if (err) return err;
+    // no more warps than the workspace has slots
+    const long long fit = ws_bytes / (gr.warps * p.ws_warp_bytes);
+    if (!p.ws || fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    gr.blocks = gr.blocks < fit ? gr.blocks : fit;
+    ems_rows_kernel<PER, true>
+        <<<static_cast<unsigned>(gr.blocks), 32 * gr.warps, 0, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory of one warp, in bytes (ops/cuda_cn.smem_bytes): the staged
-// row, F[0..dc-2], B[1..dc-1] and 2(dc-2) lists of nm (value, id) pairs.
-long long ems_rows_smem_bytes(int dc, int q, int nm) {
-  const long long b = 4LL * (3LL * dc - 2) * q + 16LL * (dc - 2) * nm;
+// Shared memory of one warp: the staged row, F[0..dc-2] (F[0] at dc = 1),
+// B[1..dc-1] and 2(dc-2) lists of lst (value, id) pairs.
+long long smem_bytes(int dc, int q, int lst) {
+  const long long b = 4LL * (dc + 2LL * (dc > 1 ? dc - 1 : 1)) * q +
+                      16LL * (dc > 2 ? dc - 2 : 0) * lst;
   return (b + 15) / 16 * 16;
 }
 
-// x, out: device pointers to [T, dc, q] contiguous float32.  rot_in,
-// rot_out: [G, dc, q] uint8 or null (identity); valid: [G, dc] bytes (0 =
-// padding slot) or null; row t uses table row t % G.  Requires q a power
-// of two <= 256, dc >= 3, 1 <= nm <= q, and one warp's shared memory
-// (ems_rows_smem_bytes) within the block limit.  Launches on `stream`,
-// does not synchronise, returns a CUDA error code (0 = launched).
-int ems_rows_launch(const float* x, float* out, long long T, int dc, int q,
-                    int nm, const uint8_t* rot_in, const uint8_t* rot_out,
-                    const uint8_t* valid, long long G, int truncate,
-                    int normalize, float offset, void* stream) {
-  if (T <= 0) return 0;
-  Params p;
+// One warp's workspace slot: F, B and the lists (the row is read in place).
+long long slot_bytes(int dc, int q, int lst) {
+  const long long b = 8LL * (dc > 1 ? dc - 1 : 1) * q +
+                      16LL * (dc > 2 ? dc - 2 : 0) * lst;
+  return (b + 15) / 16 * 16;
+}
+
+// The parameters of a call, or false for arguments out of range.
+bool make_params(Params& p, const float* x, float* out, long long T, int dc,
+                 int q, int nm, const uint8_t* rot_in, const uint8_t* rot_out,
+                 const uint8_t* valid, long long G, int truncate,
+                 int normalize, float offset, int lst, int round_bf16,
+                 void* ws) {
+  if (q < 2 || q > 256 || (q & (q - 1)) || dc < 1 || nm < 1 || nm > q ||
+      (lst != nm && lst != q))
+    return false;
   p.x = x;
   p.out = out;
   p.T = T;
@@ -538,11 +663,59 @@ int ems_rows_launch(const float* x, float* out, long long T, int dc, int q,
   p.vec16 = (dc * q) % 4 == 0 &&
             reinterpret_cast<uintptr_t>(x) % 16 == 0;
   p.offset = offset;
-  p.warp_bytes = static_cast<int>(ems_rows_smem_bytes(dc, q, nm));
-  if (q <= 32) return launch<1>(p, stream);
-  if (q == 64) return launch<2>(p, stream);
-  if (q == 128) return launch<4>(p, stream);
-  return launch<8>(p, stream);
+  p.lst = lst;
+  p.round_bf16 = round_bf16;
+  const long long wb = smem_bytes(dc, q, lst);
+  p.warp_bytes = static_cast<int>(wb < BLOCK_LIMIT + 16 ? wb
+                                                        : BLOCK_LIMIT + 16);
+  p.ws = static_cast<unsigned char*>(ws);
+  p.ws_warp_bytes = slot_bytes(dc, q, lst);
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The device workspace, in bytes, that ems_rows_launch needs for these
+// rows on the current device (0 where a row fits shared memory), or minus
+// a CUDA error code.
+long long ems_rows_workspace_bytes(long long T, int dc, int q, int nm,
+                                   int lst) {
+  Params p;
+  if (!make_params(p, nullptr, nullptr, T, dc, q, nm, nullptr, nullptr,
+                   nullptr, 1, 0, 0, 0.0f, lst, 0, nullptr))
+    return -static_cast<long long>(cudaErrorInvalidValue);
+  if (T <= 0) return 0;
+  if (q <= 32) return workspace_bytes<1>(p);
+  if (q == 64) return workspace_bytes<2>(p);
+  if (q == 128) return workspace_bytes<4>(p);
+  return workspace_bytes<8>(p);
+}
+
+// x, out: device pointers to [T, dc, q] contiguous float32.  rot_in,
+// rot_out: [G, dc, q] uint8 or null (identity); valid: [G, dc] bytes (0 =
+// padding slot) or null; row t uses table row t % G; lst: the lists'
+// length, nm or q (the dense min-convolution); round_bf16: each merge's
+// output rounded to bf16; ws: a device workspace of ws_bytes, at least
+// ems_rows_workspace_bytes, where that is not 0 (else ignored).  Requires
+// q a power of two <= 256, dc >= 1, 1 <= nm <= q and lst nm or q.
+// Launches on `stream`, does not synchronise, returns a CUDA error code
+// (0 = launched).
+int ems_rows_launch(const float* x, float* out, long long T, int dc, int q,
+                    int nm, const uint8_t* rot_in, const uint8_t* rot_out,
+                    const uint8_t* valid, long long G, int truncate,
+                    int normalize, float offset, int lst, int round_bf16,
+                    void* ws, long long ws_bytes, void* stream) {
+  Params p;
+  if (!make_params(p, x, out, T, dc, q, nm, rot_in, rot_out, valid, G,
+                   truncate, normalize, offset, lst, round_bf16, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0) return 0;
+  if (q <= 32) return launch<1>(p, ws_bytes, stream);
+  if (q == 64) return launch<2>(p, ws_bytes, stream);
+  if (q == 128) return launch<4>(p, ws_bytes, stream);
+  return launch<8>(p, ws_bytes, stream);
 }
 
 // The kernel's launches on the current device since the library was loaded

@@ -1,14 +1,20 @@
 // The layered truncated-list EMS super-layer step (K3), one warp per row.
 //
 // Replaces the XLA ops of ems_nbldpc_tpu/ops/listcn.py on the list path:
-// topk_list (:93, the packed-key sort from q down to nm), rotate_ids (:79,
-// the XOR-fold GF rotation), list_combine (:145, its budgeted staircase
-// branch :194-241: candidate sums, GF-major dedup sort, value-major best-nm
-// sort), fb_checknode_list (:244, chain form), saturate_list (:359) and
-// expand_list (:374, with minconv.scatter_topk_dense), and the gathers, VN
-// extrinsic, freeze and scatters of the sweep body around them
+// topk_list (:93, the packed-key sort from q down to nm; in the exact mode
+// minconv.topk_message), rotate_ids (:79, the XOR-fold GF rotation),
+// list_combine (:145: its budgeted staircase branch :194-241, candidate
+// sums, GF-major dedup sort, value-major best-nm sort; and its exact
+// branch :167-193 over all na * nb candidates in f32), fb_checknode_list
+// (:244, chain form), saturate_list (:359) and expand_list (:374, with
+// minconv.scatter_topk_dense), and the gathers, VN extrinsic, freeze and
+// scatters of the sweep body around them
 // (ems_nbldpc_tpu/decoder/layered.py:567-611).  Its plain version, which
-// it equals bit for bit, is ops/listcn.list_layer_plain.
+// it equals bit for bit, is ops/listcn.list_layer_plain.  Two kernels run
+// it: the fast step (list_kernel: the staircase, nm <= 64, a row within a
+// block's shared memory; the bench row's), whose design the notes below
+// describe, and the general step (list_general_kernel: every other shape,
+// the exact mode and nm up to q among them; see "the general step").
 //
 // list_layer_launch / list_layer_bf16_launch: one super-layer, in place on
 // the state APP [F, N+1, q] and the compressed CtoV (cv_v [F, E+1, nm],
@@ -81,8 +87,8 @@
 //   are one redux.sync on order-preserving keys.
 // * A rotation (multiplication by h or h^-1) is two 16-entry XOR tables
 //   held one entry a lane and read by two shuffles.
-// Where it stands (chip_variants.py --list, the former form and this one
-// in turns; NVIDIA H100 80GB HBM3, 700 W): 1.83 ms a call on the bf16
+// Where the fast step stands (chip_variants.py --list, the former form and
+// this one in turns; NVIDIA H100 80GB HBM3, 700 W): 1.83 ms a call on the bf16
 // state (14% of its bound) and 1.73 on the f32 one (28%), against 3.28 /
 // 3.17 for the former form, with 64 registers and no spills (68-76 bytes
 // before); the plain version takes ~103 ms.  Diagnostics (bf16 / f32):
@@ -115,6 +121,7 @@ constexpr int MAX_NM = 64;              // list length: two entries a lane
 constexpr int TAB = 256;                // GF ids (8 bits)
 constexpr long long BLOCK_LIMIT = 232448;  // dynamic shared memory a block
 //                                            may use on Hopper
+constexpr int WS_BLOCKS_SM = 2;         // workspace slots: blocks an SM
 
 // Launches on this device, counted by the kernel itself, so that the
 // launches a CUDA graph replays count too (list_launches).
@@ -136,6 +143,8 @@ struct Params {
   int dc, q, logq, nm, nboper, npairs;
   int vec;                     // APP rows as 8- / 16-byte vectors
   float offset;
+  unsigned char* ws;           // the general step's workspace, or null
+  long long ws_bytes;          // its size
 };
 
 __host__ __device__ inline long long align16(long long b) {
@@ -750,10 +759,361 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
   }
 }
 
-// Warps a block for a list CN the kernel takes (q a power of two <= 256,
-// 1 <= nm <= min(q, 64), nboper >= 1, dc >= 1) on a state of `elem`
-// bytes a value: WARPS, fewer where their shared memory and the
-// staircase's pair table do not fit one block; 0 where the kernel does
+// ---- the general step: every shape the fast step above does not take ----
+//
+// The exact merge (nboper <= 0: listcn.list_combine's first branch, all
+// na * nb candidates in f32), lists of up to q = 256 entries on either
+// merge, and rows whose lists do not fit a block's shared memory.  Its
+// steps are the fast step's (the same gathers, rounding points, rotations,
+// saturation and write-back), with these differences:
+// * A list entry is two words (uint2): a value's f32 bits and its GF id.
+//   In the staircase mode the value is a bf16 value and an unfilled entry
+//   (the dup marker) is value BIG with the slot as its id.
+// * A selection sorts all 256 of the warp's keys (8 a lane, 64-bit) with
+//   one bitonic network: the nm smallest are the first nm.  The exact
+//   truncation's key is a value's f32 bits over its GF id (40 bits); the
+//   staircase's the fast step's.
+// * The exact merge folds each candidate's sum, clamped at BIG, into a
+//   per-GF minimum of its f32 bits (one atomicMin), then selects from the
+//   256 keys (minimum bits << 8 | g) of the GF ids whose minimum is below
+//   BIG (the "heads").  When fewer than nm ids have one, the list goes on
+//   as the plain version's does: value BIG, then the GF ids of every
+//   candidate left, a masked duplicate or a sum clamped at BIG, in GF id
+//   order, each id as often as such candidates have it.  A second pass
+//   counts the candidates of each id, and a warp prefix sum of the counts
+//   (less one for a head) places each id's run.
+// * mvc and the lists live in shared memory when one warp's fit a block
+//   (``SHARED``); else in a global workspace of one slot a warp of the
+//   grid, one allocation a call (``WORKSPACE``, list_workspace_bytes).  The two 256-entry tables (minima
+//   and counts) stay in shared memory either way.
+// Why the bits agree: the staircase's keys are the fast step's; the exact
+// keys are unique (one per GF id, or one per symbol), so each selection's
+// result is the plain version's stable sort; the plain version orders
+// equal values by GF id (its last sort is stable over the GF-sorted runs),
+// as the keys do; sums are single __fadd_rn, and the rest is exact.
+// Where it stands (chip_smoke.py 3g, NVIDIA H100 80GB HBM3, 700 W): the
+// exact mode at the bench row's shape (F = 128, 1350 rows, dc = 4, nm =
+// 32) 14.1 ms a call on an f32 state and 14.5 on a bf16 one, against
+// 0.49 / 0.25 ms bounds and ~175 ms for the plain version; at nm = q = 256
+// 109 ms (bound 2.04 ms, its 6.8e10 candidates); the staircase at nm = 65
+// 21.2 ms.  Simple rather than fast: each of a row's 10 selections sorts
+// all 256 keys (240 shuffles), and each candidate is a shared-memory
+// atomic.
+
+constexpr unsigned BIG_BITS = 0x4e6e6b28u;  // __float_as_uint(1e9f)
+constexpr unsigned long long NONE64 = ~0ULL;
+constexpr int GTABS = 2 * 4 * TAB;          // a warp's minima and counts
+
+// Where a shape runs (list_path).
+enum Path { REFUSED = 0, FAST = 1, SHARED = 2, WORKSPACE = 3 };
+
+// One warp's mvc [dc, q] (the state's type) and lists [lists, nm] (uint2)
+// of the general step, in shared memory or in its workspace slot.
+struct GLayout {
+  long long lists, rows;
+};
+
+__host__ __device__ inline GLayout glayout(int dc, int q, int nm, int elem) {
+  GLayout l;
+  l.lists = align16(static_cast<long long>(elem) * dc * q);
+  l.rows = l.lists + align16(8LL * n_lists(dc) * nm);
+  return l;
+}
+
+__device__ __forceinline__ void cx64(unsigned long long& a,
+                                     unsigned long long& b, bool up) {
+  const bool lt = a < b;
+  const unsigned long long lo = lt ? a : b, hi = lt ? b : a;
+  a = up ? lo : hi;
+  b = up ? hi : lo;
+}
+
+// The warp's 256 keys (key p = 8 lane + i in register i) sorted ascending
+// in place: a bitonic sort, strides of 8 and more across lanes.
+__device__ __forceinline__ void sort256(unsigned long long (&k)[8],
+                                        int lane) {
+#pragma unroll
+  for (int size = 2; size <= 256; size <<= 1) {
+#pragma unroll
+    for (int s = size >> 1; s > 0; s >>= 1) {
+      if (s >= 8) {
+        const int d = s >> 3;
+        // ascending runs keep the minimum in their lower half
+        const bool keep_min = ((lane & d) != 0) != (((8 * lane) & size) == 0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const unsigned long long o = __shfl_xor_sync(FULL, k[i], d);
+          k[i] = keep_min ? (o < k[i] ? o : k[i]) : (o > k[i] ? o : k[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (!(i & s)) cx64(k[i], k[i | s], ((8 * lane + i) & size) == 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float entry_f(uint2 e) {
+  return __uint_as_float(e.x);
+}
+
+// One merge of the general step: out = the nm best distinct-GF sums of
+// the lists a and b, exact (nboper <= 0) or over the staircase.  Out of
+// line (one copy).
+__device__ __noinline__ void merge_general(const uint2* la, const uint2* lb,
+                                           uint2* lo, unsigned* tab, int nm,
+                                           int nboper, int lane) {
+  const bool exact = nboper <= 0;
+  fill_tab(tab, ABSENT, lane);
+  __syncwarp();
+  for (int i = 0; i < nm; ++i) {
+    const int wi = exact ? nm : row_width(i, nm, nboper);
+    if (wi == 0) break;
+    const uint2 a = la[i];
+    for (int j = lane; j < wi; j += 32) {
+      const uint2 b = lb[j];
+      const float s = __fadd_rn(entry_f(a), entry_f(b));
+      atomicMin(tab + ((a.y ^ b.y) & 0xff),
+                exact ? __float_as_uint(fminf(s, BIG)) : bf16_bits(s));
+    }
+  }
+  __syncwarp();
+  unsigned t[8];
+  read_tab(tab, t, lane);
+  unsigned long long k[8];
+  int heads = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned long long g = static_cast<unsigned>(sym(lane, i));
+    if (exact) {
+      const bool head = t[i] < BIG_BITS;
+      k[i] = head ? (static_cast<unsigned long long>(t[i]) << 8 | g) : NONE64;
+      heads += head;
+    } else {
+      k[i] = t[i] != ABSENT ? (static_cast<unsigned long long>(t[i]) << 8 | g)
+                            : DUP;
+    }
+  }
+  sort256(k, lane);
+  const int nh = exact ? __reduce_add_sync(FULL, heads) : nm;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int e = 8 * lane + i;
+    const unsigned key = static_cast<unsigned>(k[i]);
+    if (e < nm && e < nh) {
+      if (exact)
+        lo[e] = make_uint2(static_cast<unsigned>(k[i] >> 8), key & 0xff);
+      else
+        lo[e] = k[i] == DUP ? make_uint2(BIG_BITS, e)
+                            : make_uint2((key >> 8 & 0xffff) << 16, key & 0xff);
+    }
+  }
+  if (nh < nm) {
+    // the tail of the exact merge: count each GF id's candidates
+    unsigned* cnt = tab + TAB;
+    fill_tab(cnt, 0u, lane);
+    __syncwarp();
+    for (int i = 0; i < nm; ++i) {
+      const unsigned ga = la[i].y;
+      for (int j = lane; j < nm; j += 32)
+        atomicAdd(cnt + ((ga ^ lb[j].y) & 0xff), 1u);
+    }
+    __syncwarp();
+    int d[8], sum = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int g = 8 * lane + u;
+      d[u] = static_cast<int>(cnt[g]) - (tab[g] < BIG_BITS ? 1 : 0);
+      sum += d[u];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += y;
+    }
+    int pos = nh + incl - sum;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      for (int c = 0; c < d[u] && pos < nm; ++c, ++pos)
+        lo[pos] = make_uint2(BIG_BITS, 8 * lane + u);
+  }
+  __syncwarp();
+}
+
+template <class ST>
+__global__ void __launch_bounds__(THREADS)
+    list_general_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
+  const int dc = p.dc, q = p.q, nm = p.nm, logq = p.logq;
+  const bool vec = p.vec != 0, exact = p.nboper <= 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpb = blockDim.x >> 5;
+  const GLayout lay = glayout(dc, q, nm, sizeof(ST));
+  unsigned char* base;
+  unsigned* tab;
+  if (p.ws) {
+    tab = reinterpret_cast<unsigned*>(smem_raw + GTABS * warp);
+    base = p.ws + (static_cast<long long>(blockIdx.x) * wpb + warp) * lay.rows;
+  } else {
+    base = smem_raw + (lay.rows + GTABS) * warp;
+    tab = reinterpret_cast<unsigned*>(base + lay.rows);
+  }
+  ST* mvc = reinterpret_cast<ST*>(base);
+  uint2* lists = reinterpret_cast<uint2*>(base + lay.lists);
+  const unsigned empty = fkey(BIG);
+  auto fwd = [&](int t) { return t == 0 ? 0 : dc + t - 1; };
+  auto bwd = [&](int t) { return t == dc - 1 ? dc - 1 : 2 * dc - 3 + t; };
+  auto neutral = [&](uint2* l) {
+    for (int e = lane; e < nm; e += 32)
+      l[e] = e == 0 ? make_uint2(0u, 0u) : make_uint2(BIG_BITS, e);
+  };
+  ST* app = static_cast<ST*>(p.app);
+  ST* cv_v = static_cast<ST*>(p.cv_v);
+  ST* cv_sat = static_cast<ST*>(p.cv_sat);
+
+  for (long long t = static_cast<long long>(blockIdx.x) * wpb + warp;
+       t < p.T; t += static_cast<long long>(gridDim.x) * wpb) {
+    const long long f = t / p.G, r = t % p.G;
+    if (!__ldg(p.active + f)) continue;
+    const int* rcols = p.cols + r * dc;
+    const int* redges = p.edges + r * dc;
+    // 1. the slots' lists
+    for (int k = 0; k < dc; ++k) {
+      uint2* lk = lists + k * nm;
+      if (p.valid && !__ldg(p.valid + r * dc + k)) {
+        neutral(lk);
+        continue;
+      }
+      const int col = __ldg(rcols + k), edge = __ldg(redges + k);
+      if (col < 0 || col >= p.app_rows || edge < 0 || edge >= p.cv_rows)
+        __trap();
+      const long long ce = f * p.cv_rows + edge;
+      const int rt = rot_table(p.rc_in + (r * dc + k) * logq, logq, lane);
+      float a[8] = {};
+      load_row(app + (f * p.app_rows + col) * q, a, q, vec, lane);
+      fill_tab(tab, empty, lane);
+      __syncwarp();
+      for (int e = lane; e < nm; e += 32)
+        atomicMin(tab + p.cv_g[ce * nm + e], fkey(ld(cv_v + ce * nm + e)));
+      const float sat = ld(cv_sat + ce);
+      __syncwarp();
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], c[i]);
+      rnd8<ST>(a);
+      float mn = __int_as_float(0x7f800000);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (sym(lane, i) < q) mn = fminf(mn, a[i]);
+      mn = warp_min(mn);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
+      rnd8<ST>(a);
+      store_row(mvc + k * q, a, q, q >= 4, lane);
+      // the exact truncation (minconv.topk_message) keys the f32 value,
+      // the staircase's (listcn.topk_list) its bf16 bits
+      unsigned long long key[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int s = sym(lane, i);
+        const unsigned v = exact ? __float_as_uint(a[i]) : bf16_bits(a[i]);
+        key[i] = s < q ? (static_cast<unsigned long long>(v) << 8 | s) : NONE64;
+      }
+      sort256(key, lane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = 8 * lane + i;
+        const unsigned v = static_cast<unsigned>(key[i] >> 8);
+        const int g = rotate(static_cast<int>(key[i] & 0xff), rt) & 0xff;
+        if (e < nm) lk[e] = make_uint2(exact ? v : (v & 0xffff) << 16, g);
+      }
+      __syncwarp();
+    }
+    // 2. the F/B chain, as the fast step's
+    if (dc == 1) {
+      neutral(lists);
+      __syncwarp();
+    }
+    for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
+      const int a = fwd(u - 1), o = fwd(u);
+      merge_general(lists + a * nm, lists + u * nm, lists + o * nm, tab, nm,
+                    p.nboper, lane);
+      const int v = dc - 1 - u, b = bwd(v + 1), ob = bwd(v);
+      merge_general(lists + b * nm, lists + v * nm, lists + ob * nm, tab, nm,
+                    p.nboper, lane);
+    }
+    for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
+      const int a = fwd(u - 1), b = bwd(u + 1);
+      merge_general(lists + a * nm, lists + b * nm, lists + u * nm, tab, nm,
+                    p.nboper, lane);
+    }
+    // 3. rotate out, saturate, write back the real slots
+    for (int k = 0; k < dc; ++k) {
+      if (p.valid && !__ldg(p.valid + r * dc + k)) continue;
+      const int src = dc == 1 ? 0
+                      : dc == 2 ? 1 - k
+                      : k == 0 ? bwd(1)
+                      : k == dc - 1 ? fwd(dc - 2) : k;
+      const uint2* ol = lists + src * nm;
+      const int rt = rot_table(p.rc_out + (r * dc + k) * logq, logq, lane);
+      const float v0 = entry_f(ol[0]);
+      float v[8];
+      int g[8];
+      float last = 0.0f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = lane + 32 * u;
+        if (32 * u < nm) {
+          const uint2 c = e < nm ? ol[e] : make_uint2(0u, 0u);
+          g[u] = rotate(static_cast<int>(c.y & 0xff), rt) & 0xff;
+          v[u] = __fsub_rn(entry_f(c), v0);
+          if (e < nm && v[u] < HALF_BIG) last = fmaxf(last, v[u]);
+        }
+      }
+      const float sat = __fadd_rn(warp_max(last), p.offset);
+      const int col = __ldg(rcols + k), edge = __ldg(redges + k);
+      const long long ce = f * p.cv_rows + edge;
+      fill_tab(tab, empty, lane);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = lane + 32 * u;
+        if (e < nm) {
+          v[u] = fminf(v[u], sat);
+          st(cv_v + ce * nm + e, v[u]);
+          p.cv_g[ce * nm + e] = static_cast<uint8_t>(g[u]);
+          atomicMin(tab + g[u], fkey(v[u]));
+        }
+      }
+      if (lane == 0) st(cv_sat + ce, sat);
+      __syncwarp();
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float m[8] = {}, o[8];
+      load_row(mvc + k * q, m, q, q >= 4, lane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(o);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(m[i], o[i]);
+      store_row(app + (f * p.app_rows + col) * q, o, q, vec, lane);
+      __syncwarp();
+    }
+  }
+}
+
+// Warps a block of the fast step for a list CN it takes (q a power of two
+// <= 256, 1 <= nm <= min(q, 64), nboper >= 1, dc >= 1) on a state of
+// `elem` bytes a value: WARPS, fewer where their shared memory and the
+// staircase's pair table do not fit one block; 0 where the fast step does
 // not take the shape or not even one warp fits.
 int warps_for(int dc, int q, int nm, int nboper, int elem) {
   if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q ||
@@ -765,18 +1125,46 @@ int warps_for(int dc, int q, int nm, int nboper, int elem) {
   return static_cast<int>(w < WARPS ? (w < 0 ? 0 : w) : WARPS);
 }
 
-// The limits and block shape of an f32 state (a bf16 state's warps are
-// smaller: its block holds as many).  ops/cuda_list.py mirrors it
-// (warps_per_block and limits_error), and chip_smoke.py holds the two
-// against each other (list_block_warps).
+// Where a shape runs, decided on an f32 state's sizes so that a bf16 state
+// takes the same path: the fast step where it takes the shape, else the
+// general step with its rows in shared memory where one warp's fit a
+// block, else from the workspace.  Its limits are the plain version's
+// (ops/cuda_list.limits_error).
+int path_for(int dc, int q, int nm, int nboper) {
+  if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q || dc < 1)
+    return REFUSED;
+  if (warps_for(dc, q, nm, nboper, 4) >= 1) return FAST;
+  if (glayout(dc, q, nm, 4).rows + GTABS <= BLOCK_LIMIT) return SHARED;
+  return WORKSPACE;
+}
+
+// Warps a block on a state of `elem` bytes a value, 0 where refused.
+int warps_of(int dc, int q, int nm, int nboper, int elem) {
+  switch (path_for(dc, q, nm, nboper)) {
+    case FAST:
+      return warps_for(dc, q, nm, nboper, elem);
+    case SHARED: {
+      const long long w = BLOCK_LIMIT / (glayout(dc, q, nm, elem).rows + GTABS);
+      return static_cast<int>(w < WARPS ? w : WARPS);
+    }
+    case WORKSPACE:
+      return WARPS;
+    default:
+      return 0;
+  }
+}
+
+// The block shape of an f32 state (a bf16 state's warps are smaller: its
+// block holds as many, or more).
 int block_warps(int dc, int q, int nm, int nboper) {
-  return warps_for(dc, q, nm, nboper, 4);
+  return warps_of(dc, q, nm, nboper, 4);
 }
 
 // A launch configuration, found once for each device, state type and
 // shape (the attributes and the occupancy query do not run per launch).
 struct Config {
   int dev, dc, q, nm, nboper;
+  int path;
   int wpb;              // warps a block
   long long smem;       // dynamic shared memory a block
   long long resident;   // blocks resident on the device
@@ -796,13 +1184,19 @@ int launch_config(const Params& p, Config& out) {
       out = c;
       return 0;
     }
-  Config c = {dev, p.dc, p.q, p.nm, p.nboper, 0, 0, 0};
+  Config c = {dev, p.dc, p.q, p.nm, p.nboper, 0, 0, 0, 0};
   const int elem = static_cast<int>(sizeof(ST));
-  c.wpb = warps_for(p.dc, p.q, p.nm, p.nboper, elem);
+  c.path = path_for(p.dc, p.q, p.nm, p.nboper);
+  c.wpb = warps_of(p.dc, p.q, p.nm, p.nboper, elem);
   if (c.wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  c.smem = align16(2LL * p.npairs) +
-           c.wpb * layout(p.dc, p.q, p.nm, elem).total;
-  auto kern = list_kernel<ST>;
+  if (c.path == FAST)
+    c.smem = align16(2LL * p.npairs) +
+             c.wpb * layout(p.dc, p.q, p.nm, elem).total;
+  else if (c.path == SHARED)
+    c.smem = c.wpb * (glayout(p.dc, p.q, p.nm, elem).rows + GTABS);
+  else
+    c.smem = c.wpb * static_cast<long long>(GTABS);
+  auto kern = c.path == FAST ? list_kernel<ST> : list_general_kernel<ST>;
   // the same value for every shape, so no shape's setting undoes another's
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(BLOCK_LIMIT));
@@ -834,10 +1228,19 @@ int launch(Params p, void* stream) {
   p.vec = p.q >= 4 &&
           reinterpret_cast<uintptr_t>(p.app) % (4 * sizeof(ST)) == 0;
   const long long need = (p.T + c.wpb - 1) / c.wpb;
-  list_kernel<ST><<<static_cast<unsigned>(need < c.resident ? need
-                                                            : c.resident),
-                    32 * c.wpb, static_cast<size_t>(c.smem),
-                    static_cast<cudaStream_t>(stream)>>>(p);
+  long long blocks = need < c.resident ? need : c.resident;
+  if (c.path == WORKSPACE) {
+    // one workspace slot a warp of the grid
+    const long long fit =
+        p.ws_bytes / glayout(p.dc, p.q, p.nm, sizeof(ST)).rows / c.wpb;
+    if (!p.ws || fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    blocks = blocks < fit ? blocks : fit;
+  } else {
+    p.ws = nullptr;
+  }
+  auto kern = c.path == FAST ? list_kernel<ST> : list_general_kernel<ST>;
+  kern<<<static_cast<unsigned>(blocks), 32 * c.wpb,
+         static_cast<size_t>(c.smem), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -847,7 +1250,7 @@ int layer_params(Params& p, void* app, void* cv_v, uint8_t* cv_g,
                  long long cv_rows, const uint8_t* active, const int* cols,
                  const int* edges, const int* rc_in, const int* rc_out,
                  const uint8_t* valid, long long G, int dc, int q, int nm,
-                 int nboper, float offset) {
+                 int nboper, float offset, void* ws, long long ws_bytes) {
   if (block_warps(dc, q, nm, nboper) < 1 || G < 1 || F < 0 || !app ||
       !cv_v || !cv_g || !cv_sat || !active || !cols || !edges || !rc_in ||
       !rc_out)
@@ -873,8 +1276,10 @@ int layer_params(Params& p, void* app, void* cv_v, uint8_t* cv_g,
   p.logq = logq;
   p.nm = nm;
   p.nboper = nboper;
-  p.npairs = staircase_pairs(nm, nboper);
+  p.npairs = nboper >= 1 ? staircase_pairs(nm, nboper) : 0;
   p.offset = offset;
+  p.ws = static_cast<unsigned char*>(ws);
+  p.ws_bytes = ws_bytes;
   return 0;
 }
 
@@ -888,21 +1293,23 @@ extern "C" {
 // [G, dc] int32 APP columns and CtoV edges of the layer's rows (distinct
 // among the real slots; out of range: a trap); rc_in, rc_out: [G, dc,
 // log2 q] int32 GF(2)-basis columns of h and h^-1; valid: [G, dc] bytes (0
-// = padded slot) or null.  Requires q a power of two <= 256, 1 <= nm <=
-// min(q, 64), nboper >= 1, dc >= 1 and one warp's shared memory within a
-// block's.  Launches on `stream`, does not synchronise, returns a CUDA
-// error code (0 = launched; cudaErrorInvalidValue for arguments out of
-// range).
+// = padded slot) or null; nboper <= 0 the exact merge, >= 1 the
+// staircase's budget; ws: a device workspace of ws_bytes, at least
+// list_workspace_bytes, where that is not 0 (else ignored).  Requires q a power of two <= 256, 1 <= nm <= q, dc >= 1.
+// Launches on `stream`, does not synchronise, returns a CUDA error code
+// (0 = launched; cudaErrorInvalidValue for arguments out of range).
 int list_layer_launch(float* app, float* cv_v, uint8_t* cv_g, float* cv_sat,
                       long long F, long long app_rows, long long cv_rows,
                       const uint8_t* active, const int* cols,
                       const int* edges, const int* rc_in, const int* rc_out,
                       const uint8_t* valid, long long G, int dc, int q,
-                      int nm, int nboper, float offset, void* stream) {
+                      int nm, int nboper, float offset, void* ws,
+                      long long ws_bytes, void* stream) {
   Params p = {};
   const int err = layer_params(p, app, cv_v, cv_g, cv_sat, F, app_rows,
                                cv_rows, active, cols, edges, rc_in, rc_out,
-                               valid, G, dc, q, nm, nboper, offset);
+                               valid, G, dc, q, nm, nboper, offset, ws,
+                               ws_bytes);
   return err ? err : launch<float>(p, stream);
 }
 
@@ -915,18 +1322,38 @@ int list_layer_bf16_launch(void* app, void* cv_v, uint8_t* cv_g,
                            const int* cols, const int* edges,
                            const int* rc_in, const int* rc_out,
                            const uint8_t* valid, long long G, int dc, int q,
-                           int nm, int nboper, float offset, void* stream) {
+                           int nm, int nboper, float offset, void* ws,
+                           long long ws_bytes, void* stream) {
   Params p = {};
   const int err = layer_params(p, app, cv_v, cv_g, cv_sat, F, app_rows,
                                cv_rows, active, cols, edges, rc_in, rc_out,
-                               valid, G, dc, q, nm, nboper, offset);
+                               valid, G, dc, q, nm, nboper, offset, ws,
+                               ws_bytes);
   return err ? err : launch<bf16_t>(p, stream);
 }
 
-// Warps a block for this list CN, 0 where the kernel does not take it (the
-// entries' limits; ops/cuda_list.warps_per_block and takes mirror it).
-int list_block_warps(int dc, int q, int nm, int nboper) {
-  return block_warps(dc, q, nm, nboper);
+// Where this list CN runs: 0 refused, 1 the fast step, 2 the general step
+// in shared memory, 3 the general step from a workspace.
+int list_path(int dc, int q, int nm, int nboper) {
+  return path_for(dc, q, nm, nboper);
+}
+
+// The device workspace, in bytes, that a launch on T = F * G rows of a
+// state of `elem` bytes a value needs on the current device: one slot (a
+// warp's mvc and lists) a warp of WS_BLOCKS_SM blocks an SM, fewer for
+// fewer rows; 0 where list_path is not WORKSPACE; minus a CUDA error code.
+long long list_workspace_bytes(long long T, int dc, int q, int nm, int nboper,
+                               int elem) {
+  if (path_for(dc, q, nm, nboper) != WORKSPACE || T <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  const long long blocks = (T + WARPS - 1) / WARPS;
+  const long long cap = static_cast<long long>(WS_BLOCKS_SM) * sms;
+  return WARPS * (blocks < cap ? blocks : cap) *
+         glayout(dc, q, nm, elem).rows;
 }
 
 // The kernel's launches on the current device since the library was loaded

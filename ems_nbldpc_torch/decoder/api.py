@@ -6,17 +6,21 @@ JAX package's does.  Ported so far:
 
 * both schedules (``"layered"``, ``"flooding"``) with dense float32 or
   bfloat16 storage and ``cn="ems"`` / ``"minsum"`` (``cn_impl`` pallas: the
-  hand-written CUDA EMS check node on the card; bubble | lbubble: the
-  exact 8-bubble / L-bubble emulation of the C reference's elementary
-  step with the ``nboper`` budget (0: ``2 * nm``), its hand-written CUDA
-  kernel on the card and its plain version on the CPU; topk | auto |
-  dense | list: the plain torch F/B check nodes, as ``use_topk`` picks),
+  hand-written CUDA EMS check node K1 on the card; topk | auto | dense |
+  list: the F/B check node ``use_topk`` picks, nm-truncated lists or the
+  dense min-convolution, through K1 too wherever it takes the rows (dc >=
+  3, shared memory: ``flooding.k1_route``), else in plain torch; bubble |
+  lbubble: the exact 8-bubble / L-bubble emulation of the C reference's
+  elementary step with the ``nboper`` budget (0: ``2 * nm``), its
+  hand-written CUDA kernel on the card and its plain version on the CPU),
   ``cn="spa"`` (the hand-written CUDA SPA check node on the card) or
   ``cn="syndrome"`` (the syndrome-EMS check node with the ``syn_*``
   settings, as JAX's ``syn`` dict; the hand-written CUDA kernel on the
   card, its plain version on the CPU; it reads no ``cn_impl``, as in JAX);
 * layered compressed storage, float32 or bfloat16: the dense-CN decoder
-  for ``cn_impl="topk"``, the truncated-list EMS CN for any other value.
+  for ``cn_impl="topk"`` (its F/B CN through K1's bare entry), the
+  truncated-list EMS CN (K3 on the card, every ``nboper`` and nm) for any
+  other value.
 
 ``loop="device"`` (the default) runs each decode as one replay of a
 captured CUDA graph with on-device early exit on the card, and the same
@@ -61,8 +65,7 @@ class DecoderConfig:
     offset: float = 0.3         # saturation offset (reference arg 6)
     nboper: int = 0             # elementary-step candidate budget (reference
     #                             arg 7); read by the list CN (0: its
-    #                             exact mode, CPU only; the card's
-    #                             kernel needs >= 1) and the bubble CNs
+    #                             exact top-nm merge) and the bubble CNs
     #                             (0 -> 2 * nm for these)
     cn_impl: str = "auto"       # dense | topk | list | pallas (the
     #                             hand-written CUDA CN, ops/cuda_cn.py) |

@@ -85,6 +85,25 @@ def truncates(cn: str, nm: int, q: int) -> bool:
     return cn == "ems" and 0 < nm < q
 
 
+def k1_route(cn: str, nm: int, q: int, cn_impl: str, plain: bool = False):
+    """The trailing arguments (nm, truncate, dense) of the
+    ``ops/cuda_cn.ems_rows`` call (K1) that runs the EMS / min-sum check
+    node, or None where another CN runs.
+
+    ``"pallas"`` and the top-k routes (``use_topk``) take K1 with lists of
+    nm; ``"auto"``, ``"dense"`` and ``"list"`` off the top-k route take it
+    with lists of all q entries, the dense min-convolution (``dense``; nm
+    is then the truncation rank, q where nothing truncates).  K1 takes
+    every row shape (rows of dc <= 2, and rows past a block's shared memory
+    from its workspace).  The other CNs, the bubble CNs and ``plain`` (the
+    card's comparison path: the torch CN) get None."""
+    if cn not in ("ems", "minsum") or cn_impl in BUBBLES or plain:
+        return None
+    truncate = truncates(cn, nm, q)
+    dense = cn_impl != "pallas" and not use_topk(cn, nm, q, cn_impl)
+    return (nm if truncate or not dense else q), truncate, dense
+
+
 def syn_settings(syn) -> dict:
     """The syndrome CN's parameters: ``syn`` (the dict ``decode`` builds
     from ``DecoderConfig``'s ``syn_*`` fields, or None) over the defaults
@@ -303,20 +322,25 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     on any device with ``plain``).  Otherwise ``cn_impl="pallas"`` runs the
     whole step (truncation, rotations, padding mask, CN, saturation,
     normalisation) in the hand-written CUDA EMS check node on the unrotated
-    rows (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors);
-    ``cn_impl="bubble"`` / ``"lbubble"`` the same step with the exact
-    bubble check node of budget ``bubble_budget(nm, nboper)`` and no output
-    saturation, as in JAX (``ops/cuda_bubble.bubble_rows``; its plain
-    version on CPU tensors, or on any device with ``plain``); and the rest
-    the plain torch ``fb_checknode_topk`` or ``fb_checknode_dense`` as
-    ``use_topk`` picks.
+    rows (``ops/cuda_cn.ems_rows``; its plain version on CPU tensors), and
+    so do ``"auto"``, ``"topk"``, ``"dense"`` and ``"list"`` (``k1_route``:
+    lists of nm on the top-k routes, of all q for the dense
+    min-convolution); ``cn_impl="bubble"`` / ``"lbubble"``
+    the same step with the exact bubble check node of budget
+    ``bubble_budget(nm, nboper)`` and no output saturation, as in JAX
+    (``ops/cuda_bubble.bubble_rows``; its plain version on CPU tensors, or
+    on any device with ``plain``); and every EMS / min-sum CN with
+    ``plain`` (the card's comparison path) the plain torch
+    ``fb_checknode_topk`` (``use_topk``, or ``"pallas"``) or
+    ``fb_checknode_dense``.
     """
     q = g.q
     f = vtoc.shape[0]
     dev = vtoc.device
     t = upload(g, str(dev))
     variant = bubble_variant(cn, cn_impl)
-    if cn == "syndrome" or variant or cn != "spa" and cn_impl == "pallas":
+    route = k1_route(cn, nm, q, cn_impl, plain)
+    if cn == "syndrome" or variant or route is not None:
         r = _cn_row_tables(g, str(dev))
         # a padding slot reads edge E, which the mask replaces
         src = vtoc if g.regular else torch.cat(
@@ -333,8 +357,9 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
                 bubble_budget(nm, nboper), offset, truncates(cn, nm, q),
                 False, variant)
         else:
-            out = ems_rows(x, r["rot_in"], r["rot_out"], r["valid"], nm,
-                           offset, truncates(cn, nm, q))
+            k_nm, truncate, dense = route
+            out = ems_rows(x, r["rot_in"], r["rot_out"], r["valid"], k_nm,
+                           offset, truncate, dense)
         return _edges_from_rows(g, out.reshape(rows.shape))
     if truncates(cn, nm, q):
         vtoc = ems_input_truncate(vtoc, nm)
@@ -358,7 +383,7 @@ def checknode(g: DeviceGraph, vtoc, nm: int, offset: float, cn: str,
     pad = delta_message((f, 1), q, vr.dtype, dev)
     vr_rows = _rows_from_edges(g, torch.cat([vr, pad], dim=1))
     valid = None if g.regular else t["edge_valid_row"][None]
-    if use_topk(cn, nm, q, cn_impl):
+    if cn_impl == "pallas" or use_topk(cn, nm, q, cn_impl):
         mcv_rows = fb_checknode_topk(vr_rows, nm, valid)
     else:
         mcv_rows = fb_checknode_dense(vr_rows, valid)

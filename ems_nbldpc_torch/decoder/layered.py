@@ -34,8 +34,11 @@ For ``cn="spa"``, ``cn="syndrome"``, ``cn_impl`` bubble / lbubble and the
 truncated-list sweep on the card the whole of it is one kernel launch
 (``ops/cuda_spa.spa_layer``, ``ops/cuda_syndrome.syndrome_layer``,
 ``ops/cuda_bubble.bubble_layer``, ``ops/cuda_list.list_layer``), with no
-[F, G, dc, q] temporaries; for ``cn_impl="pallas"`` the CN step
-is (``ops/cuda_cn.ems_rows``) between torch gathers and scatters.
+[F, G, dc, q] temporaries; for the other EMS / min-sum ``cn_impl``
+(``"pallas"``, ``"auto"``, ``"topk"``, ``"dense"``, ``"list"``) the CN
+step is one K1 launch (``ops/cuda_cn.ems_rows``) between torch gathers
+and scatters, and the compressed ``"topk"`` decoder's F/B check node one
+launch of K1's bare entry (``ops/cuda_cn.fb_checknode``).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import cuda_list, listcn
+from ..ops import cuda_cn, cuda_list, listcn
 from ..ops.cuda_bubble import bubble_layer, bubble_layer_plain
 from ..ops.cuda_cn import ems_rows
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
@@ -55,8 +58,8 @@ from ..ops.minconv import (ems_input_truncate, ems_output_saturate,
                            mask_invalid, scatter_topk_dense, topk_message)
 from . import device_loop
 from .flooding import (bubble_budget, bubble_variant, check_supported,
-                       decision_buffers, host_loop, syn_key, syndrome_args,
-                       syndrome_ok, truncates, use_topk)
+                       decision_buffers, host_loop, k1_route, syn_key,
+                       syndrome_args, syndrome_ok, truncates, use_topk)
 from .graph import DeviceGraph, device_tables, rotate, rotation_table
 
 
@@ -106,17 +109,22 @@ def _layer_plan(g: DeviceGraph, device: str):
     return plans
 
 
-def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
-    """``rotated_cn(mvc, p)``: one super-layer's plain torch EMS / min-sum
-    CN on the min-normalized [F, G, dc, q] extrinsics of plan ``p``
-    (truncate, rotate in, mask padded slots, F/B CN, rotate out; no
-    saturation); ``use_topk`` picks ``fb_checknode_topk`` or the dense
-    ``fb_checknode_dense``.  (``cn_impl="pallas"`` takes the fused CUDA
-    step instead, in ``_make_dense_iteration``.)"""
+def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl, plain=False):
+    """``rotated_cn(mvc, p)``: one super-layer's EMS / min-sum CN on the
+    min-normalized [F, G, dc, q] extrinsics of plan ``p`` (truncate,
+    rotate in, mask padded slots, F/B CN, rotate out; no saturation) in
+    torch; ``use_topk`` (or ``"pallas"``) picks the top-k F/B CN, else
+    the dense ``fb_checknode_dense``.  The top-k F/B CN is K1's bare entry
+    (``ops/cuda_cn.fb_checknode``), as the compressed ``"topk"`` decoder
+    runs it, or with ``plain`` (the card's comparison path) its torch
+    version ``fb_checknode_topk``.  The dense-storage sweep takes the fused
+    K1 step instead (``_make_dense_iteration``), so there this route runs
+    only with ``plain``."""
     q = g.q
     check_supported(nm, q, cn, cn_impl)
     truncate = truncates(cn, nm, q)
-    topk_cn = use_topk(cn, nm, q, cn_impl)
+    topk_cn = cn_impl == "pallas" or use_topk(cn, nm, q, cn_impl)
+    bare = not plain and topk_cn
 
     def rotated_cn(mvc, p):
         f = mvc.shape[0]
@@ -124,7 +132,10 @@ def _make_rotated_cn(g: DeviceGraph, nm, cn, cn_impl):
         mvc_cn = ems_input_truncate(mvc, nm) if truncate else mvc
         vr = rotate(mvc_cn.reshape(f, gdim * dcdim, q), p["rot_in"])
         vr = mask_invalid(vr.reshape(mvc.shape), p["valid"])
-        if topk_cn:
+        if bare:
+            mcv_r = cuda_cn.fb_checknode(
+                vr.reshape(-1, dcdim, q).contiguous(), nm).reshape(vr.shape)
+        elif topk_cn:
             mcv_r = fb_checknode_topk(vr, nm)
         else:
             mcv_r = fb_checknode_dense(vr)
@@ -154,11 +165,14 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     nboper)`` (output saturation included where EMS truncates, as in JAX)
     in one hand-written CUDA kernel launch (its plain version
     ``bubble_layer_plain`` on CPU tensors, or on any device with
-    ``plain``); with ``cn_impl="pallas"`` the hand-written CUDA kernel
-    does the whole CN step, normalisation included, between torch gathers
-    and scatters (``ops/cuda_cn.ems_rows``; its plain version on CPU
-    tensors); other ``cn_impl``: ``_make_rotated_cn``, then (EMS) output
-    saturation and normalisation.
+    ``plain``); with ``cn_impl="pallas"``, ``"auto"``, ``"topk"``,
+    ``"dense"`` and ``"list"`` (``flooding.k1_route``: lists of nm on the
+    top-k routes, of all q for the dense min-convolution) the hand-written
+    CUDA kernel K1 does the whole CN step, normalisation included, between
+    torch gathers and scatters (``ops/cuda_cn.ems_rows``; its plain
+    version on CPU tensors); with ``plain``, which runs the torch CN on the
+    card for holding K1 against it: ``_make_rotated_cn``, then (EMS)
+    output saturation and normalisation.
     """
     q = g.q
     check_supported(nm, q, cn, cn_impl, syn, g.code.dc_max)
@@ -203,18 +217,21 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
         return bubble_iteration
 
     # the kernel's step normalises
-    fused = cn_impl == "pallas"
+    route = k1_route(cn, nm, q, cn_impl, plain)
+    fused = route is not None
 
     def fused_cn(mvc, p):
         f, gdim, dcdim, _ = mvc.shape
+        k_nm, k_truncate, dense = route
         out = ems_rows(mvc.reshape(f * gdim, dcdim, q), p["rot_in8"],
-                       p["rot_out8"], p["valid"], nm, offset, truncate)
+                       p["rot_out8"], p["valid"], k_nm, offset, k_truncate,
+                       dense)
         return out.reshape(mvc.shape)
 
     if fused:
         check_node = fused_cn
     else:
-        rotated_cn = _make_rotated_cn(g, nm, cn, cn_impl)
+        rotated_cn = _make_rotated_cn(g, nm, cn, cn_impl, plain)
 
         def check_node(mvc, p):
             mcv = rotated_cn(mvc, p)
@@ -280,7 +297,8 @@ def make_layered_stepper(
     the new state.  ``syn``: the syndrome CN's parameters (JAX's dict;
     ``flooding.syn_settings``); ``nboper``: the bubble CNs' budget.
     ``plain`` is internal: it runs the SPA, syndrome and bubble steps' plain
-    versions on the card, for holding the kernels against them.
+    versions and the torch EMS / min-sum CN on the card, for holding the
+    kernels against them.
     """
     q, e = g.q, g.n_edges
     one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl, plain,
@@ -364,16 +382,20 @@ def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration):
 
 def make_layered_compressed_stepper(g: DeviceGraph, nm: int,
                                     offset: float = 0.3,
-                                    dtype=torch.bfloat16):
+                                    dtype=torch.bfloat16,
+                                    plain: bool = False):
     """Layered EMS (dense ``fb_checknode_topk`` CN) with nm-compressed
     CtoV storage: ``state = init_fn(intrinsic)``, ``state =
     step_fn(state)``; state = (app, cv_v [F, E+1, nm], cv_g uint8,
     cv_sat [F, E+1], decide, conv, iters), updated in place.  After EMS
     output saturation a CN message has at most nm distinct sub-saturation
     values, so (vals, ids, sat) re-encodes it losslessly.  ``dtype`` is
-    the storage dtype of APP and the CtoV values and saturation levels."""
+    the storage dtype of APP and the CtoV values and saturation levels.
+    The F/B CN runs through K1's bare entry (``cuda_cn.fb_checknode``, at
+    the state's dtype), or in torch with ``plain``, which is internal: the
+    card's comparison path."""
     q = g.q
-    rotated_cn = _make_rotated_cn(g, nm, "ems", "topk")
+    rotated_cn = _make_rotated_cn(g, nm, "ems", "topk", plain)
 
     def one_iteration(app, cv_v, cv_g, cv_sat, active):
         keep = ~active[:, None, None]                    # [F, 1, 1]
@@ -407,10 +429,10 @@ def make_layered_compressed_stepper(g: DeviceGraph, nm: int,
 
 
 def decode_layered_compressed(g, intrinsic, max_iters, nm, offset=0.3,
-                              dtype=torch.bfloat16):
+                              dtype=torch.bfloat16, plain=False):
     """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
     return host_loop(
-        *make_layered_compressed_stepper(g, nm, offset, dtype),
+        *make_layered_compressed_stepper(g, nm, offset, dtype, plain),
         intrinsic, max_iters)
 
 
@@ -420,29 +442,13 @@ def decode_layered_compressed(g, intrinsic, max_iters, nm, offset=0.3,
 # ---------------------------------------------------------------------------
 
 
-def _list_layer_step(g: DeviceGraph, nm: int, nboper: int, device,
-                     plain: bool = False):
-    """The list sweep's super-layer step for tensors on ``device``.
-
-    ``cuda_list.list_layer`` where K3 takes the shape (on the card: one
-    kernel launch; on CPU tensors: its plain version).  On CPU tensors
-    outside K3's limits (``cuda_list.limits_error``: the exact
-    ``nboper = 0`` mode, nm > 64, ...) ``listcn.list_layer_plain``; on the
-    card there a ``ValueError``: those modes are not ported to the card,
-    and nothing there gives way to the plain version.  ``plain`` (internal,
-    for holding K3 against it) takes ``list_layer_plain`` on any device.
-    """
-    if plain:
-        return listcn.list_layer_plain
-    err = cuda_list.limits_error(g.code.dc_max, g.q, nm, nboper)
-    if err is None:
-        return cuda_list.list_layer
-    if torch.device(device).type != "cpu":
-        raise ValueError(
-            f"list EMS on {device}: the card runs it only through K3 "
-            f"(ops/cuda_list.list_layer), which does not take this "
-            f"configuration: {err}")
-    return listcn.list_layer_plain
+def _list_layer_step(plain: bool = False):
+    """The list sweep's super-layer step: ``cuda_list.list_layer`` (on the
+    card one K3 launch, for every nboper, the exact ``nboper <= 0`` mode
+    included, and every 1 <= nm <= q; on CPU tensors its plain version).
+    ``plain`` (internal, for holding K3 against it) takes
+    ``listcn.list_layer_plain`` on any device."""
+    return listcn.list_layer_plain if plain else cuda_list.list_layer
 
 
 def _make_list_iteration(g: DeviceGraph, nm: int, offset: float,
@@ -458,8 +464,9 @@ def _make_list_iteration(g: DeviceGraph, nm: int, offset: float,
     CUDA kernel launch (K3, ``ops/cuda_list.list_layer``), on CPU tensors
     its plain version ``listcn.list_layer_plain``.
     """
+    layer_step = _list_layer_step(plain)
+
     def one_iteration(app, cv_v, cv_g, cv_sat, active):
-        layer_step = _list_layer_step(g, nm, nboper, app.device, plain)
         for p in _layer_plan(g, str(app.device)):
             layer_step(app, cv_v, cv_g, cv_sat, active, p["cols32"],
                        p["edge_ids32"], p["rc_in"], p["rc_out"], p["valid"],
@@ -474,27 +481,23 @@ def make_layered_list_stepper(g: DeviceGraph, nm: int, offset: float = 0.3,
     """Host-loop list-EMS decoder: ``state = init_fn(intrinsic)``,
     ``state = step_fn(state)``; state = (app, cv_v, cv_g, cv_sat, decide,
     conv, iters), updated in place.  ``dtype`` is the storage dtype of
-    APP and the CtoV values and saturation levels.  On the card the sweep
-    runs K3, and ``init_fn`` raises ``ValueError`` for a configuration
-    outside its limits (``_list_layer_step``).  ``plain`` is internal: it
+    APP and the CtoV values and saturation levels; ``nboper`` the merges'
+    budget (<= 0: the exact merge).  On the card the sweep runs K3 for
+    every configuration (``_list_layer_step``).  ``plain`` is internal: it
     runs ``list_layer_plain`` on the card, for holding K3 against it."""
     if not 1 <= nm <= g.q:
         raise ValueError(f"list EMS needs 1 <= nm <= q, got nm={nm}, "
                          f"q={g.q}")
-    init_fn, step_fn = _compressed_stepper(
+    return _compressed_stepper(
         g, nm, dtype, _make_list_iteration(g, nm, offset, nboper, plain))
-
-    def checked_init(intrinsic, state=None):
-        _list_layer_step(g, nm, nboper, intrinsic.device, plain)
-        return init_fn(intrinsic, state)
-
-    return checked_init, step_fn
 
 
 def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
                                  nboper=0, dtype=torch.bfloat16,
                                  plain=False):
-    """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    """The list-EMS decode under the host loop, through K3 on the card for
+    every ``nboper`` (<= 0: the exact merge) and 1 <= nm <= q.  Returns
+    (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
     return host_loop(
         *make_layered_list_stepper(g, nm, offset, nboper, dtype, plain),
         intrinsic, max_iters)
@@ -503,8 +506,9 @@ def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
 def decode_layered_list(g, intrinsic, max_iters, nm, offset=0.3, nboper=0,
                         dtype=torch.bfloat16):
     """The JAX ``decode_layered_list`` (a ``while_loop``): the same decode as
-    ``decode_layered_list_hostloop`` through ``device_loop``.  Returns
-    (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
+    ``decode_layered_list_hostloop`` through ``device_loop``, K3 on the
+    card for every ``nboper`` and 1 <= nm <= q.  Returns (decide [F, N]
+    int64, iters [F] int32, converged [F] bool)."""
     return device_loop.run(
         ("layered_list", g, nm, offset, nboper, dtype),
         lambda: make_layered_list_stepper(g, nm, offset, nboper, dtype),

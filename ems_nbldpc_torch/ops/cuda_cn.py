@@ -2,17 +2,26 @@
 
 The kernel of ``csrc/fb_checknode.cu`` replaces the JAX package's Pallas
 kernel ``ops/pallas_cn.fb_checknode_pallas`` and the selections and
-gathers around its call sites.  The decoder selects it with
-``cn_impl="pallas"`` (the name is kept, so decoder configurations carry
-across unchanged).  Two entry points launch it:
+gathers around its call sites.  The decoder runs it for ``cn="ems"`` and
+``"minsum"`` under every ``cn_impl`` but the bubble CNs: ``"pallas"`` (the
+name is kept, so decoder configurations carry across unchanged),
+``"auto"``, ``"topk"``, ``"dense"`` and ``"list"`` on dense storage, and
+the compressed ``"topk"`` decoder (``decoder/flooding.k1_route``).  It
+takes every row shape the plain version takes: rows of dc <= 2 (the
+swapped pair, or the delta message) and rows whose lists do not fit a
+block's shared memory, which run from a workspace in device memory that
+the wrapper allocates from torch's caching allocator for each call (a
+CUDA graph's capture takes it into its pool).  Two entry points launch
+it:
 
-* ``ems_rows(x, rot_in, rot_out, valid, nm, offset, truncate)``: the whole
-  EMS check-node step of a batch of unrotated rows (truncate, rotate in,
-  mask padding slots, F/B check node, rotate out, saturate, normalise);
-  ``ems_rows_plain`` is its plain torch version.
-* ``fb_checknode(vr, nm)``: the F/B check node alone on rotated rows, the
-  same kernel with the steps around it off; its plain version is
-  ``minconv.fb_checknode_topk``.
+* ``ems_rows(x, rot_in, rot_out, valid, nm, offset, truncate, dense)``:
+  the whole EMS check-node step of a batch of unrotated rows (truncate,
+  rotate in, mask padding slots, F/B check node, rotate out, saturate,
+  normalise); ``dense`` makes the check node the dense min-convolution
+  (lists of all q entries); ``ems_rows_plain`` is its plain torch version.
+* ``fb_checknode(vr, nm)``: the F/B check node alone on rotated float32
+  or bfloat16 rows, the same kernel with the steps around it off; its
+  plain version is ``minconv.fb_checknode_topk``.
 
 On a CUDA tensor each wrapper launches the kernel or raises; there is no
 fallback.  On a CPU tensor it runs the plain version, which the kernel
@@ -33,7 +42,7 @@ import torch
 
 from . import _build
 from .minconv import (ems_input_truncate, ems_output_saturate,
-                      fb_checknode_topk)
+                      fb_checknode_dense, fb_checknode_topk)
 
 launches = 0  # eager kernel launches since import (set to 0 to count a run)
 
@@ -49,9 +58,11 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ems_rows_launch.argtypes = [
         ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
-        i32, i32, ctypes.c_float, ptr,
+        i32, i32, ctypes.c_float, i32, i32, ptr, i64, ptr,
     ]
     lib.ems_rows_launch.restype = i32
+    lib.ems_rows_workspace_bytes.argtypes = [i64, i32, i32, i32, i32]
+    lib.ems_rows_workspace_bytes.restype = i64
     lib.ems_rows_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.ems_rows_launches.restype = i32
     lib.ems_rows_reset_launches.argtypes = []
@@ -80,18 +91,14 @@ def reset_device_launches() -> None:
                            f"with CUDA error {err}")
 
 
-def smem_bytes(dc: int, q: int, nm: int) -> int:
-    """Shared memory of one warp, i.e. one row in flight (mirrors
-    ems_rows_smem_bytes in the .cu source)."""
-    b = 4 * (3 * dc - 2) * q + 16 * (dc - 2) * nm
-    return (b + 15) // 16 * 16
-
-
-def _check(x: torch.Tensor, nm: int, name: str) -> None:
+def _check(x: torch.Tensor, nm: int, name: str,
+           dtypes=(torch.float32,)) -> None:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: rows must be float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: rows must be "
+                        + " or ".join(str(d).split(".")[-1] for d in dtypes)
+                        + f", got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"{name}: rows must be [T, dc, q], got "
                          f"{tuple(x.shape)}")
@@ -100,13 +107,10 @@ def _check(x: torch.Tensor, nm: int, name: str) -> None:
     _, dc, q = x.shape
     if q < 2 or q > 256 or q & (q - 1):
         raise ValueError(f"{name}: q={q} must be a power of two <= 256")
-    if dc < 3:
-        raise ValueError(f"{name}: dc={dc} must be >= 3")
+    if dc < 1:
+        raise ValueError(f"{name}: dc={dc} must be >= 1")
     if not 1 <= nm <= q:
         raise ValueError(f"{name}: nm={nm} must lie in [1, q={q}]")
-    if smem_bytes(dc, q, nm) > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: dc={dc}, q={q}, nm={nm} needs "
-                         f"{smem_bytes(dc, q, nm)} B of shared memory")
 
 
 def _table_rows(x, rot_in, rot_out, valid, name: str = "ems_rows") -> int:
@@ -134,16 +138,19 @@ def _table_rows(x, rot_in, rot_out, valid, name: str = "ems_rows") -> int:
 
 
 def ems_rows_plain(x, rot_in, rot_out, valid, nm: int, offset: float,
-                   truncate: bool) -> torch.Tensor:
+                   truncate: bool, dense: bool = False) -> torch.Tensor:
     """The plain torch composition that ``ems_rows`` fuses: [T, dc, q]
-    unrotated rows -> [T, dc, q] min-normalised CN outputs."""
+    unrotated rows -> [T, dc, q] min-normalised CN outputs; ``dense``: the
+    dense min-convolution ``fb_checknode_dense`` in place of the nm-list
+    ``fb_checknode_topk`` (the kernel's lists of all q entries)."""
     t, dc, q = x.shape
     g = _table_rows(x, rot_in, rot_out, valid)
     v = x.reshape(t // g, g, dc, q)
     if truncate:
         v = ems_input_truncate(v, nm)
     v = torch.gather(v, -1, rot_in.long().expand_as(v))
-    out = fb_checknode_topk(v, nm, valid)
+    out = (fb_checknode_dense(v, valid) if dense
+           else fb_checknode_topk(v, nm, valid))
     out = torch.gather(out, -1, rot_out.long().expand_as(out))
     if truncate:
         out = ems_output_saturate(out, nm, offset)
@@ -152,7 +159,7 @@ def ems_rows_plain(x, rot_in, rot_out, valid, nm: int, offset: float,
 
 
 def _launch(x, nm, rot_in, rot_out, valid, g, truncate, normalize,
-            offset):
+            offset, lst, round_bf16=False):
     global launches
     t, dc, q = x.shape
     out = torch.empty_like(x)
@@ -162,11 +169,19 @@ def _launch(x, nm, rot_in, rot_out, valid, g, truncate, normalize,
     def ptr(a):
         return None if a is None else a.data_ptr()
 
+    lib = _lib()
     with torch.cuda.device(x.device):
-        err = _lib().ems_rows_launch(
+        # rows past a block's shared memory run from a workspace
+        nbytes = lib.ems_rows_workspace_bytes(t, dc, q, nm, lst)
+        if nbytes < 0:
+            raise RuntimeError(f"ems_rows: sizing the workspace failed with "
+                               f"CUDA error {-nbytes}")
+        ws = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+              if nbytes else None)
+        err = lib.ems_rows_launch(
             x.data_ptr(), out.data_ptr(), t, dc, q, nm, ptr(rot_in),
             ptr(rot_out), ptr(valid), g, int(truncate), int(normalize),
-            float(offset),
+            float(offset), lst, int(round_bf16), ptr(ws), nbytes,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -177,30 +192,43 @@ def _launch(x, nm, rot_in, rot_out, valid, g, truncate, normalize,
 
 
 def ems_rows(x: torch.Tensor, rot_in, rot_out, valid, nm: int,
-             offset: float, truncate: bool) -> torch.Tensor:
-    """The EMS check-node step of a batch of rows, in one kernel launch.
+             offset: float, truncate: bool,
+             dense: bool = False) -> torch.Tensor:
+    """The EMS check-node step of a batch of rows, in one kernel launch
+    (and, for rows past a block's shared memory, one allocation of its
+    workspace).
 
     x: [T, dc, q] float32 unrotated, min-normalised VN-to-CN rows; row t
     uses row ``t % G`` of the per-position tables ``rot_in`` / ``rot_out``
     ([G, dc, q] uint8 gather tables, ``graph.rotation_table``) and of
     ``valid`` ([G, dc] bool, False at padding slots; None: no padding).
     ``truncate`` (``cn == "ems" and nm < q``) truncates the inputs to
-    their nm best and saturates the outputs at nm-th best + ``offset``.
-    Returns [T, dc, q] min-normalised outputs, equal bit for bit to
-    ``ems_rows_plain``.
+    their nm best (ties with the nm-th kept) and saturates the outputs at
+    nm-th best + ``offset``.  ``dense``: the check node merges lists of all
+    q entries, the dense min-convolution (nm is then the truncation rank
+    alone).  Returns [T, dc, q] min-normalised outputs, equal bit for bit
+    to ``ems_rows_plain``.
     """
+    lst = x.shape[-1] if dense else nm
     _check(x, nm, "ems_rows")
     g = _table_rows(x, rot_in, rot_out, valid)
     if x.device.type == "cpu":
         return ems_rows_plain(x, rot_in, rot_out, valid, nm, offset,
-                              truncate)
-    return _launch(x, nm, rot_in, rot_out, valid, g, truncate, True, offset)
+                              truncate, dense)
+    return _launch(x, nm, rot_in, rot_out, valid, g, truncate, True, offset,
+                   lst)
 
 
 def fb_checknode(vr: torch.Tensor, nm: int) -> torch.Tensor:
-    """vr: [T, dc, q] rotated float32 rows -> [T, dc, q] CN outputs."""
-    _check(vr, nm, "fb_checknode")
+    """vr: [T, dc, q] rotated float32 or bfloat16 rows -> [T, dc, q] CN
+    outputs of vr's dtype.  A bf16 input computes as
+    ``fb_checknode_topk`` does on bf16 tensors: each merge's output
+    rounded to bf16."""
+    _check(vr, nm, "fb_checknode", dtypes=(torch.float32, torch.bfloat16))
     if vr.device.type == "cpu":
         return fb_checknode_topk(vr, nm)
     # null tables: identity rotations and no mask
-    return _launch(vr, nm, None, None, None, 1, False, False, 0.0)
+    bf16 = vr.dtype == torch.bfloat16
+    out = _launch(vr.float() if bf16 else vr, nm, None, None, None, 1,
+                  False, False, 0.0, nm, bf16)
+    return out.to(torch.bfloat16) if bf16 else out

@@ -2,9 +2,10 @@
 kernel (K3).
 
 The kernel of ``csrc/list_checknode.cu`` replaces the XLA ops of
-``ems_nbldpc_tpu/ops/listcn.py`` on the list path (``topk_list``,
-``rotate_ids``, the budgeted staircase branch of ``list_combine``,
-``fb_checknode_list``, ``saturate_list``, ``expand_list``) and the
+``ems_nbldpc_tpu/ops/listcn.py`` on the list path (``topk_list`` and, in
+the exact mode, ``minconv.topk_message``; ``rotate_ids``; both branches of
+``list_combine``: the budgeted staircase and the exact top-nm-distinct
+merge; ``fb_checknode_list``, ``saturate_list``, ``expand_list``) and the
 gathers, VN extrinsic, freeze and scatters of the sweep body around them
 (``ems_nbldpc_tpu/decoder/layered.py:567-611``).  One entry point launches
 it:
@@ -18,13 +19,15 @@ it:
   plain version's bf16 tensors round, so the two agree bit for bit at
   either dtype.
 
-Its limits (``takes``): q a power of two <= 256, 1 <= nm <= min(q, 64),
-nboper >= 1, dc >= 1, and one row's shared memory within a block's.  The
-exact f32 mode ``nboper = 0`` (three stable f32 sorts over all na * nb
-candidates, whose tail ids come from the sort order) is not K3's and is
-not ported to the card: the layered decoder runs ``list_layer_plain`` for
-it, and for any shape outside the limits, on CPU tensors only, and raises
-``ValueError`` for them on the card (``layered._list_layer_step``).
+Its limits (``takes``) are the plain version's: q a power of two <= 256,
+1 <= nm <= q, dc >= 1, any nboper (<= 0: the exact mode).  The library
+picks one of three paths for a shape (``path`` asks it): the fast step
+(the staircase, nm <= 64, one row within a block's shared memory: the
+bench row's), and the general step for every other shape, the exact mode
+and nm up to q among them, with a row's mvc and lists in shared memory
+where one warp's fit a block, else in a global workspace.  The library
+sizes the workspace, and ``list_layer`` allocates it from torch's caching
+allocator for each call (a CUDA graph's capture takes it into its pool).
 
 On a CUDA tensor ``list_layer`` launches the kernel or raises; there is no
 fallback.  On a CPU tensor it runs the plain version.  The kernel is
@@ -48,9 +51,7 @@ from .listcn import list_layer_plain
 
 launches = 0  # eager kernel launches since import (set to 0 to count a run)
 
-WARPS = 4                  # warps per block
-MAX_NM = 64                # list entries: two a lane
-TAB = 256                  # GF ids a key holds (8 bits)
+PATHS = (None, "fast", "shared", "workspace")  # list_path's codes
 # the C function by state dtype
 _ENTRY = {torch.float32: "list_layer_launch",
           torch.bfloat16: "list_layer_bf16_launch"}
@@ -73,10 +74,13 @@ def _bind(path: str) -> ctypes.CDLL:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr, ptr, ptr,
-                       ptr, ptr, i64, i32, i32, i32, i32, ctypes.c_float, ptr]
+                       ptr, ptr, i64, i32, i32, i32, i32, ctypes.c_float, ptr,
+                       i64, ptr]
         fn.restype = i32
-    lib.list_block_warps.argtypes = [i32, i32, i32, i32]
-    lib.list_block_warps.restype = i32
+    lib.list_path.argtypes = [i32, i32, i32, i32]
+    lib.list_path.restype = i32
+    lib.list_workspace_bytes.argtypes = [i64, i32, i32, i32, i32, i32]
+    lib.list_workspace_bytes.restype = i64
     lib.list_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.list_launches.restype = i32
     lib.list_reset_launches.argtypes = []
@@ -105,10 +109,6 @@ def reset_device_launches() -> None:
                            f"with CUDA error {err}")
 
 
-def _a16(b: int) -> int:
-    return (b + 15) // 16 * 16
-
-
 def staircase_pairs(nm: int, nboper: int) -> int:
     """Candidates of one merge, {(i+1)(j+1) <= nboper} with i, j < nm
     (``list_combine``'s staircase; 216 at nm = 32, nboper = 64)."""
@@ -116,48 +116,30 @@ def staircase_pairs(nm: int, nboper: int) -> int:
     return sum(min(nm, w // (i + 1)) for i in range(nm))
 
 
-def warp_bytes(dc: int, q: int, nm: int) -> int:
-    """Shared memory of one warp on an f32 state (mirrors ``layout`` in
-    the .cu source; a bf16 state's mvc takes half): mvc [dc, q], the
-    lists (one u32 an entry: a value's bf16 bits over its GF id), dc of
-    them for dc <= 2 and 3 dc - 4 otherwise, and one 256-entry u32 table,
-    cleared before each use."""
-    lists = dc if dc <= 2 else 3 * dc - 4
-    return _a16(4 * dc * q) + _a16(4 * lists * nm) + 4 * TAB
-
-
-def warps_per_block(dc: int, q: int, nm: int, nboper: int) -> int:
-    """Warps a block holds on an f32 state (a bf16 state's block holds as
-    many): WARPS, fewer where their shared memory and the staircase's pair
-    table do not fit one block; 0 if not even one warp fits.  Where
-    ``takes``, it equals the library's ``list_block_warps``
-    (``block_warps`` in the .cu source, 0 outside its limits), which
-    ``chip_smoke.py`` 3f holds it against on the card."""
-    room = _build.SMEM_LIMIT - _a16(2 * staircase_pairs(nm, nboper))
-    return max(0, min(WARPS, room // warp_bytes(dc, q, nm)))
-
-
-def limits_error(dc: int, q: int, nm: int, nboper: int) -> str | None:
-    """Why K3 does not take this list CN, or None where it does."""
-    if q < 2 or q > TAB or q & (q - 1):
-        return f"q={q} must be a power of two <= {TAB}"
-    if not 1 <= nm <= min(q, MAX_NM):
-        return f"nm={nm} must lie in [1, min(q, {MAX_NM})]"
-    if nboper < 1:
-        return (f"nboper={nboper}: K3 runs the staircase merges "
-                "(nboper >= 1); the exact nboper = 0 mode runs on CPU "
-                "tensors only (list_layer_plain)")
+def limits_error(dc: int, q: int, nm: int) -> str | None:
+    """Why K3 does not take this list CN, or None where it does: only
+    inputs that ``list_layer_plain`` refuses too (for every nboper)."""
+    if q < 2 or q > 256 or q & (q - 1):
+        return f"q={q} must be a power of two <= 256"
+    if not 1 <= nm <= q:
+        return f"nm={nm} must lie in [1, q={q}]"
     if dc < 1:
         return f"dc={dc} must be >= 1"
-    if warps_per_block(dc, q, nm, nboper) < 1:
-        return (f"dc={dc}, q={q}, nm={nm} needs {warp_bytes(dc, q, nm)} B "
-                f"of shared memory a row, over what a block may use")
     return None
 
 
-def takes(dc: int, q: int, nm: int, nboper: int) -> bool:
-    """Whether K3 takes this list CN (``limits_error`` is None)."""
-    return limits_error(dc, q, nm, nboper) is None
+def path(dc: int, q: int, nm: int, nboper: int) -> str | None:
+    """Where the library runs this list CN on the card: "fast" (the
+    staircase, nm <= 64, one row in a block's shared memory), else the
+    general step, "shared" where one warp's rows fit a block, else
+    "workspace"; None where refused.  Builds and loads the library."""
+    return PATHS[_lib().list_path(dc, q, nm, nboper)]
+
+
+def takes(dc: int, q: int, nm: int) -> bool:
+    """Whether K3 takes this list CN (``limits_error`` is None), for every
+    nboper."""
+    return limits_error(dc, q, nm) is None
 
 
 def _check(app, cv_v, cv_g, cv_sat, active, cols, edges, rc_in, rc_out,
@@ -200,7 +182,7 @@ def _check(app, cv_v, cv_g, cv_sat, active, cols, edges, rc_in, rc_out,
     if edges.dtype != torch.int32 or tuple(edges.shape) != (g, dc):
         raise ValueError(f"{name}: edges must be [{g}, {dc}] int32, got "
                          f"{tuple(edges.shape)} {edges.dtype}")
-    err = limits_error(dc, q, nm, nboper)
+    err = limits_error(dc, q, nm)
     if err is not None:
         raise ValueError(f"{name}: {err}")
     logq = q.bit_length() - 1
@@ -233,7 +215,7 @@ def list_layer(app: torch.Tensor, cv_v: torch.Tensor, cv_g: torch.Tensor,
                rc_out: torch.Tensor, valid, nm: int, nboper: int,
                offset: float) -> None:
     """One layered truncated-list EMS super-layer, in place, in one kernel
-    launch.
+    launch (and, on the workspace path, one allocation of its workspace).
 
     app: [F, N+1, q], cv_v: [F, E+1, nm] and cv_sat: [F, E+1], contiguous,
     of one dtype, float32 or bfloat16; cv_g: [F, E+1, nm] uint8; active:
@@ -244,13 +226,12 @@ def list_layer(app: torch.Tensor, cv_v: torch.Tensor, cv_g: torch.Tensor,
     GF(2)-basis columns of each slot's h and h^-1 (``listcn.mul_cols``);
     valid: [G, dc] bool (False at padded slots) or None; nm, nboper,
     offset: the list length, the merges' candidate budget (>= 1: the
-    staircase) and the saturation offset.  Equal bit for bit to
-    ``listcn.list_layer_plain`` on every real slot, frozen frame and row
-    the layer does not own; padded slots write nothing, so the padding
-    column and edge keep their values (the plain version scatters its
-    padded slots there).  Outside ``takes``' limits it raises
-    ``ValueError`` on either device.
-    """
+    staircase; <= 0: the exact merge) and the saturation offset.  Equal
+    bit for bit to ``listcn.list_layer_plain`` on every real slot, frozen
+    frame and row the layer does not own; padded slots write nothing, so
+    the padding column and edge keep their values (the plain version
+    scatters its padded slots there).  Outside ``takes``' limits it
+    raises ``ValueError`` on either device."""
     global launches
     _check(app, cv_v, cv_g, cv_sat, active, cols, edges, rc_in, rc_out,
            valid, nm, nboper)
@@ -262,15 +243,25 @@ def list_layer(app: torch.Tensor, cv_v: torch.Tensor, cv_g: torch.Tensor,
     if f == 0:
         return
     g, dc = cols.shape
+    q = app.shape[2]
+    lib = _lib()
     with torch.cuda.device(app.device):
-        err = getattr(_lib(), _ENTRY[app.dtype])(
+        # rows past a block's shared memory run from a workspace
+        nbytes = lib.list_workspace_bytes(f * g, dc, q, nm, nboper,
+                                          app.element_size())
+        if nbytes < 0:
+            raise RuntimeError(f"list_layer: sizing the workspace failed "
+                               f"with CUDA error {-nbytes}")
+        ws = (torch.empty(nbytes, dtype=torch.uint8, device=app.device)
+              if nbytes else None)
+        err = getattr(lib, _ENTRY[app.dtype])(
             app.data_ptr(), cv_v.data_ptr(), cv_g.data_ptr(),
             cv_sat.data_ptr(), f, app.shape[1], cv_v.shape[1],
             active.data_ptr(), cols.data_ptr(), edges.data_ptr(),
             rc_in.data_ptr(), rc_out.data_ptr(),
-            None if valid is None else valid.data_ptr(), g, dc,
-            app.shape[2], nm, nboper, float(offset),
-            torch.cuda.current_stream().cuda_stream)
+            None if valid is None else valid.data_ptr(), g, dc, q, nm,
+            nboper, float(offset), None if ws is None else ws.data_ptr(),
+            nbytes, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"list_layer: kernel launch failed with CUDA "
                            f"error {err}")

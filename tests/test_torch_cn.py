@@ -105,8 +105,8 @@ def test_syndrome_ok_exact(q):
 
 
 @pytest.mark.parametrize("bad", [
-    "float64", "int", "2d", "noncontig", "dc2", "q_not_pow2", "q512",
-    "nm0", "nm_gt_q", "smem"])
+    "float64", "int", "2d", "noncontig", "dc0", "q_not_pow2", "q512",
+    "nm0", "nm_gt_q", "q1"])
 def test_wrapper_rejects_bad_inputs(bad):
     t, dc, q, nm = 6, 4, 16, 4
     v = torch.from_numpy(make_rows(t, dc, q, nm, "uniform"))
@@ -119,8 +119,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         v = v.reshape(t * dc, q)
     elif bad == "noncontig":
         v = v.transpose(0, 1)
-    elif bad == "dc2":
-        v = v[:, :2].contiguous()
+    elif bad == "dc0":
+        v = v[:, :0].contiguous()
     elif bad == "q_not_pow2":
         v = v[..., :12].contiguous()
     elif bad == "q512":
@@ -129,8 +129,8 @@ def test_wrapper_rejects_bad_inputs(bad):
         nm = 0
     elif bad == "nm_gt_q":
         nm = q + 1
-    elif bad == "smem":
-        v, nm = torch.zeros((2, 120, 256)), 32
+    elif bad == "q1":
+        v, nm = torch.zeros((t, dc, 1)), 1
     with pytest.raises(err):
         cuda_cn.fb_checknode(v, nm)
 

@@ -142,19 +142,21 @@ def test_plain_matches_layered_topk_route(code, cn, nm):
 def test_plain_matches_flooding_topk_route(code, cn, nm, kind):
     """The flooding step's fused route (unrotated row gather, per-row
     tables from the row coefficients) equals its unfused ``topk`` route
-    (per-edge rotations, delta padding edge)."""
+    (per-edge rotations, delta padding edge), which ``plain`` runs (every
+    other ``cn_impl`` takes the fused route where K1 takes the rows)."""
     c = random_regular(48, 24, 16, seed=3) if code == "regular" \
         else tiny_irregular()
     g = DeviceGraph.from_code(c)
     assert g.regular == (code == "regular")
     vtoc = torch.from_numpy(rows((6, c.n_edges, c.q), kind, seed=nm))
-    want = flooding.checknode(g, vtoc, nm, OFFSET, cn, "topk")
-    got = flooding.checknode(g, vtoc, nm, OFFSET, cn, "pallas")
-    assert torch.equal(got, want)
+    want = flooding.checknode(g, vtoc, nm, OFFSET, cn, "topk", plain=True)
+    for impl in ("pallas", "topk"):
+        got = flooding.checknode(g, vtoc, nm, OFFSET, cn, impl)
+        assert torch.equal(got, want), impl
 
 
 BAD = ["x_float64", "x_2d", "rot_in_int64", "rot_out_shape", "valid_uint8",
-       "valid_shape", "tables_disagree", "t_not_multiple", "nm0", "dc2",
+       "valid_shape", "tables_disagree", "t_not_multiple", "nm0", "dc0",
        "no_rot_in", "no_rot_out"]
 
 
@@ -188,11 +190,11 @@ def test_ems_rows_rejects_bad_inputs(bad):
         rin = None
     elif bad == "no_rot_out":
         rout = None
-    elif bad == "dc2":
-        x, rin, rout, valid = (x[:, :2].contiguous(),
-                               rin[:, :2].contiguous(),
-                               rout[:, :2].contiguous(),
-                               valid[:, :2].contiguous())
+    elif bad == "dc0":
+        x, rin, rout, valid = (x[:, :0].contiguous(),
+                               rin[:, :0].contiguous(),
+                               rout[:, :0].contiguous(),
+                               valid[:, :0].contiguous())
     with pytest.raises(err):
         cuda_cn.ems_rows(x, rin, rout, valid, nm, OFFSET, True)
     if "rot" in bad or "valid" in bad or bad in ("tables_disagree",

@@ -232,7 +232,8 @@ def test_flooding_kernels_match_plain_on_card():
     kern = flooding.decode_flooding_hostloop(g, x, 15, 8, 0.3, "ems",
                                              "pallas")
     assert cuda_cn.launches - before == int(kern[1].max()) > 0
-    plain = flooding.decode_flooding_hostloop(g, x, 15, 8, 0.3, "ems", "topk")
+    plain = flooding.decode_flooding_hostloop(g, x, 15, 8, 0.3, "ems",
+                                              "pallas", plain=True)
     assert all(torch.equal(a, b) for a, b in zip(kern, plain))
     before = cuda_spa.launches
     kern = flooding.decode_flooding_hostloop(g, x, 15, cn="spa")

@@ -322,18 +322,16 @@ def test_decode_unchanged_under_both_loops(kind, dtype):
             assert torch.equal(a, b), loop
 
 
-@pytest.mark.parametrize("nm,nboper,dc,kernel", [
-    (8, 64, 4, True), (8, 0, 4, False), (65, 64, 4, False),
-    (8, 64, 20, True)])
+@pytest.mark.parametrize("nm,nboper,dc", [
+    (8, 64, 4), (8, 0, 4), (65, 64, 4), (8, 64, 20)])
 def test_route_is_chosen_when_the_stepper_is_built(monkeypatch, nm, nboper,
-                                                   dc, kernel):
-    """One ``list_layer`` call per super-layer where K3 takes the shape;
-    on CPU tensors ``list_layer_plain`` for nboper = 0 and for nm > 64 (the
-    wrapper is never called there).  On the card those raise
-    ``ValueError`` when the stepper is given its first state, before any
-    step (here shown on a "meta" tensor, which is no CPU tensor either,
-    and on the route a "cuda" device gets); ``plain`` alone takes the
-    plain version there."""
+                                                   dc):
+    """One ``list_layer`` call per super-layer for every configuration:
+    the staircase at nm <= 64, the exact nboper = 0 mode and nm > 64 (K3
+    takes them all on the card); the wrapper runs the plain version on CPU
+    tensors, and nothing calls ``list_layer_plain`` directly.  The step
+    the stepper runs does not depend on the device; ``plain`` alone takes
+    the plain version."""
     q = 256 if nm > 64 else 16
     _, g = make_codes("regular", q, dc, seed=1)
     calls = {"list_layer": 0, "list_layer_plain": 0}
@@ -353,23 +351,11 @@ def test_route_is_chosen_when_the_stepper_is_built(monkeypatch, nm, nboper,
     assert sum(calls.values()) == 0
     step(init(bpsk_intrinsic(g, 2, 1.0, seed=0)))
     layers = len(g.layers)
-    want = {"list_layer": layers if kernel else 0}
     # the wrapper runs the plain version on CPU tensors, unpatched
-    want["list_layer_plain"] = 0 if kernel else layers
-    assert calls == want
-    assert cuda_list.takes(dc, q, nm, nboper) == kernel
-    cuda = torch.device("cuda")
-    meta = torch.empty((2, g.code.n, q), device="meta")
-    assert layered._list_layer_step(g, nm, nboper, cuda, plain=True) \
-        is listcn.list_layer_plain
-    if kernel:
-        assert layered._list_layer_step(g, nm, nboper, cuda) \
-            is cuda_list.list_layer
-    else:
-        with pytest.raises(ValueError, match="does not take"):
-            layered._list_layer_step(g, nm, nboper, cuda)
-        with pytest.raises(ValueError, match="does not take"):
-            init(meta)
+    assert calls == {"list_layer": layers, "list_layer_plain": 0}
+    assert cuda_list.takes(dc, q, nm)
+    assert layered._list_layer_step(plain=True) is listcn.list_layer_plain
+    assert layered._list_layer_step() is cuda_list.list_layer
 
 
 def test_device_loop_restores_the_list_count():
@@ -379,25 +365,23 @@ def test_device_loop_restores_the_list_count():
 
 
 def test_shared_memory_layout_mirrors_the_source():
-    """The staircase's candidates and one warp's shared memory at the
-    bench shape and the limits' corners (``warp_bytes`` mirrors ``layout``
-    in csrc/list_checknode.cu)."""
+    """The staircase's candidates (``staircase_pairs`` mirrors its
+    namesake in csrc/list_checknode.cu; chip_smoke.py's bounds read it) and
+    the shapes K3 takes at the limits' corners.  The library lays out its
+    shared memory and picks its path itself."""
     assert cuda_list.staircase_pairs(32, 64) == 216
     assert cuda_list.staircase_pairs(25, 24) == sum(
         min(25, 24 // (i + 1)) for i in range(25))
     assert cuda_list.staircase_pairs(64, 4096) == 64 * 64
-    # mvc 4 KiB (f32), 8 lists of 32 u32 entries, one 256-entry u32 table
-    assert cuda_list.warp_bytes(4, 256, 32) == 4096 + 1024 + 1024
-    assert cuda_list.warp_bytes(120, 256, 64) == 122880 + 91136 + 1024
-    assert cuda_list.warps_per_block(120, 256, 64, 200) == 1
-    assert cuda_list.warps_per_block(4, 256, 32, 64) == 4
-    assert cuda_list.warps_per_block(20, 256, 64, 4096) >= 1
-    assert cuda_list.takes(20, 256, 64, 4096)
-    assert cuda_list.takes(1, 16, 16, 1) and cuda_list.takes(2, 2, 2, 1)
-    assert not cuda_list.takes(4, 256, 65, 64)
-    assert not cuda_list.takes(4, 256, 32, 0)
-    assert not cuda_list.takes(4, 48, 8, 64)
-    assert not cuda_list.takes(400, 256, 64, 64)   # a row's memory
+    assert cuda_list.takes(20, 256, 64)
+    assert cuda_list.takes(1, 16, 16) and cuda_list.takes(2, 2, 2)
+    # the general step: nm > 64, rows past a block's shared memory (from
+    # the workspace); the library picks the path (chip_smoke.py 3f, 3g)
+    assert cuda_list.takes(4, 256, 65)
+    assert cuda_list.takes(4, 256, 256)
+    assert not cuda_list.takes(4, 48, 8)
+    assert cuda_list.takes(400, 256, 64)
+    assert not cuda_list.takes(4, 16, 17)          # nm > q
 
 
 def _pr14_warps(dc, q, nm, nboper):
@@ -406,7 +390,8 @@ def _pr14_warps(dc, q, nm, nboper):
     if (q < 2 or q > 256 or q & (q - 1) or not 1 <= nm <= min(q, 64)
             or nboper < 1 or dc < 1):
         return 0
-    a16 = cuda_list._a16
+    def a16(b):
+        return (b + 15) // 16 * 16
     lists = dc if dc <= 2 else 3 * dc - 4
     wb = a16(4 * dc * q) + a16(4 * lists * nm) + a16(lists * nm) + 1024
     room = 232448 - a16(2 * cuda_list.staircase_pairs(nm, nboper))
@@ -414,22 +399,20 @@ def _pr14_warps(dc, q, nm, nboper):
 
 
 def test_taken_shapes_keep_the_former_limits():
-    """Every shape the former layout took is taken.  On the grid that
-    chip_smoke.py 3f holds the wrapper against the library, the taken set
-    is the former one but for dc = 400, q = 64, nm = 25, which the 4-byte
-    list entries (5 before) bring within a block."""
+    """Every shape the former layout took is still taken, and so is every
+    shape the plain version takes (q a power of two <= 256, 1 <= nm <= q)
+    for every nboper.  Which of K3's steps runs a shape is the library's
+    choice (``cuda_list.path``; chip_smoke.py 3f holds the bench row and
+    the odd staircase layers on the fast step)."""
     grid = [(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 400)
             for q in (2, 16, 48, 64, 256, 512)
             for nm in (1, 4, 8, 12, 25, 32, 64, 65)
             for ops in (0, 1, 4, 24, 64, 4096)]
-    more = [k for k in grid if cuda_list.takes(*k) != (_pr14_warps(*k) > 0)]
-    assert more == [(400, 64, 25, ops) for ops in (1, 4, 24, 64, 4096)]
-    assert all(cuda_list.takes(*k) for k in more)
-    for dc in range(1, 300, 7):
-        for q in (4, 64, 256):
-            for nm in (1, 8, 33, 64):
-                if _pr14_warps(dc, q, nm, 64):
-                    assert cuda_list.takes(dc, q, nm, 64)
+    former = [k for k in grid if _pr14_warps(*k) > 0]
+    assert len(former) > 100
+    assert all(cuda_list.takes(*k[:3]) for k in former)
+    assert all(cuda_list.takes(*k[:3]) == (q in (2, 16, 64, 256) and nm <= q)
+               for k in grid for q, nm in [k[1:3]])
 
 
 # ---- a model of K3's selection (select_nm in csrc/list_checknode.cu) ----
@@ -608,7 +591,7 @@ def rejection_case(bad):
         "nm_over_q": dict(nm=80, cv_v=torch.zeros(cv_v.shape[:2] + (80,)),
                           cv_g=torch.zeros(cv_g.shape[:2] + (80,),
                                            dtype=torch.uint8)),
-        "nboper_0": dict(nboper=0),
+        "app_q48": dict(app=app[..., :12].repeat(1, 1, 4)),
         "no_rows": dict(cols=p["cols32"][:0], edges=p["edge_ids32"][:0]),
     }
     if bad is not None:
@@ -619,7 +602,7 @@ def rejection_case(bad):
 BAD = ["app_f16", "cv_v_bf16", "cv_g_int32", "cv_sat_f64", "app_2d",
        "cv_v_nm", "cv_g_shape", "active_int", "cols_int64", "edges_shape",
        "rc_in_shape", "rc_out_none", "valid_shape", "app_strided",
-       "nm_over_q", "nboper_0", "no_rows"]
+       "nm_over_q", "app_q48", "no_rows"]
 
 
 @pytest.mark.parametrize("bad", BAD)
