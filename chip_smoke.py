@@ -147,13 +147,17 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    times K3 and its plain version in turns at F = 128 on an f32 and a bf16
    state, beside each bound; first, the library's ``list_path`` refuses
    what the wrapper's ``limits_error`` refuses over a grid of shapes, and
-   puts the bench row on the fast step (``--only-3f``: phases 1, 2 and 3f
-   alone, no result line);
-3g. K3's general step against ``list_layer_plain`` as 3f: the exact merge
-   (nbOper = 0) on the real code's three layer plans at F = 128, nm = 32,
-   f32 and bf16, from "decoder", "ties", "flat" and decoded states; odd
-   padded layers (``LIST_GENERAL``: nm 1 to q = 256 on both merges, q = 2
-   to 256, dc = 1 to 400, rows from the workspace at dc = 120 (exact) and
+   puts the bench row on the fast step and its exact mode on the fast
+   step's exact form (``--only-3f``: phases 1, 2 and 3f alone, no result
+   line; with ``--only-3g`` as well, 3f then 3g);
+3g. K3's exact mode and general step against ``list_layer_plain`` as 3f:
+   the exact merge (nbOper = 0, the fast step's exact form) on the real
+   code's three layer plans at F = 128, nm = 32, f32 and bf16, from
+   "decoder", "ties", "flat" and decoded states; odd padded layers
+   (``LIST_GENERAL``: nm 1 to q = 256 on both merges, the exact form's
+   edges nm = 33, 63 and 64, half the slots padded so that merges of
+   neutral lists have fewer than nm GF ids below BIG (the tail), q = 2 to
+   256, dc = 1 to 400, rows from the workspace at dc = 120 (exact) and
    dc = 400 (staircase), a negative offset); a decode from the workspace
    (20 rows of degree 34, nm = q, exact) under the device loop against the
    host loop (6's checks) and through K3 against its plain version; then
@@ -213,7 +217,7 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 5l. list-EMS decode both ways (host loop), at full width: 16 frames of
    the chain's first batch through K3 and through ``list_layer_plain`` on
    the card (``plain``, no launch), at 4c's settings, with nbOper = 0 and
-   with nm = 65 (both on K3's general step): identical decisions,
+   with nm = 65 (the exact form and the general step): identical decisions,
    iterations and convergence (the differing frames printed), 3
    ``list_layer`` a step on the kernel side;
 4j. list-EMS chain with the exact merge: 4c's settings with nbOper = 0
@@ -1850,7 +1854,7 @@ def check_list_limits(graph):
     ``limits_error`` (the plain version's limits) refuses, over a grid of
     shapes around the limits, LIST_ODD's and LIST_GENERAL's included; the
     bench row's shape runs the fast step, and the exact mode there the
-    general step in shared memory."""
+    fast step's exact form."""
     lib = cuda_list._lib()
     shapes = {(dc, q, nm, ops) for dc in (1, 2, 3, 4, 5, 6, 20, 40, 100, 120,
                                           400)
@@ -1869,9 +1873,9 @@ def check_list_limits(graph):
                    f"{bad[:5]}")
     dc, q = graph.code.dc_max, graph.q
     check(cuda_list.path(dc, q, LIST_NM, LIST_OPS) == "fast"
-          and cuda_list.path(dc, q, LIST_NM, 0) == "shared",
+          and cuda_list.path(dc, q, LIST_NM, 0) == "exact",
           "the bench row does not run the fast step, or its exact mode "
-          "the general step in shared memory")
+          "the fast step's exact form")
 
 
 def check_list_kernel(graph):
@@ -1959,8 +1963,15 @@ def check_list_kernel(graph):
 
 
 LIST_GENERAL = [           # (F, G, dc, q, nm, nbOper, offset, padded
-    # slots) of list_layer's general step on random layer tables
+    # slots) of list_layer's exact mode and general step on random layer
+    # tables
     (8, 60, 4, 256, 32, 0, OFFSET, 3),       # exact, the bench's nm
+    (8, 40, 4, 256, 33, 0, OFFSET, 3),       # the first past 32 keys
+    (8, 40, 4, 256, 63, 0, OFFSET, 3),
+    (8, 40, 4, 256, 64, 0, OFFSET, 3),       # the exact form's last nm
+    (8, 30, 4, 256, 32, 0, OFFSET, 60),      # half the slots padded: merges
+    # of neutral lists, fewer than nm GF ids below BIG (the tail)
+    (4, 40, 20, 64, 32, 0, OFFSET, 9),       # dc = 20 at q = 64
     (8, 50, 3, 16, 8, 0, OFFSET, 3),
     (8, 100, 6, 64, 12, 0, OFFSET, 5),
     (8, 40, 4, 256, 1, 0, OFFSET, 3),        # nm = 1
@@ -1996,8 +2007,9 @@ def odd_list_layer(g, dc, q, pads, seed):
 
 
 def check_list_general(graph):
-    """3g: K3's general step (the exact merge, nbOper = 0; lists up to
-    q = 256 on both merges; rows from the workspace) against
+    """3g: K3's exact mode (nbOper = 0, the fast step's exact form at nm
+    <= 64) and general step (lists up to q = 256 on both merges; rows from
+    the workspace) against
     ``list_layer_plain``, bit for bit: the real code's three layer plans at
     F = 128, nm = 32, nbOper = 0, f32 and bf16, from "decoder", "ties",
     "flat" and decoded states; the odd padded layers of LIST_GENERAL; a
@@ -2018,8 +2030,8 @@ def check_list_general(graph):
                 p["valid"])
 
     exact = (LIST_NM, 0, OFFSET)
-    check(cuda_list.path(code.dc_max, q, LIST_NM, 0) == "shared",
-          "the exact mode does not run the general step")
+    check(cuda_list.path(code.dc_max, q, LIST_NM, 0) == "exact",
+          "the exact mode does not run the fast step's exact form")
     for dtype in (torch.float32, BF16):
         for k, p in enumerate(plans):
             for kind in ("decoder", "ties", "flat"):
@@ -2604,8 +2616,9 @@ def check_list_decodes(graph, intr, dec, n_layers):
     """5l: 16 frames of ``intr`` decoded (host loop) through K3 (3
     ``list_layer`` launches a step) and through ``list_layer_plain`` on the
     card (no launch), at ``dec``'s settings, then with nbOper = 0 (the
-    exact merge) and with nm = 65 (the staircase past the fast step), both
-    on K3's general step: identical decisions, iterations and convergence,
+    exact merge, on the fast step's exact form) and with nm = 65 (the
+    staircase past the fast step, on the general step): identical
+    decisions, iterations and convergence,
     the frames that differ printed.  Returns the kernel side's launches by
     label."""
     phase("5l list-EMS kernel vs plain decode at full width")
@@ -3692,13 +3705,13 @@ def main(argv) -> int:
         check_bubble_kernel(graph)
         print("--only-3e: the other phases were not run", flush=True)
         return 0
-    if "--only-3f" in argv:
-        check_list_kernel(graph)
-        print("--only-3f: the other phases were not run", flush=True)
-        return 0
-    if "--only-3g" in argv:
-        check_list_general(graph)
-        print("--only-3g: the other phases were not run", flush=True)
+    if "--only-3f" in argv or "--only-3g" in argv:
+        if "--only-3f" in argv:
+            check_list_kernel(graph)
+        if "--only-3g" in argv:
+            check_list_general(graph)
+        print("--only-3f / --only-3g: the other phases were not run",
+              flush=True)
         return 0
     if "--only-8" in argv:
         t0 = time.perf_counter()

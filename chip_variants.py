@@ -14,6 +14,9 @@ against their committed sources, on one CUDA card.
                                        # the fused entry: the bare one only)
     python3 chip_variants.py --list [NAME ...]     # the list kernel's (K3)
     python3 chip_variants.py --list --source PATH [NAME ...]
+    python3 chip_variants.py --list committed committed@PATH
+                                       # NAME@PATH: a variant of another
+                                       # version of it, timed in the turns
 
 A variant is a kernel source of ``ems_nbldpc_torch/csrc/`` with a few text
 substitutions, written to a temporary directory, built by ``ops/_build.py``
@@ -56,6 +59,7 @@ import concurrent.futures
 import functools
 import json
 import os
+import re
 import sys
 import tempfile
 
@@ -460,6 +464,11 @@ def bubble_main(names) -> int:
     return 0
 
 
+# an exact selection's stand-in: entry e the id e at value e, kept
+EXACT_FAKE = ("(out[0] = lane, out[1] = lane + 32, full[0] = "
+              "__float_as_uint(lane), full[1] = __float_as_uint(lane + 32), "
+              "true)")
+
 LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
     "committed": ("design", []),
     # 6 or 4 blocks an SM (at most 80 or 128 registers a thread), not 8 (64)
@@ -521,7 +530,113 @@ LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
          "      if (o[0] == -1.0f)\n"
          "        store_row(app + (f * p.app_rows + col) * q, o, q, vec, "
          "lane);")]),
+    # the exact mode (list_kernel<ST, true>) on an f32 state at 8 blocks an
+    # SM (64 registers, not 80), on a bf16 one at 6 (80, not 64)
+    "exact_f32_blocks_8": ("design", [
+        ("constexpr int EXACT_BLOCKS_SM_F32 = 6;",
+         "constexpr int EXACT_BLOCKS_SM_F32 = 8;")]),
+    "exact_bf16_blocks_6": ("design", [
+        ("constexpr int EXACT_BLOCKS_SM_BF16 = 8;",
+         "constexpr int EXACT_BLOCKS_SM_BF16 = 6;")]),
+    # the exact mode's row widths: packed into one register, or computed
+    # in each merge (32-bit division) and not kept; on a bf16 state at 7
+    # blocks an SM (72 registers)
+    "exact_packed_rows": ("design", [
+        ("      merge_exact(x, y, o, tab, pairs, p.npairs, nm, w0, w1, lane);",
+         "      merge_exact(x, y, o, tab, pairs, p.npairs, nm, wpack & 0xff,"
+         " wpack >> 8, lane);"),
+        ("  const int w1 = row_width(lane + 32, nm, budget);\n",
+         "  const int w1 = row_width(lane + 32, nm, budget);\n"
+         "  const int wpack = w0 | w1 << 8;\n")]),
+    "exact_rows_inside": ("design", [
+        ("      merge_exact(x, y, o, tab, pairs, p.npairs, nm, w0, w1, lane);",
+         "      merge_exact(x, y, o, tab, pairs, p.npairs, nm, 0, 0, lane);"),
+        ("  const int budget = table_budget(nm, 0);  // the pairs' staircase\n",
+         "  const int budget = table_budget(nm, 0);  // the pairs' staircase\n"
+         "  w0 = min(nm, budget / (lane + 1));\n"
+         "  w1 = min(nm, budget / (lane + 33));\n")]),
+    "exact_bf16_blocks_7": ("design", [
+        ("constexpr int EXACT_BLOCKS_SM_BF16 = 8;",
+         "constexpr int EXACT_BLOCKS_SM_BF16 = 7;")]),
+    # its merges' first pass over {(i+1)(j+1) <= nm}, not 2 nm
+    "exact_first_nm": ("design", [
+        ("  return nboper >= 1 ? nboper : 2 * nm;",
+         "  return nboper >= 1 ? nboper : nm;")]),
+    # what its time is spent on (their results are wrong): its truncations'
+    # and its merges' selections (the merges' bound then prunes everything
+    # past the first pass), the merges' candidates (and the rest and the
+    # tail, which an empty table would call for), the check of the 32-bit
+    # selections and the sorts it calls for, the candidates past the
+    # staircase
+    "exact_no_trunc_selections": ("diagnostic", [
+        ("  const bool kept = select_exact(tab, ABSENT, out, full, scr, nm, "
+         "nm, lane);", "  const bool kept = " + EXACT_FAKE + ";"),
+        ("    select_nm(k, out, scr, nm, lane);\n",
+         "    out[0] = __float_as_uint(lane) | lane;\n"
+         "    out[1] = __float_as_uint(lane + 32) | (lane + 32);\n")]),
+    "exact_no_merge_selections": ("diagnostic", [
+        ("    kept = select_exact(tab, BIG_BITS, out, full, scr, n, nm, "
+         "lane);", "    kept = " + EXACT_FAKE + ";")]),
+    "exact_no_candidates": ("diagnostic", [
+        ("  for (int c = lane; c < npairs; c += 32) {\n"
+         "    const unsigned p = pairs[c];\n"
+         "    const uint2 a",
+         "  for (int c = lane; c < 0; c += 32) {\n"
+         "    const unsigned p = pairs[c];\n"
+         "    const uint2 a"),
+        ("    if (nh >= nm) {\n      const unsigned bound",
+         "    if (true) {\n      const unsigned bound"),
+        ("        for (int j = j0; j < nm; ++j) {",
+         "        for (int j = nm; j < nm; ++j) {"),
+        ("  if (nh < nm) exact_tail(la, lb, lo, tab, scr, nh, nm, lane);",
+         "")]),
+    "exact_no_check": ("diagnostic", [
+        ("  return exact_ok(vals, lim, out, full, n, nm, lane);",
+         "  return true;")]),
+    "exact_no_pass2": ("diagnostic", [
+        ("      if (!__any_sync(FULL, first <= bound)) break;",
+         "      break;")]),
+    # the general step (list_general_kernel), which ran the exact mode
+    # before list_kernel took it (git show 90d4adb:<the source>, as
+    # NAME@PATH): without its truncations' 256-key sorts, without its
+    # merges' sorts, without its merges' candidates (and the tail, which
+    # would count them all), without the tail
+    "general_no_trunc_sorts": ("diagnostic", [("      sort256(key, lane);\n",
+                                           "")]),
+    "general_no_merge_sorts": ("diagnostic", [("  sort256(k, lane);\n", "")]),
+    "general_no_candidates": ("diagnostic", [
+        ("    for (int j = lane; j < wi; j += 32) {",
+         "    for (int j = lane; j < 0; j += 32) {"),
+        ("  if (nh < nm) {", "  if (false) {")]),
+    "general_no_tail": ("diagnostic", [("  if (nh < nm) {", "  if (false) {")]),
 }
+
+
+def applies(name, variants, source):
+    """Whether every substitution of ``variants[name]`` finds its text."""
+    return all(old in source for old, _ in variants[name][1])
+
+
+def entry_reports(log):
+    """ptxas' register and spill lines of each kernel entry in a verbose
+    build's log, by the entry's demangled-enough name."""
+    lines, out = log.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?([A-Za-z_]+kernel)I",
+                      line)
+        if m:
+            name = m.group(1) + ("<bf16" if "bfloat16" in line
+                                 else "<float") + (
+                                     ", exact>" if "Lb1E" in line else ">")
+            out[name] = "; ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "spill" in x or "registers" in x)
+    return out
+
+
+def list_kind(label):
+    """The kind of the list variant a label (NAME or NAME@PATH) names."""
+    return LIST_VARIANTS[label.split("@")[0]][0]
 
 
 def list_main(names) -> int:
@@ -531,24 +646,31 @@ def list_main(names) -> int:
     base = os.path.join(_build.CSRC, file)
     if names[:1] == ["--source"]:
         base, names = names[1], names[2:]
-    names = names or list(LIST_VARIANTS)
-    unknown = [n for n in names if n not in LIST_VARIANTS]
+    unknown = [n for n in names if n.split("@")[0] not in LIST_VARIANTS]
     if unknown:
         raise SystemExit(f"FAIL: unknown list variants {unknown}")
-    with open(base) as f:
-        source = f.read()
+    sources = {}
+    for path in {base} | {n.split("@", 1)[1] for n in names if "@" in n}:
+        with open(path) as f:
+            sources[path] = f.read()
+    # by default every variant that applies to this source
+    names = names or [n for n in LIST_VARIANTS
+                      if applies(n, LIST_VARIANTS, sources[base])]
     print(f"variants of {base}", flush=True)
     with tempfile.TemporaryDirectory() as root:
-        paths = {n: variant_source(n, LIST_VARIANTS, source, root, file)
-                 for n in names}
+        paths = {}
+        for i, n in enumerate(names):
+            name, _, path = n.partition("@")
+            src = variant_source(name, LIST_VARIANTS, sources[path or base],
+                                 os.path.join(root, str(i)), file)
+            paths[n] = src
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             built = {n: pool.submit(_build.build, "list_checknode", True,
                                     paths[n]) for n in names}
             built = {n: fut.result() for n, fut in built.items()}
     for n, (_, seconds, log) in built.items():
-        regs = [x.split(":", 1)[-1].strip() for x in log.splitlines()
-                if "registers" in x or "spill" in x]
-        print(f"built {n} in {seconds:.1f} s; {'; '.join(regs)}", flush=True)
+        print(f"built {n} in {seconds:.1f} s; " + "; ".join(
+            f"{k}: {v}" for k, v in entry_reports(log).items()), flush=True)
 
     def bind(path):
         lib_path = path
@@ -591,7 +713,7 @@ def list_main(names) -> int:
             times[name].append(t)
     for name in names:
         cols = list(zip(*times[name]))
-        print(f"{name:16s} {LIST_VARIANTS[name][0]:10s} list_layer F=128 "
+        print(f"{name:16s} {list_kind(name):10s} list_layer F=128 "
               "bf16 " + " / ".join(f"{v:.4f}" for v in cols[0])
               + " ms, f32 " + " / ".join(f"{v:.4f}" for v in cols[1])
               + " ms; exact (nbOper = 0) bf16 "
@@ -599,12 +721,12 @@ def list_main(names) -> int:
               + " ms, f32 " + " / ".join(f"{v:.4f}" for v in cols[3])
               + f" ms; bit-exact vs plain {exact[name]}", flush=True)
     for name in names:
-        if LIST_VARIANTS[name][0] == "design" and not exact[name]:
+        if list_kind(name) == "design" and not exact[name]:
             raise SystemExit(f"FAIL: design variant {name} disagrees with "
                              f"the plain version")
     print(cs.card_line())
     print(json.dumps({"list_variants": {n: {
-        "kind": LIST_VARIANTS[n][0],
+        "kind": list_kind(n),
         "list_layer_bf16_ms": [t[0] for t in times[n]],
         "list_layer_f32_ms": [t[1] for t in times[n]],
         "exact_bf16_ms": [t[2] for t in times[n]],

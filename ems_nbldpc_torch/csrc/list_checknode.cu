@@ -10,11 +10,14 @@
 // minconv.scatter_topk_dense), and the gathers, VN extrinsic, freeze and
 // scatters of the sweep body around them
 // (ems_nbldpc_tpu/decoder/layered.py:567-611).  Its plain version, which
-// it equals bit for bit, is ops/listcn.list_layer_plain.  Two kernels run
-// it: the fast step (list_kernel: the staircase, nm <= 64, a row within a
-// block's shared memory; the bench row's), whose design the notes below
-// describe, and the general step (list_general_kernel: every other shape,
-// the exact mode and nm up to q among them; see "the general step").
+// it equals bit for bit, is ops/listcn.list_layer_plain.  Three forms run
+// it: the fast step (list_kernel<ST, false>: the staircase, nm <= 64, a
+// row within a block's shared memory; the bench row's), whose design the
+// notes below describe; its exact form (list_kernel<ST, true>: the exact
+// mode, nbOper <= 0, within the same limits; the CLI's `--storage
+// compressed` default; see "the exact mode"); and the general step
+// (list_general_kernel: every other shape, nm past 64 and rows past
+// shared memory; see "the general step").
 //
 // list_layer_launch / list_layer_bf16_launch: one super-layer, in place on
 // the state APP [F, N+1, q] and the compressed CtoV (cv_v [F, E+1, nm],
@@ -101,6 +104,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 namespace {
@@ -114,8 +118,15 @@ constexpr unsigned DUP = 0x7fffffffu;   // listcn._DUP
 constexpr unsigned ABSENT = 0xffffffffu;
 constexpr unsigned DUP_ENTRY = 0x014e6e00u;  // an unfilled list entry
 //                       (flag bit 24, bf16(BIG) bits, the slot as its id)
+constexpr unsigned BIG_BITS = 0x4e6e6b28u;  // __float_as_uint(1e9f)
+constexpr unsigned long long NONE64 = ~0ULL;
 constexpr int WARPS = 4;                // warps per block
 constexpr int BLOCKS_SM = 8;            // blocks an SM the registers aim at
+// the same for the exact mode: on a bf16 state 8 (64 registers), on an
+// f32 one 6, as many as its shared memory lets an SM hold at dc = 4, q =
+// 256 (33 KB a block), so 80 registers cost no occupancy there
+constexpr int EXACT_BLOCKS_SM_BF16 = 8;
+constexpr int EXACT_BLOCKS_SM_F32 = 6;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_NM = 64;              // list length: two entries a lane
 constexpr int TAB = 256;                // GF ids (8 bits)
@@ -157,20 +168,23 @@ __host__ __device__ inline int n_lists(int dc) {
   return dc <= 2 ? dc : 3 * dc - 4;
 }
 
-// Shared memory of one warp, carved in this order (ops/cuda_list.py
-// warp_bytes mirrors it): mvc [dc, q] in the state's type (elem bytes),
-// the lists [lists, nm] (one u32 an entry) and one table [256] (u32),
-// cleared before each use: the expansions' and the merges' per-GF minima,
-// and a slow selection's scratch.
+// Shared memory of one warp, carved in this order: mvc [dc, q] in the
+// state's type (elem bytes), the lists [lists, nm] (one u32 an entry; in
+// the exact mode two, a value's f32 bits and its GF id) and one table
+// [256] (u32), cleared before each use: the expansions' and the merges'
+// per-GF minima, and a slow selection's scratch; the exact mode keeps a
+// second table, the scratch and the tail's counts.
 struct Layout {
   long long lists, tab, total;
 };
 
-__host__ __device__ inline Layout layout(int dc, int q, int nm, int elem) {
+__host__ __device__ inline Layout layout(int dc, int q, int nm, int elem,
+                                         bool exact) {
+  const long long words = exact ? 2 : 1;
   Layout l;
   l.lists = align16(static_cast<long long>(elem) * dc * q);
-  l.tab = l.lists + align16(4LL * n_lists(dc) * nm);
-  l.total = l.tab + 4LL * TAB;
+  l.tab = l.lists + align16(4 * words * n_lists(dc) * nm);
+  l.total = l.tab + 4 * words * TAB;
   return l;
 }
 
@@ -188,6 +202,13 @@ __host__ __device__ inline int staircase_pairs(int nm, int nboper) {
   int n = 0;
   for (int i = 0; i < nm; ++i) n += row_width(i, nm, nboper);
   return n;
+}
+
+// The staircase whose pairs a block tables: nbOper's, and in the exact
+// mode (nboper <= 0) its merges' first pass, {(i+1)(j+1) <= 2 nm} (216
+// candidates at nm = 32; {(i+1)(j+1) <= nm} ran 3-4% slower).
+__host__ __device__ inline int table_budget(int nm, int nboper) {
+  return nboper >= 1 ? nboper : 2 * nm;
 }
 
 // Order-preserving unsigned key of a float (-0 maps to +0's key).
@@ -222,6 +243,31 @@ __device__ __forceinline__ float sum_value(unsigned c) {
 
 __device__ __forceinline__ float entry_value(unsigned c) {
   return c >> 24 ? BIG : sum_value(c);
+}
+
+__device__ __forceinline__ unsigned entry_id(unsigned c) { return c & 0xff; }
+
+// An exact list entry: (a value's f32 bits, its GF id); unfilled, (BIG,
+// the slot).
+__device__ __forceinline__ float entry_value(uint2 c) {
+  return __uint_as_float(c.x);
+}
+
+__device__ __forceinline__ unsigned entry_id(uint2 c) { return c.y & 0xff; }
+
+// Entry e of the merge's identity (listcn.neutral_list): 0 at GF 0, then
+// unfilled.
+template <class E>
+__device__ __forceinline__ E neutral_entry(int e);
+
+template <>
+__device__ __forceinline__ unsigned neutral_entry<unsigned>(int e) {
+  return e == 0 ? 0u : (DUP_ENTRY | e);
+}
+
+template <>
+__device__ __forceinline__ uint2 neutral_entry<uint2>(int e) {
+  return e == 0 ? make_uint2(0u, 0u) : make_uint2(BIG_BITS, e);
 }
 
 // warp-wide min and max of floats, by redux.sync on their keys
@@ -580,20 +626,359 @@ __device__ __noinline__ void merge(const unsigned* la, const unsigned* lb,
   __syncwarp();
 }
 
+// ---- the exact mode (nboper <= 0) in the fast step's structure ----
+//
+// An exact key is a value's f32 bits over its GF id (39 bits: values are
+// >= 0).  A selection runs the staircase's 32-bit steps above (select_nm)
+// on the value's bits less their low 8, over the id, then reads the chosen
+// values back from a table by id and keeps the result where the two
+// orders cannot differ (exact_ok); else it sorts the 39-bit keys
+// (sort_exact).  A bf16 state's truncations need no check: their values
+// are bf16.  A merge folds the staircase {(i+1)(j+1) <= 2 nm} first,
+// selects, and then visits only the candidates outside it whose sum can
+// still be among the nm smallest; see merge_exact.  A list entry is two
+// words (uint2: the value's f32 bits, the id), and a warp keeps two
+// tables: the minima (or a truncation's values, read back by id) and the
+// nm > 32 selection's scratch (or the tail's counts).
+// Why the bits agree: the exact keys are unique (one per GF id, or one per
+// symbol), so a selection's result is the plain version's stable sort
+// (equal values by id, as its last sort, stable over GF-sorted runs, has
+// them); every candidate that can reach the nm smallest is folded; sums
+// are single __fadd_rn, and the rest is exact.
+// What holds it (chip_variants.py --list diagnostics, NVIDIA H100 80GB
+// HBM3, 700 W): at the bench row's shape (F = 128, 1350 rows, dc = 4, nm
+// = 32) 2.19 ms a call on a bf16 state and 2.75 on an f32 one, against
+// 14.4 / 14.0 for the general step's 256-key sorts, in the same call, and
+// 0.25 / 0.49 ms bounds.  On the bf16 state its merges' selections with
+// their checks take ~0.8 ms (the checks ~0.3) and its merges' candidates
+// ~0.5; on the f32 state the checks and the sorts they call for take
+// ~0.9.  The bf16 instance spills 80 bytes at 64 registers; 80 registers
+// (6 blocks an SM) ran slower there, and faster on the f32 state, whose
+// shared memory holds an SM to 6 blocks anyway.
+
+__device__ __forceinline__ void cx64(unsigned long long& a,
+                                     unsigned long long& b, bool up) {
+  const bool lt = a < b;
+  const unsigned long long lo = lt ? a : b, hi = lt ? b : a;
+  a = up ? lo : hi;
+  b = up ? hi : lo;
+}
+
+// The warp's 256 keys (key p = 8 lane + i in register i) sorted ascending
+// in place: a bitonic sort, strides of 8 and more across lanes.
+__device__ __forceinline__ void sort256(unsigned long long (&k)[8],
+                                        int lane) {
+#pragma unroll
+  for (int size = 2; size <= 256; size <<= 1) {
+#pragma unroll
+    for (int s = size >> 1; s > 0; s >>= 1) {
+      if (s >= 8) {
+        const int d = s >> 3;
+        // ascending runs keep the minimum in their lower half
+        const bool keep_min = ((lane & d) != 0) != (((8 * lane) & size) == 0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const unsigned long long o = __shfl_xor_sync(FULL, k[i], d);
+          k[i] = keep_min ? (o < k[i] ? o : k[i]) : (o > k[i] ? o : k[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (!(i & s)) cx64(k[i], k[i | s], ((8 * lane + i) & size) == 0);
+      }
+    }
+  }
+}
+
+// The n smallest exact keys of the 256 values at vals (a value's f32 bits
+// by GF id, present where below lim), by one 64-bit sort, into out[0, n)
+// as (value bits, id).  Out of line: the rare selections the 32-bit keys
+// cannot settle.
+__device__ __noinline__ void sort_exact(const unsigned* vals, unsigned lim,
+                                        uint2* out, int n, int lane) {
+  unsigned long long k[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 x = *reinterpret_cast<const uint4*>(vals + 8 * lane + 4 * h);
+    const unsigned v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      k[4 * h + i] = v[i] < lim ? (static_cast<unsigned long long>(v[i]) << 8 |
+                                   static_cast<unsigned>(8 * lane + 4 * h + i))
+                                : NONE64;
+  }
+  sort256(k, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int e = 8 * lane + i;
+    if (e < n)
+      out[e] = make_uint2(static_cast<unsigned>(k[i] >> 8),
+                          static_cast<unsigned>(k[i]) & 0xff);
+  }
+  __syncwarp();
+}
+
+// Whether a selection of 32-bit keys (out: entry lane + 32 u, a value's
+// bits less their low 8 over its id; full: the chosen values' bits) holds
+// the n smallest exact keys in order.  Within one high part the 32-bit
+// keys order by id alone, so it does where two chosen neighbours of one
+// high part have one value, and every key of the n-th's high part among
+// the values at vals (present where below lim) has the n-th's.  (Asking
+// only that neighbours ascend and that no key past the n-th's id lies
+// below it calls fewer sorts, but ran 7% slower on a bf16 state.)
+__device__ __forceinline__ bool exact_ok(const unsigned* vals, unsigned lim,
+                                         const unsigned (&out)[2],
+                                         const unsigned (&full)[2], int n,
+                                         int nm, int lane) {
+  if (n == 0) return true;
+  bool bad = false;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    if (u == 1 && nm <= 32) break;
+    unsigned pk = __shfl_up_sync(FULL, out[u], 1);
+    unsigned pf = __shfl_up_sync(FULL, full[u], 1);
+    if (u == 1) {
+      const unsigned k0 = __shfl_sync(FULL, out[0], 31);
+      const unsigned f0 = __shfl_sync(FULL, full[0], 31);
+      if (lane == 0) {
+        pk = k0;
+        pf = f0;
+      }
+    }
+    const int e = lane + 32 * u;
+    if (e >= 1 && e < n && (pk >> 8) == (out[u] >> 8) && pf != full[u])
+      bad = true;
+  }
+  const int last = n - 1;
+  const unsigned lk = __shfl_sync(FULL, last < 32 ? out[0] : out[1],
+                                  last & 31);
+  const unsigned lf = __shfl_sync(FULL, last < 32 ? full[0] : full[1],
+                                  last & 31);
+  unsigned v[8];
+  read_tab(vals, v, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (v[i] < lim && (v[i] >> 8) == (lk >> 8) && v[i] != lf) bad = true;
+  return !__any_sync(FULL, bad);
+}
+
+// The nm smallest 32-bit keys of the 256 values at vals (a value's f32
+// bits by id, present where below lim): out (entry lane + 32 u; scr the
+// nm > 32 form's scratch), and the values full of the n <= nm present ones
+// chosen; whether the result is the exact keys' (exact_ok).
+__device__ __forceinline__ bool select_exact(const unsigned* vals,
+                                             unsigned lim,
+                                             unsigned (&out)[2],
+                                             unsigned (&full)[2],
+                                             unsigned* scr, int n, int nm,
+                                             int lane) {
+  unsigned k[8];
+  read_tab(vals, k, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    k[i] = k[i] < lim ? ((k[i] & ~0xffu) | sym(lane, i)) : ABSENT;
+  select_nm(k, out, scr, nm, lane);
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    full[u] = lane + 32 * u < n ? vals[out[u] & 0xff] : 0u;
+  return exact_ok(vals, lim, out, full, n, nm, lane);
+}
+
+// The exact truncation (minconv.topk_message: values ascending, equal ones
+// by symbol) of a slot's values a (f32, rounded to the state's type; sym
+// order) into its list lk, ids rotated (rt); tab holds the values by
+// symbol for the read-back, scr is the second table.  A bf16 state's
+// values are bf16: their f32 bits end in 16 zeros, so the 32-bit keys are
+// the exact ones, and the selection needs neither read-back nor check.
 template <class ST>
-__global__ void __launch_bounds__(THREADS, BLOCKS_SM)
+__device__ __forceinline__ void truncate_exact(const float (&a)[8],
+                                               uint2* lk, unsigned* tab,
+                                               unsigned* scr, int rt, int q,
+                                               int nm, int lane) {
+  if constexpr (sizeof(ST) == 2) {
+    unsigned k[8], out[2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      k[i] = sym(lane, i) < q ? __float_as_uint(a[i]) | sym(lane, i) : ABSENT;
+    select_nm(k, out, scr, nm, lane);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = lane + 32 * u;
+      if (u == 0 || nm > 32) {
+        const unsigned g = rotate(out[u] & 0xff, rt) & 0xff;
+        if (e < nm) lk[e] = make_uint2(out[u] & ~0xffu, g);
+      }
+    }
+    __syncwarp();
+    return;
+  }
+  unsigned v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    v[i] = sym(lane, i) < q ? __float_as_uint(a[i]) : ABSENT;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    *reinterpret_cast<uint4*>(tab + sym(lane, 4 * h)) =
+        make_uint4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+  __syncwarp();
+  unsigned out[2], full[2];
+  const bool kept = select_exact(tab, ABSENT, out, full, scr, nm, nm, lane);
+  if (!kept) sort_exact(tab, ABSENT, lk, nm, lane);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = lane + 32 * u;
+    if (u == 0 || nm > 32) {
+      const unsigned id = kept ? out[u] & 0xff : (e < nm ? lk[e].y : 0u);
+      const unsigned g = rotate(id, rt) & 0xff;
+      if (e < nm) lk[e] = make_uint2(kept ? full[u] : lk[e].x, g);
+    }
+  }
+  __syncwarp();
+}
+
+// A candidate's sum, clamped at BIG, as f32 bits.
+__device__ __forceinline__ unsigned sum_bits(uint2 a, uint2 b) {
+  return __float_as_uint(
+      fminf(__fadd_rn(entry_value(a), entry_value(b)), BIG));
+}
+
+// The exact merge's tail, where only nh < nm GF ids have a sum below BIG:
+// as the plain version's list goes on, value BIG, then the GF ids of
+// every candidate left (a masked duplicate or a sum clamped at BIG) in id
+// order, each as often as such candidates have it: counted into cnt, and
+// placed by a warp prefix sum of the counts (less one for a head).
+__device__ void exact_tail(const uint2* la, const uint2* lb, uint2* lo,
+                           const unsigned* tab, unsigned* cnt, int nh, int nm,
+                           int lane) {
+  fill_tab(cnt, 0u, lane);
+  __syncwarp();
+  for (int i = 0; i < nm; ++i) {
+    const unsigned ga = la[i].y;
+    for (int j = lane; j < nm; j += 32)
+      atomicAdd(cnt + ((ga ^ lb[j].y) & 0xff), 1u);
+  }
+  __syncwarp();
+  int d[8], sum = 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int g = 8 * lane + u;
+    d[u] = static_cast<int>(cnt[g]) - (tab[g] < BIG_BITS ? 1 : 0);
+    sum += d[u];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += y;
+  }
+  int pos = nh + incl - sum;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    for (int c = 0; c < d[u] && pos < nm; ++c, ++pos)
+      lo[pos] = make_uint2(BIG_BITS, 8 * lane + u);
+}
+
+// One exact merge (list_combine, nbOper <= 0; w0, w1: the staircase's
+// widths of the lane's rows, lane and lane + 32): out = the nm smallest
+// distinct-GF sums of the lists a and b (f32, clamped at BIG), their
+// per-GF minima folded into tab by atomicMin.  First the staircase's
+// candidates (pairs), and a selection.  Both lists ascend and __fadd_rn
+// is monotone, so with nm GF ids below BIG a candidate whose sum exceeds
+// the nm-th's value cannot enter the nm smallest nor lower a kept
+// minimum; the bound is the largest value of the nm-th's 32-bit key, so
+// it holds whether or not that selection was exact.  Then each row i
+// (one a lane) visits its candidates past the staircase up to its first
+// sum past the bound; if one lowered a minimum, the selection runs again.
+// With fewer than nm ids below BIG every other candidate is visited, and
+// the tail follows.  Out of line (one copy).
+__device__ __noinline__ void merge_exact(const uint2* la, const uint2* lb,
+                                         uint2* lo, unsigned* tab,
+                                         const uint16_t* pairs, int npairs,
+                                         int nm, int w0, int w1, int lane) {
+  unsigned* scr = tab + TAB;
+  const int budget = table_budget(nm, 0);  // the pairs' staircase
+  fill_tab(tab, ABSENT, lane);
+  __syncwarp();
+  for (int c = lane; c < npairs; c += 32) {
+    const unsigned p = pairs[c];
+    const uint2 a = la[p >> 8], b = lb[p & 0xff];
+    atomicMin(tab + ((a.y ^ b.y) & 0xff), sum_bits(a, b));
+  }
+  // the smallest first sum past the staircase of the lane's rows, taken
+  // before the selection so that its loads are off the path to the bound
+  unsigned first = ABSENT;
+  for (int i = lane, j0 = w0; i < nm; i += 32, j0 = w1)
+    if (j0 < nm) first = min(first, sum_bits(la[i], lb[j0]));
+  unsigned out[2], full[2];
+  int nh, n;
+  bool kept;
+  for (int pass = 0;; ++pass) {
+    __syncwarp();
+    unsigned v[8];
+    read_tab(tab, v, lane);
+    int heads = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) heads += v[i] < BIG_BITS;
+    nh = __reduce_add_sync(FULL, heads);
+    n = nh < nm ? nh : nm;
+    kept = select_exact(tab, BIG_BITS, out, full, scr, n, nm, lane);
+    if (pass == 1) break;
+    if (nh >= nm) {
+      const unsigned bound =
+          __shfl_sync(FULL, nm <= 32 ? out[0] : out[1], (nm - 1) & 31) |
+          0xffu;
+      if (!__any_sync(FULL, first <= bound)) break;
+      bool lowered = false;
+      for (int i = lane, j0 = w0; i < nm; i += 32, j0 = w1) {
+        const uint2 a = la[i];
+        for (int j = j0; j < nm; ++j) {
+          const uint2 b = lb[j];
+          const unsigned s = sum_bits(a, b);
+          if (s > bound) break;
+          lowered |= atomicMin(tab + ((a.y ^ b.y) & 0xff), s) > s;
+        }
+      }
+      if (!__any_sync(FULL, lowered)) break;
+    } else {
+      for (int i = 0; i < nm; ++i) {
+        const uint2 a = la[i];
+        for (int j = row_width(i, nm, budget) + lane; j < nm; j += 32)
+          atomicMin(tab + ((a.y ^ lb[j].y) & 0xff), sum_bits(a, lb[j]));
+      }
+    }
+  }
+  if (kept) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (lane + 32 * u < n) lo[lane + 32 * u] = make_uint2(full[u], out[u] & 0xff);
+  } else {
+    sort_exact(tab, BIG_BITS, lo, n, lane);
+  }
+  if (nh < nm) exact_tail(la, lb, lo, tab, scr, nh, nm, lane);
+  __syncwarp();
+}
+
+// The fast step (EXACT false: the staircase, nbOper >= 1) and the exact
+// mode in its structure (EXACT: nbOper <= 0), nm <= 64, one row's lists
+// in a block's shared memory.
+template <class ST, bool EXACT>
+__global__ void __launch_bounds__(
+    THREADS, !EXACT ? BLOCKS_SM
+             : sizeof(ST) == 2 ? EXACT_BLOCKS_SM_BF16 : EXACT_BLOCKS_SM_F32)
     list_kernel(const Params p) {
+  typedef typename std::conditional<EXACT, uint2, unsigned>::type Entry;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
   const int dc = p.dc, q = p.q, nm = p.nm, logq = p.logq;
   const bool vec = p.vec != 0;
   // the staircase's (i, j) pairs, once a block
+  const int budget = table_budget(nm, p.nboper);
   uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw);
   for (int idx = threadIdx.x; idx < nm * nm; idx += blockDim.x) {
     const int i = idx / nm, j = idx % nm;
-    if (j < row_width(i, nm, p.nboper)) {
+    if (j < row_width(i, nm, budget)) {
       int off = 0;
-      for (int u = 0; u < i; ++u) off += row_width(u, nm, p.nboper);
+      for (int u = 0; u < i; ++u) off += row_width(u, nm, budget);
       pairs[off + j] = static_cast<uint16_t>(i << 8 | j);
     }
   }
@@ -601,17 +986,26 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const Layout lay = layout(dc, q, nm, sizeof(ST));
+  const Layout lay = layout(dc, q, nm, sizeof(ST), EXACT);
   unsigned char* base =
       smem_raw + align16(2LL * p.npairs) + lay.total * warp;
   ST* mvc = reinterpret_cast<ST*>(base);
-  unsigned* lists = reinterpret_cast<unsigned*>(base + lay.lists);
+  Entry* lists = reinterpret_cast<Entry*>(base + lay.lists);
   unsigned* tab = reinterpret_cast<unsigned*>(base + lay.tab);
   const unsigned empty = fkey(BIG);  // an expansion's absent symbol
   // list L: entries lists + L nm; F[t] = dc + t - 1 (F[0] = 0),
   // B[t] = 2 dc - 3 + t (B[dc-1] = dc - 1)
   auto fwd = [&](int t) { return t == 0 ? 0 : dc + t - 1; };
   auto bwd = [&](int t) { return t == dc - 1 ? dc - 1 : 2 * dc - 3 + t; };
+  // the exact merges' rows of this lane: past the staircase from w0, w1
+  const int w0 = row_width(lane, nm, budget);
+  const int w1 = row_width(lane + 32, nm, budget);
+  auto merge_lists = [&](const Entry* x, const Entry* y, Entry* o) {
+    if constexpr (EXACT)
+      merge_exact(x, y, o, tab, pairs, p.npairs, nm, w0, w1, lane);
+    else
+      merge(x, y, o, tab, pairs, p.npairs, nm, lane);
+  };
   ST* app = static_cast<ST*>(p.app);
   ST* cv_v = static_cast<ST*>(p.cv_v);
   ST* cv_sat = static_cast<ST*>(p.cv_sat);
@@ -624,10 +1018,9 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
     const int* redges = p.edges + r * dc;
     // 1. the slots' lists: gathers, VN extrinsic, truncation, rotation
     for (int k = 0; k < dc; ++k) {
-      unsigned* lk = lists + k * nm;
+      Entry* lk = lists + k * nm;
       if (p.valid && !__ldg(p.valid + r * dc + k)) {
-        for (int e = lane; e < nm; e += 32)
-          lk[e] = e == 0 ? 0u : (DUP_ENTRY | e);
+        for (int e = lane; e < nm; e += 32) lk[e] = neutral_entry<Entry>(e);
         continue;
       }
       const int col = __ldg(rcols + k), edge = __ldg(redges + k);
@@ -664,45 +1057,45 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 #pragma unroll
       for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
       rnd8<ST>(a);
-      unsigned key[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int s = sym(lane, i);
-        key[i] = s < q ? bf16_bits(a[i]) << 8 | s : ABSENT;
-      }
       store_row(mvc + k * q, a, q, q >= 4, lane);
-      unsigned out[2];
-      select_nm(key, out, tab, nm, lane);
+      if constexpr (EXACT) {
+        truncate_exact<ST>(a, lk, tab, tab + TAB, rt, q, nm, lane);
+      } else {
+        unsigned key[8];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int e = lane + 32 * u;
-        if (u == 0 || nm > 32) {
-          const int g = rotate(out[u] & 0xff, rt) & 0xff;
-          if (e < nm) lk[e] = (out[u] & 0xffffff00u) | g;
+        for (int i = 0; i < 8; ++i) {
+          const int s = sym(lane, i);
+          key[i] = s < q ? bf16_bits(a[i]) << 8 | s : ABSENT;
         }
+        unsigned out[2];
+        select_nm(key, out, tab, nm, lane);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = lane + 32 * u;
+          if (u == 0 || nm > 32) {
+            const int g = rotate(out[u] & 0xff, rt) & 0xff;
+            if (e < nm) lk[e] = (out[u] & 0xffffff00u) | g;
+          }
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
     // 2. the F/B chain (fb_checknode_list): dc = 1 the neutral list, dc = 2
     // the swap, else the forward and backward merges, then the middles
     // (out[k] into list k, which no later merge reads)
     if (dc == 1) {
-      for (int e = lane; e < nm; e += 32)
-        lists[e] = e == 0 ? 0u : (DUP_ENTRY | e);
+      for (int e = lane; e < nm; e += 32) lists[e] = neutral_entry<Entry>(e);
       __syncwarp();
     }
     for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
       const int a = fwd(u - 1), o = fwd(u);
-      merge(lists + a * nm, lists + u * nm, lists + o * nm, tab, pairs,
-            p.npairs, nm, lane);
+      merge_lists(lists + a * nm, lists + u * nm, lists + o * nm);
       const int v = dc - 1 - u, b = bwd(v + 1), ob = bwd(v);
-      merge(lists + b * nm, lists + v * nm, lists + ob * nm, tab, pairs,
-            p.npairs, nm, lane);
+      merge_lists(lists + b * nm, lists + v * nm, lists + ob * nm);
     }
     for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
       const int a = fwd(u - 1), b = bwd(u + 1);
-      merge(lists + a * nm, lists + b * nm, lists + u * nm, tab, pairs,
-            p.npairs, nm, lane);
+      merge_lists(lists + a * nm, lists + b * nm, lists + u * nm);
     }
     // 3. rotate out, saturate, write back the real slots
     for (int k = 0; k < dc; ++k) {
@@ -711,7 +1104,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
                       : dc == 2 ? 1 - k
                       : k == 0 ? bwd(1)
                       : k == dc - 1 ? fwd(dc - 2) : k;
-      const unsigned* ol = lists + src * nm;
+      const Entry* ol = lists + src * nm;
       const int rt = rot_table(p.rc_out + (r * dc + k) * logq, logq, lane);
       const float v0 = entry_value(ol[0]);
       float v[2];
@@ -720,8 +1113,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int e = lane + 32 * u;
-        const unsigned c = e < nm ? ol[e] : 0u;
-        g[u] = u == 0 || nm > 32 ? rotate(c & 0xff, rt) & 0xff : 0;
+        const Entry c = e < nm ? ol[e] : Entry();
+        g[u] = u == 0 || nm > 32 ? rotate(entry_id(c), rt) & 0xff : 0;
         if (e < nm) {
           v[u] = __fsub_rn(entry_value(c), v0);
           if (v[u] < HALF_BIG) last = fmaxf(last, v[u]);
@@ -759,13 +1152,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
   }
 }
 
-// ---- the general step: every shape the fast step above does not take ----
+// ---- the general step: every shape list_kernel does not take ----
 //
-// The exact merge (nboper <= 0: listcn.list_combine's first branch, all
-// na * nb candidates in f32), lists of up to q = 256 entries on either
-// merge, and rows whose lists do not fit a block's shared memory.  Its
-// steps are the fast step's (the same gathers, rounding points, rotations,
-// saturation and write-back), with these differences:
+// Lists of 65 to q = 256 entries on either merge (the exact one:
+// listcn.list_combine's first branch, all na * nb candidates in f32), and
+// rows whose lists do not fit a block's shared memory.  Its steps are the
+// fast step's (the same gathers, rounding points, rotations, saturation
+// and write-back), with these differences:
 // * A list entry is two words (uint2): a value's f32 bits and its GF id.
 //   In the staircase mode the value is a bf16 value and an unfilled entry
 //   (the dup marker) is value BIG with the slot as its id.
@@ -776,12 +1169,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 // * The exact merge folds each candidate's sum, clamped at BIG, into a
 //   per-GF minimum of its f32 bits (one atomicMin), then selects from the
 //   256 keys (minimum bits << 8 | g) of the GF ids whose minimum is below
-//   BIG (the "heads").  When fewer than nm ids have one, the list goes on
-//   as the plain version's does: value BIG, then the GF ids of every
-//   candidate left, a masked duplicate or a sum clamped at BIG, in GF id
-//   order, each id as often as such candidates have it.  A second pass
-//   counts the candidates of each id, and a warp prefix sum of the counts
-//   (less one for a head) places each id's run.
+//   BIG (the "heads"); with fewer than nm heads, the tail (exact_tail).
 // * mvc and the lists live in shared memory when one warp's fit a block
 //   (``SHARED``); else in a global workspace of one slot a warp of the
 //   grid, one allocation a call (``WORKSPACE``, list_workspace_bytes).  The two 256-entry tables (minima
@@ -792,20 +1180,17 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_SM)
 // equal values by GF id (its last sort is stable over the GF-sorted runs),
 // as the keys do; sums are single __fadd_rn, and the rest is exact.
 // Where it stands (chip_smoke.py 3g, NVIDIA H100 80GB HBM3, 700 W): the
-// exact mode at the bench row's shape (F = 128, 1350 rows, dc = 4, nm =
-// 32) 14.1 ms a call on an f32 state and 14.5 on a bf16 one, against
-// 0.49 / 0.25 ms bounds and ~175 ms for the plain version; at nm = q = 256
-// 109 ms (bound 2.04 ms, its 6.8e10 candidates); the staircase at nm = 65
-// 21.2 ms.  Simple rather than fast: each of a row's 10 selections sorts
-// all 256 keys (240 shuffles), and each candidate is a shared-memory
-// atomic.
+// exact mode at nm = q = 256 (F = 128, 1350 rows, dc = 4) 108-110 ms a
+// call (bound 2.04 ms, its 6.8e10 candidates); the staircase at nm = 65
+// 21 ms (bound 0.29).  Simple rather than fast: each of a row's 10
+// selections sorts all 256 keys (240 shuffles), and each candidate is a
+// shared-memory atomic.  At nm = 32 it took 14.5 / 14.1 ms (bf16 / f32)
+// before list_kernel took the exact mode.
 
-constexpr unsigned BIG_BITS = 0x4e6e6b28u;  // __float_as_uint(1e9f)
-constexpr unsigned long long NONE64 = ~0ULL;
 constexpr int GTABS = 2 * 4 * TAB;          // a warp's minima and counts
 
 // Where a shape runs (list_path).
-enum Path { REFUSED = 0, FAST = 1, SHARED = 2, WORKSPACE = 3 };
+enum Path { REFUSED = 0, FAST = 1, SHARED = 2, WORKSPACE = 3, EXACT = 4 };
 
 // One warp's mvc [dc, q] (the state's type) and lists [lists, nm] (uint2)
 // of the general step, in shared memory or in its workspace slot.
@@ -818,44 +1203,6 @@ __host__ __device__ inline GLayout glayout(int dc, int q, int nm, int elem) {
   l.lists = align16(static_cast<long long>(elem) * dc * q);
   l.rows = l.lists + align16(8LL * n_lists(dc) * nm);
   return l;
-}
-
-__device__ __forceinline__ void cx64(unsigned long long& a,
-                                     unsigned long long& b, bool up) {
-  const bool lt = a < b;
-  const unsigned long long lo = lt ? a : b, hi = lt ? b : a;
-  a = up ? lo : hi;
-  b = up ? hi : lo;
-}
-
-// The warp's 256 keys (key p = 8 lane + i in register i) sorted ascending
-// in place: a bitonic sort, strides of 8 and more across lanes.
-__device__ __forceinline__ void sort256(unsigned long long (&k)[8],
-                                        int lane) {
-#pragma unroll
-  for (int size = 2; size <= 256; size <<= 1) {
-#pragma unroll
-    for (int s = size >> 1; s > 0; s >>= 1) {
-      if (s >= 8) {
-        const int d = s >> 3;
-        // ascending runs keep the minimum in their lower half
-        const bool keep_min = ((lane & d) != 0) != (((8 * lane) & size) == 0);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const unsigned long long o = __shfl_xor_sync(FULL, k[i], d);
-          k[i] = keep_min ? (o < k[i] ? o : k[i]) : (o > k[i] ? o : k[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (!(i & s)) cx64(k[i], k[i | s], ((8 * lane + i) & size) == 0);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float entry_f(uint2 e) {
-  return __uint_as_float(e.x);
 }
 
 // One merge of the general step: out = the nm best distinct-GF sums of
@@ -873,7 +1220,7 @@ __device__ __noinline__ void merge_general(const uint2* la, const uint2* lb,
     const uint2 a = la[i];
     for (int j = lane; j < wi; j += 32) {
       const uint2 b = lb[j];
-      const float s = __fadd_rn(entry_f(a), entry_f(b));
+      const float s = __fadd_rn(entry_value(a), entry_value(b));
       atomicMin(tab + ((a.y ^ b.y) & 0xff),
                 exact ? __float_as_uint(fminf(s, BIG)) : bf16_bits(s));
     }
@@ -909,36 +1256,7 @@ __device__ __noinline__ void merge_general(const uint2* la, const uint2* lb,
                             : make_uint2((key >> 8 & 0xffff) << 16, key & 0xff);
     }
   }
-  if (nh < nm) {
-    // the tail of the exact merge: count each GF id's candidates
-    unsigned* cnt = tab + TAB;
-    fill_tab(cnt, 0u, lane);
-    __syncwarp();
-    for (int i = 0; i < nm; ++i) {
-      const unsigned ga = la[i].y;
-      for (int j = lane; j < nm; j += 32)
-        atomicAdd(cnt + ((ga ^ lb[j].y) & 0xff), 1u);
-    }
-    __syncwarp();
-    int d[8], sum = 0;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int g = 8 * lane + u;
-      d[u] = static_cast<int>(cnt[g]) - (tab[g] < BIG_BITS ? 1 : 0);
-      sum += d[u];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += y;
-    }
-    int pos = nh + incl - sum;
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      for (int c = 0; c < d[u] && pos < nm; ++c, ++pos)
-        lo[pos] = make_uint2(BIG_BITS, 8 * lane + u);
-  }
+  if (nh < nm) exact_tail(la, lb, lo, tab, tab + TAB, nh, nm, lane);
   __syncwarp();
 }
 
@@ -1064,7 +1382,7 @@ __global__ void __launch_bounds__(THREADS)
                       : k == dc - 1 ? fwd(dc - 2) : k;
       const uint2* ol = lists + src * nm;
       const int rt = rot_table(p.rc_out + (r * dc + k) * logq, logq, lane);
-      const float v0 = entry_f(ol[0]);
+      const float v0 = entry_value(ol[0]);
       float v[8];
       int g[8];
       float last = 0.0f;
@@ -1074,7 +1392,7 @@ __global__ void __launch_bounds__(THREADS)
         if (32 * u < nm) {
           const uint2 c = e < nm ? ol[e] : make_uint2(0u, 0u);
           g[u] = rotate(static_cast<int>(c.y & 0xff), rt) & 0xff;
-          v[u] = __fsub_rn(entry_f(c), v0);
+          v[u] = __fsub_rn(entry_value(c), v0);
           if (e < nm && v[u] < HALF_BIG) last = fmaxf(last, v[u]);
         }
       }
@@ -1110,30 +1428,31 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Warps a block of the fast step for a list CN it takes (q a power of two
-// <= 256, 1 <= nm <= min(q, 64), nboper >= 1, dc >= 1) on a state of
-// `elem` bytes a value: WARPS, fewer where their shared memory and the
-// staircase's pair table do not fit one block; 0 where the fast step does
-// not take the shape or not even one warp fits.
+// Warps a block of list_kernel for a list CN it takes (q a power of two
+// <= 256, 1 <= nm <= min(q, 64), dc >= 1; nboper >= 1 the fast step, else
+// the exact mode) on a state of `elem` bytes a value: WARPS, fewer where
+// their shared memory and the staircase's pair table do not fit one
+// block; 0 where it does not take the shape or not even one warp fits.
 int warps_for(int dc, int q, int nm, int nboper, int elem) {
   if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q ||
-      nm > MAX_NM || nboper < 1 || dc < 1)
+      nm > MAX_NM || dc < 1)
     return 0;
   const long long room =
-      BLOCK_LIMIT - align16(2LL * staircase_pairs(nm, nboper));
-  const long long w = room / layout(dc, q, nm, elem).total;
+      BLOCK_LIMIT - align16(2LL * staircase_pairs(nm, table_budget(nm, nboper)));
+  const long long w = room / layout(dc, q, nm, elem, nboper < 1).total;
   return static_cast<int>(w < WARPS ? (w < 0 ? 0 : w) : WARPS);
 }
 
 // Where a shape runs, decided on an f32 state's sizes so that a bf16 state
-// takes the same path: the fast step where it takes the shape, else the
-// general step with its rows in shared memory where one warp's fit a
-// block, else from the workspace.  Its limits are the plain version's
+// takes the same path: list_kernel where it takes the shape (the fast
+// step, or the exact mode for nboper <= 0), else the general step with
+// its rows in shared memory where one warp's fit a block, else from the
+// workspace.  Its limits are the plain version's
 // (ops/cuda_list.limits_error).
 int path_for(int dc, int q, int nm, int nboper) {
   if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q || dc < 1)
     return REFUSED;
-  if (warps_for(dc, q, nm, nboper, 4) >= 1) return FAST;
+  if (warps_for(dc, q, nm, nboper, 4) >= 1) return nboper >= 1 ? FAST : EXACT;
   if (glayout(dc, q, nm, 4).rows + GTABS <= BLOCK_LIMIT) return SHARED;
   return WORKSPACE;
 }
@@ -1142,6 +1461,7 @@ int path_for(int dc, int q, int nm, int nboper) {
 int warps_of(int dc, int q, int nm, int nboper, int elem) {
   switch (path_for(dc, q, nm, nboper)) {
     case FAST:
+    case EXACT:
       return warps_for(dc, q, nm, nboper, elem);
     case SHARED: {
       const long long w = BLOCK_LIMIT / (glayout(dc, q, nm, elem).rows + GTABS);
@@ -1171,6 +1491,13 @@ struct Config {
 };
 
 template <class ST>
+auto kernel_of(int path) {
+  return path == FAST    ? list_kernel<ST, false>
+         : path == EXACT ? list_kernel<ST, true>
+                         : list_general_kernel<ST>;
+}
+
+template <class ST>
 int launch_config(const Params& p, Config& out) {
   static std::mutex mu;
   static std::vector<Config> seen;
@@ -1189,14 +1516,14 @@ int launch_config(const Params& p, Config& out) {
   c.path = path_for(p.dc, p.q, p.nm, p.nboper);
   c.wpb = warps_of(p.dc, p.q, p.nm, p.nboper, elem);
   if (c.wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (c.path == FAST)
+  if (c.path == FAST || c.path == EXACT)
     c.smem = align16(2LL * p.npairs) +
-             c.wpb * layout(p.dc, p.q, p.nm, elem).total;
+             c.wpb * layout(p.dc, p.q, p.nm, elem, c.path == EXACT).total;
   else if (c.path == SHARED)
     c.smem = c.wpb * (glayout(p.dc, p.q, p.nm, elem).rows + GTABS);
   else
     c.smem = c.wpb * static_cast<long long>(GTABS);
-  auto kern = c.path == FAST ? list_kernel<ST> : list_general_kernel<ST>;
+  auto kern = kernel_of<ST>(c.path);
   // the same value for every shape, so no shape's setting undoes another's
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(BLOCK_LIMIT));
@@ -1238,7 +1565,7 @@ int launch(Params p, void* stream) {
   } else {
     p.ws = nullptr;
   }
-  auto kern = c.path == FAST ? list_kernel<ST> : list_general_kernel<ST>;
+  auto kern = kernel_of<ST>(c.path);
   kern<<<static_cast<unsigned>(blocks), 32 * c.wpb,
          static_cast<size_t>(c.smem), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1276,7 +1603,7 @@ int layer_params(Params& p, void* app, void* cv_v, uint8_t* cv_g,
   p.logq = logq;
   p.nm = nm;
   p.nboper = nboper;
-  p.npairs = nboper >= 1 ? staircase_pairs(nm, nboper) : 0;
+  p.npairs = staircase_pairs(nm, table_budget(nm, nboper));
   p.offset = offset;
   p.ws = static_cast<unsigned char*>(ws);
   p.ws_bytes = ws_bytes;
@@ -1333,7 +1660,8 @@ int list_layer_bf16_launch(void* app, void* cv_v, uint8_t* cv_g,
 }
 
 // Where this list CN runs: 0 refused, 1 the fast step, 2 the general step
-// in shared memory, 3 the general step from a workspace.
+// in shared memory, 3 the general step from a workspace, 4 the exact mode
+// in the fast step's structure.
 int list_path(int dc, int q, int nm, int nboper) {
   return path_for(dc, q, nm, nboper);
 }

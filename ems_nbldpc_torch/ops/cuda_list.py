@@ -21,11 +21,13 @@ it:
 
 Its limits (``takes``) are the plain version's: q a power of two <= 256,
 1 <= nm <= q, dc >= 1, any nboper (<= 0: the exact mode).  The library
-picks one of three paths for a shape (``path`` asks it): the fast step
+picks one of four paths for a shape (``path`` asks it): the fast step
 (the staircase, nm <= 64, one row within a block's shared memory: the
-bench row's), and the general step for every other shape, the exact mode
-and nm up to q among them, with a row's mvc and lists in shared memory
-where one warp's fit a block, else in a global workspace.  The library
+bench row's), the exact mode in the fast step's structure (nboper <= 0,
+nm <= 64, one row within a block: the CLI's ``--storage compressed``
+default), and the general step for every other shape, nm past 64 among
+them, with a row's mvc and lists in shared memory where one warp's fit a
+block, else in a global workspace.  The library
 sizes the workspace, and ``list_layer`` allocates it from torch's caching
 allocator for each call (a CUDA graph's capture takes it into its pool).
 
@@ -51,7 +53,7 @@ from .listcn import list_layer_plain
 
 launches = 0  # eager kernel launches since import (set to 0 to count a run)
 
-PATHS = (None, "fast", "shared", "workspace")  # list_path's codes
+PATHS = (None, "fast", "shared", "workspace", "exact")  # list_path's codes
 # the C function by state dtype
 _ENTRY = {torch.float32: "list_layer_launch",
           torch.bfloat16: "list_layer_bf16_launch"}
@@ -130,9 +132,10 @@ def limits_error(dc: int, q: int, nm: int) -> str | None:
 
 def path(dc: int, q: int, nm: int, nboper: int) -> str | None:
     """Where the library runs this list CN on the card: "fast" (the
-    staircase, nm <= 64, one row in a block's shared memory), else the
-    general step, "shared" where one warp's rows fit a block, else
-    "workspace"; None where refused.  Builds and loads the library."""
+    staircase, nm <= 64, one row in a block's shared memory), "exact" (the
+    exact mode, nboper <= 0, within the same limits), else the general
+    step, "shared" where one warp's rows fit a block, else "workspace";
+    None where refused.  Builds and loads the library."""
     return PATHS[_lib().list_path(dc, q, nm, nboper)]
 
 

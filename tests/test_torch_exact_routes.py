@@ -1,8 +1,8 @@
 """The decoder configurations that reach a hand kernel on the card: K1's
 dense min-convolution mode, its rows of dc <= 2 and its routes under
-``cn_impl`` auto / topk / dense, and K3's general step (the exact list
-merge, nm > 64, the workspace), against the JAX package and the port's
-torch routes.
+``cn_impl`` auto / topk / dense, and K3's exact mode and general step (the
+exact list merge, nm > 64, the workspace), against the JAX package and
+the port's torch routes.
 
 On a CPU tensor each wrapper runs its plain version, so these tests hold
 the plain versions the kernels are held to on the card (chip_smoke.py 3,

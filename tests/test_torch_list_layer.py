@@ -43,6 +43,16 @@ OFFSET = 0.3
 BF16 = torch.bfloat16
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread a test: under the tier-1 run's workers, torch's
+    per-core threads on these small tensors cost more than they give."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def regular_rows(n, m, dc, rng):
     """m rows of degree dc over n columns of equal degree m dc / n: a
     configuration model whose repeated columns within a row are repaired
@@ -207,6 +217,8 @@ JAX_CASES = [
     ("regular", 64, 4, 25, 24, "ties"),
     ("irregular", 64, 5, 25, 24, "decoder"),
     ("regular", 64, 20, 8, 16, "ties"),         # dc = 20, the Ahmed shape
+    ("regular", 64, 4, 32, 0, "ties"),          # the exact mode
+    ("irregular", 16, 5, 8, 0, "decoder"),
 ]
 
 
@@ -561,6 +573,215 @@ def test_selection_model_equals_a_sort(kind, nm):
         assert not any(inserted)
     if kind == "one_lane" and 6 <= nm <= 32:
         assert all(inserted)
+
+
+# ---- the exact mode's selection and merge (list_kernel<ST, true>) ----
+#
+# An exact key is a value's f32 bits over its GF id (39 bits).  The kernel
+# selects on 32-bit keys, the bits less their low 8 over the id, with the
+# steps above; reads the chosen values back; and keeps that result unless
+# the two orders may differ (within one high part the 32-bit keys order by
+# id alone): two chosen neighbours of one high part differ in value, or a
+# key of the n-th's high part has another value than the n-th.  Then it
+# sorts the 39-bit keys.
+
+_BIG = np.float32(1e9)
+_BIG_BITS = int(_BIG.view(np.uint32))
+_NONE = 0xFFFFFFFF
+
+
+def select_exact_model(vals, n, nm):
+    """(the n smallest exact keys as (value bits, ids), whether the 32-bit
+    selection was kept, its nm-th 32-bit key): vals [256] value bits by GF
+    id (uint32; _NONE where absent), n <= nm no more than the present."""
+    vals = vals.astype(np.int64)
+    ids = np.arange(256)
+    keys = np.where(vals != _NONE, (vals & ~0xFF) | ids, _NONE)
+    chosen, _ = select_model(keys, nm)
+    nth = int(chosen[nm - 1])
+    chosen = chosen[:n]
+    full, hi = vals[chosen & 0xFF], chosen >> 8
+    ok = not np.any((hi[1:] == hi[:-1]) & (full[1:] != full[:-1]))
+    if n:
+        ok = ok and not np.any((vals >> 8 == hi[-1]) & (vals != full[-1]))
+    if ok:
+        return (full, chosen & 0xFF), True, nth
+    exact = np.sort(np.where(vals != _NONE, vals << 8 | ids, 1 << 62))[:n]
+    return (exact >> 8, exact & 0xFF), False, nth
+
+
+def _staircase_mask(nm):
+    """The exact merge's first pass: {(i+1)(j+1) <= 2 nm}."""
+    i, j = np.meshgrid(np.arange(nm), np.arange(nm), indexing="ij")
+    return (i + 1) * (j + 1) <= 2 * nm
+
+
+def merge_exact_model(av, ag, bv, bg, nm):
+    """K3's exact merge (merge_exact) on one pair of ascending lists of nm
+    (f32 values, GF ids): the per-GF minima of the staircase's sums, a
+    selection, then the candidates outside the staircase whose sum is at
+    most the nm-th's bound (row by row, each row stopping at its first sum
+    past it), selected again if they lowered a minimum; with fewer than nm
+    GF ids below BIG after the first pass, every candidate, and the tail.
+    Returns (values, ids, candidates visited after the first pass)."""
+    sums = np.minimum(av[:, None] + bv[None, :], _BIG).astype(np.float32)
+    sums = sums.view(np.uint32).astype(np.int64)
+    gid = (ag[:, None] ^ bg[None, :]) & 0xFF
+    first = _staircase_mask(nm)
+    tab = np.full(256, _NONE, dtype=np.int64)
+    np.minimum.at(tab, gid[first], sums[first])
+
+    def select():
+        heads = tab < _BIG_BITS
+        n = min(nm, int(heads.sum()))
+        return select_exact_model(np.where(heads, tab, _NONE), n, nm) + (n,)
+
+    (vals, ids), _, nth, n = select()
+    visited = 0
+    if n == nm:
+        bound, changed = nth | 0xFF, False
+        for i in range(nm):
+            for j in range(int(first[i].sum()), nm):
+                if sums[i, j] > bound:
+                    break
+                visited += 1
+                changed |= bool(tab[gid[i, j]] > sums[i, j])
+                tab[gid[i, j]] = min(tab[gid[i, j]], sums[i, j])
+        if changed:
+            (vals, ids), _, _, n = select()
+    else:
+        visited = int((~first).sum())
+        np.minimum.at(tab, gid[~first], sums[~first])
+        (vals, ids), _, _, n = select()
+    out_v = vals.astype(np.uint32).view(np.float32)
+    out_g = ids
+    if n < nm:
+        # the tail: every GF id's candidates but its head, in GF order
+        count = np.bincount(gid.reshape(-1), minlength=256)
+        left = count - (tab < _BIG_BITS)
+        tail = np.repeat(np.arange(256), left)[:nm - n]
+        out_v = np.concatenate([out_v, np.full(len(tail), _BIG)])
+        out_g = np.concatenate([out_g, tail])
+    return out_v, out_g, visited
+
+
+def _exact_model_values(kind, nm, rng):
+    """256 exact value bits by GF id: "random" values, "ties" (three
+    levels), "flat" (one value), "absent" (fewer present than nm),
+    "one_lane" (the smallest in one lane's symbols; bf16 values, as a
+    bf16 state's truncations have), "close" (one high part, differing low
+    bits: the 32-bit selection cannot be kept)."""
+    v = {"random": 40 * rng.random(256),
+         "ties": rng.integers(2, 5, 256) / 2,
+         "flat": np.full(256, 2.0),
+         "absent": 40 * rng.random(256),
+         "one_lane": 3 + 37 * rng.random(256),
+         "close": 3 + rng.integers(0, 256, 256) * 2.0 ** -22,
+         }[kind].astype(np.float32).view(np.uint32).astype(np.int64)
+    if kind == "absent":
+        v[rng.permutation(256)[rng.integers(0, nm):]] = _NONE
+    if kind == "one_lane":
+        v &= 0xFFFF0000
+        lane = rng.integers(32)
+        for i in range(8):
+            v[128 * (i >> 2) + 4 * lane + (i & 3)] = int(
+                np.float32(i).view(np.uint32))
+    return v
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "flat", "absent",
+                                  "one_lane", "close"])
+@pytest.mark.parametrize("nm", [1, 31, 32, 33, 64])
+def test_exact_selection_model_equals_a_sort(kind, nm):
+    """The exact mode's selection (32-bit keys by the staircase's steps,
+    the chosen values read back and checked, else a sort of the 39-bit
+    keys) gives the n smallest (value bits, GF id) keys, ascending; the
+    32-bit result is kept on every bf16-valued input and on the random
+    ones, never on the "close" ones."""
+    rng = np.random.default_rng(nm * 11 + len(kind))
+    kept = []
+    for _ in range(40):
+        v = _exact_model_values(kind, nm, rng)
+        n = min(nm, int((v != _NONE).sum()))
+        (bits_, ids), ok, _ = select_exact_model(v, n, nm)
+        want = np.sort(np.where(v != _NONE, v << 8 | np.arange(256),
+                                1 << 62))[:n]
+        np.testing.assert_array_equal(bits_ << 8 | ids, want)
+        kept.append(ok)
+    if kind in ("ties", "flat", "one_lane"):
+        assert all(kept)
+    if kind == "close" and nm > 1:
+        assert not any(kept)
+
+
+def _exact_model_lists(kind, nm, rng):
+    """Two ascending lists of nm (f32 values, GF ids) as K3's merges get
+    them: "decoder" (continuous values from 0, distinct ids), "ties"
+    (levels 0..5), "few" (3 values below BIG, then BIG with repeated ids:
+    fewer than nm GF ids below BIG, the tail), "big" (values from BIG /
+    2.5, so that all sums but one clamp at BIG), "neutral" (b the merge's
+    identity), "close" (values in one high part: the 32-bit selection
+    fails)."""
+    def one(k):
+        ids = rng.permutation(256)[:nm]
+        if k == "decoder":
+            v = np.sort(10 * rng.random(nm))
+        elif k == "ties":
+            v = np.sort(rng.integers(0, 6, nm)).astype(float)
+        elif k == "few":
+            k = min(3, nm - 1)
+            v = np.full(nm, 1e9)
+            v[:k] = np.sort(5 * rng.random(k))
+            ids[k:] = rng.integers(0, 4, nm - k)
+        elif k == "big":
+            v = np.sort(6e8 + 1e8 * rng.random(nm))
+            v[0] = 4e8
+        else:
+            v = np.sort(3 + rng.integers(0, 64, nm) * 2.0 ** -22)
+        v = v - v[0] if k not in ("few", "big") else v
+        return v.astype(np.float32), ids.astype(np.int64)
+
+    av, ag = one("decoder" if kind == "neutral" else kind)
+    if kind == "neutral":
+        bv = np.full(nm, _BIG, dtype=np.float32)
+        bv[0] = 0
+        return av, ag, bv, np.arange(nm, dtype=np.int64)
+    return (av, ag) + one(kind)
+
+
+@pytest.mark.parametrize("kind", ["decoder", "ties", "few", "big",
+                                  "neutral", "close"])
+@pytest.mark.parametrize("nm", [1, 8, 32, 33, 64])
+def test_exact_merge_model_matches_jax(kind, nm):
+    """The exact merge's model (the staircase first, the candidates past
+    it pruned by the nm-th's bound, every candidate and the tail where
+    fewer than nm GF ids lie below BIG) equals JAX's ``list_combine(...,
+    nboper=0)`` and the port's bit for bit, on seeded lists with ties,
+    with few GF ids below BIG and with sums at BIG; on the "decoder" lists
+    it visits few candidates past the staircase."""
+    jax = pytest.importorskip("jax")
+    from ems_nbldpc_tpu.ops.listcn import list_combine as jlist_combine
+
+    rng = np.random.default_rng(nm * 13 + len(kind))
+    visits = []
+    for _ in range(12):
+        av, ag, bv, bg = _exact_model_lists(kind, nm, rng)
+        got_v, got_g, visited = merge_exact_model(av, ag, bv, bg, nm)
+        visits.append(visited)
+        want_v, want_g = jax.jit(jlist_combine, static_argnums=(4, 5))(
+            av[None], ag[None].astype(np.int32), bv[None],
+            bg[None].astype(np.int32), nm, 0)
+        np.testing.assert_array_equal(got_v.view(np.uint32), np.asarray(
+            want_v)[0].view(np.uint32))
+        np.testing.assert_array_equal(got_g, np.asarray(want_g)[0])
+        tv, tg = listcn.list_combine(*(torch.from_numpy(x[None]) for x in (
+            av, ag.astype(np.int32), bv, bg.astype(np.int32))), nm, 0)
+        np.testing.assert_array_equal(got_v, tv[0].numpy())
+        np.testing.assert_array_equal(got_g, tg[0].numpy())
+        if kind in ("few", "big") and nm >= 32:
+            assert got_v[-1] == _BIG            # the tail, or sums at BIG
+    if kind == "decoder" and nm >= 8:
+        assert np.mean(visits) < nm
 
 
 def rejection_case(bad):
