@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile  # all phases, and trace one batch of
                                      # each full-width chain
                                      # (profile_out/*.json)
+    python3 chip_smoke.py --only-3   # phases 1-3 alone (K1)
 
 Phases; any failure exits non-zero and prints no ``ok`` line.  The code is
 random_regular(8100, 4050, 256, dv=2) (N = 8100 symbols = 64800 bits,
@@ -34,14 +35,21 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    dense=True)``: lists of all q entries) against ``ems_rows_plain(...,
    dense=True)`` (``minconv.fb_checknode_dense``) at the layered and
    flooding shapes (F = 16) with truncation at nm = 200 and without, and
-   on the odd shapes; padded rows past a block's shared memory, from K1's
-   workspace (``ROWS_WS``: q = 256, dc = 34 and 40 dense, dc = 66 and 70
-   top-k at nm = 32) and of dc = 2 and 1 (the swapped pair and the delta
-   message), both modes; the bare entry on bf16 rows against
-   ``fb_checknode_topk`` on the same bf16 rows (dc = 1, 2 and 40 among
-   them); the dense mode timed at the layered shape F = 128 in turns with
-   its plain version, the workspace at dc = 40 likewise, and the bare
-   entry on bf16 rows in turns with it on f32 rows;
+   on the odd shapes; padded rows from K1's workspace (``ROWS_WS``:
+   q = 256, dc = 34 and 40 dense, dc = 66 and 70 top-k at nm = 32) and of
+   dc = 2 and 1 (the swapped pair and the delta message), both modes; ``ROWS_DENSE``'s dense rows that the dense
+   merge's layout could break (q = 64, 128 and 8 at the layered row
+   count, dc = 3 and 5, dc = 19 and 20 at q = 256 on either side of the
+   workspace), each also with negative values in a third of its rows;
+   the bare entry on bf16 rows against ``fb_checknode_topk`` on the same
+   bf16 rows (dc = 1, 2 and 40 among them), and at nm = q (the dense
+   merge) on bf16 rows and on f32 rows with negative values
+   (``BARE_DENSE``); the dense mode timed at the layered shape F = 128 in
+   turns with its plain version, beside its bound and its issue floor (an
+   add and a minimum a candidate, two instructions, at 128 lanes a clock
+   an SM and the card's largest SM clock), the workspace at dc = 40
+   likewise, and the bare entry on bf16 rows in turns with it on f32
+   rows;
 3b. SPA kernel against plain, both entries.  The bare
    ``ops/cuda_spa.spa_checknode`` against ``fht.spa_checknode_plain`` at
    the main paths' shapes (layered F = 16 and 128 with G = 1350
@@ -407,7 +415,8 @@ times at the layered and flooding shapes, or for K8 at the 2-D, 4-D and
 route) and the bare entry at the layered and flooding shapes, beside its
 plain version's and its bound; for K2, K7 and K9 the ``bf16_*`` fields of
 the fused entry on a bf16 state; for K1 the ``dense_*`` fields of its
-dense min-convolution at the layered shape; for K3 the ``exact_*``,
+dense min-convolution at the layered shape (``dense_floor_ms``: its issue
+floor) and ``ws_*`` from the workspace; for K3 the ``exact_*``,
 ``exact_nmq_*`` and ``stair65_*`` fields of 3g beside ``list_layer`` at
 F = 128 on the bf16 state of the bench row, and ``f32_*`` on an f32
 one), and ``{"ok": true, "device": {...}}``.  The run prints its time.
@@ -2150,8 +2159,9 @@ def check_workspace_decodes():
 
 
 # (T, G, dc, q, nm, truncate, dense) of ems_rows on K1's further rows:
-# from its workspace (a warp's rows past a block's shared memory: lists of
-# all 256 entries from dc = 34, of 32 from dc = 66) and of dc <= 2
+# from its workspace (dense rows where fewer than four warps' fit a block,
+# from dc = 20 at q = 256; 32-entry lists where one warp's does not, from
+# dc = 66) and of dc <= 2
 ROWS_WS = [
     (1200, 40, 34, 256, 200, True, True),
     (800, 40, 40, 256, 256, False, True),
@@ -2163,6 +2173,42 @@ ROWS_WS = [
     (999, 37, 1, 16, 16, False, True),
     (640, 64, 2, 16, 16, False, True),
 ]
+
+
+# (T, G, dc, q, nm, truncate) of ems_rows(..., dense=True) on the rows
+# the dense merge's layout could break: PER = 2 and 4 (q = 64, 128) and
+# q = 8 (PER = 1, 8 live lanes) at the layered call's row count; an odd
+# number of middle merges (dc = 3, 5); the largest dense row that runs
+# from shared memory at q = 256 (dc = 19) and the smallest from the
+# workspace (dc = 20).  Padding slots and valid on every one.
+ROWS_DENSE = [
+    (128 * SLICE_ROWS, SLICE_ROWS, 4, 64, 64, False),
+    (128 * SLICE_ROWS, SLICE_ROWS, 4, 128, 100, True),
+    (128 * SLICE_ROWS, SLICE_ROWS, 4, 8, 8, False),
+    (2000, 50, 3, 256, 200, True),
+    (2000, 50, 5, 256, 256, False),
+    (1000, 40, 5, 64, 64, False),
+    (400, 20, 19, 256, 256, False),
+    (400, 20, 20, 256, 200, True),
+]
+# (T, dc, q) of the bare fb_checknode at nm = q (the dense merge) on bf16
+# rows (round_bf16) and on rows with negative values (the float minima)
+BARE_DENSE = [(16 * SLICE_ROWS, 4, 256), (1000, 5, 64), (999, 3, 16),
+              (500, 19, 256), (300, 40, 256)]
+
+
+def issue_floor_ms(t, dc, q):
+    """The least time of K1's dense mode on this card by instruction
+    issue: each of its t * 3 (dc - 2) * q^2 candidates is one f32 add and
+    one minimum, two instructions, and an SM issues at most 128 lanes' a
+    clock (4 schedulers of 32), at the card's largest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(out.stdout.split()[0]) if out.returncode == 0 else 1980.0
+    cands = t * 3 * max(dc - 2, 0) * q * q
+    return 2 * cands / (sms * 128 * mhz * 1e6) * 1e3
 
 
 def check_kernel_modes(graph):
@@ -2197,11 +2243,17 @@ def check_kernel_modes(graph):
         cases.append(("workspace" if dc > 2 else f"dc={dc}", t,
                       *odd_tables(g, dc, q, seed=40 + i), nm, truncate,
                       dense))
+    for i, (t, g, dc, q, nm, truncate) in enumerate(ROWS_DENSE):
+        cases.append(("dense rows", t, *odd_tables(g, dc, q, seed=60 + i),
+                      nm, truncate, True))
     for i, (path, t, rin, rout, valid, nm, truncate, dense) in enumerate(
             cases):
-        for kind in KINDS:
+        for kind in KINDS + (("negative",) if path == "dense rows" else ()):
             _, dc, q = rin.shape
-            x = rows_input(t, dc, q, kind, seed=500 + i)
+            x = rows_input(t, dc, q, "uniform" if kind == "negative" else kind,
+                           seed=500 + i)
+            if kind == "negative":
+                x[::3] -= 1.5   # a third of the rows: no integer minima
             got = cuda_cn.ems_rows(x, rin, rout, valid, nm, OFFSET, truncate,
                                    dense=dense)
             want = cuda_cn.ems_rows_plain(x, rin, rout, valid, nm, OFFSET,
@@ -2232,6 +2284,28 @@ def check_kernel_modes(graph):
             check(exact, f"fb_checknode bf16 != plain at {(t, dc, q, nm)}")
             worst = max(worst, err)
             del vr, got, want
+    # the bare entry at nm = q (the dense merge, no truncation): bf16 rows
+    # (each merge rounded), f32 rows with negative values in some rows
+    for i, (t, dc, q) in enumerate(BARE_DENSE):
+        for kind in ("bf16 ties", "bf16 uniform", "negative"):
+            vr = kernel_input(t, dc, q, q, kind.split()[-1]
+                              if kind != "negative" else "uniform",
+                              seed=700 + i)
+            if kind == "negative":
+                vr[1::3] -= 2.0
+            else:
+                vr = vr.to(BF16)
+            got = cuda_cn.fb_checknode(vr, q)
+            want = fb_checknode_topk(vr, q)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            exact = torch.equal(got, want) and got.dtype == vr.dtype
+            print(f"fb_checknode dense (nm = q) {kind} T={t} dc={dc} q={q}: "
+                  f"bit-exact={exact} max_abs_err={err}", flush=True)
+            check(exact, f"fb_checknode nm = q != plain at {(t, dc, q)} "
+                         f"{kind}")
+            worst = max(worst, err)
+            del vr, got, want
     t = 128 * SLICE_ROWS
     rin, rout, valid = main["layered"]
     x = rows_input(t, 4, 256, "uniform", seed=9)
@@ -2244,14 +2318,18 @@ def check_kernel_modes(graph):
     for name in ("plain", "kernel", "kernel", "plain"):
         got[name].append(time_ms(fns[name], 5 if name == "kernel" else 1))
     b_ms, b_by = ems_bound_ms(t, SLICE_ROWS, 4, 256, 256)
+    floor = issue_floor_ms(t, 4, 256)
     times = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
-                 bound_by=b_by, rows=t)
-    print(f"ems_rows dense layered T={t} G={SLICE_ROWS} dc=4 q=256 (lists "
-          f"of 256): kernel " + " / ".join(f"{v:.4f}" for v in got["kernel"])
+                 bound_by=b_by, rows=t, floor=floor)
+    print(f"ems_rows dense layered T={t} G={SLICE_ROWS} dc=4 q=256 (the "
+          f"dense mode): kernel "
+          + " / ".join(f"{v:.4f}" for v in got["kernel"])
           + " ms, plain (fb_checknode_dense) "
           + " / ".join(f"{v:.4f}" for v in got["plain"])
           + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
-          f"{100 * b_ms / times['kernel']:.2f}% of it", flush=True)
+          f"{100 * b_ms / times['kernel']:.2f}% of it; issue floor "
+          f"{floor:.4f} ms (an add and a minimum a candidate), kernel at "
+          f"{100 * floor / times['kernel']:.2f}% of it", flush=True)
     del x, fns
     # the workspace: dense rows of dc = 40, 20 tables' worth of padded rows
     t, g, dc = 4000, 40, 40
@@ -2266,13 +2344,16 @@ def check_kernel_modes(graph):
     for name in ("plain", "kernel", "kernel", "plain"):
         got[name].append(time_ms(fns[name], 3 if name == "kernel" else 1))
     b_ms, b_by = ems_bound_ms(t, g, dc, 256, 256)
+    floor = issue_floor_ms(t, dc, 256)
     times["ws"] = dict({k: sum(v) / 2 for k, v in got.items()}, bound=b_ms,
-                       bound_by=b_by, rows=t, dc=dc)
+                       bound_by=b_by, rows=t, dc=dc, floor=floor)
     print(f"ems_rows dense workspace T={t} G={g} dc={dc} q=256 nm=200: "
           f"kernel " + " / ".join(f"{v:.4f}" for v in got["kernel"])
           + " ms, plain " + " / ".join(f"{v:.4f}" for v in got["plain"])
           + f" ms per call; bound {b_ms:.4f} ms ({b_by}), kernel at "
-          f"{100 * b_ms / times['ws']['kernel']:.2f}% of it", flush=True)
+          f"{100 * b_ms / times['ws']['kernel']:.2f}% of it; issue floor "
+          f"{floor:.4f} ms, kernel at "
+          f"{100 * floor / times['ws']['kernel']:.2f}% of it", flush=True)
     del x, fns
     # the bare entry on bf16 rows (converted to f32 and back around the
     # kernel) in turns with it on the same rows in f32, layered shape
@@ -3697,6 +3778,11 @@ def main(argv) -> int:
           and code.m_rows == CODE_ROWS, "unexpected layer sizes")
     graph = DeviceGraph.from_code(code)
 
+    if "--only-3" in argv:
+        check_kernel(graph)
+        check_kernel_modes(graph)
+        print("--only-3: the other phases were not run", flush=True)
+        return 0
     if "--only-3c" in argv:
         check_syndrome_kernel(graph)
         print("--only-3c: the other phases were not run", flush=True)
@@ -4231,10 +4317,12 @@ def main(argv) -> int:
         "dense_plain_ms": dense_times["plain"],
         "dense_bound_ms": dense_times["bound"],
         "dense_bound_by": dense_times["bound_by"],
+        "dense_floor_ms": dense_times["floor"],
         "ws_rows": dense_times["ws"]["rows"], "ws_dc": dense_times["ws"]["dc"],
         "ws_ms": dense_times["ws"]["kernel"],
         "ws_plain_ms": dense_times["ws"]["plain"],
         "ws_bound_ms": dense_times["ws"]["bound"],
+        "ws_floor_ms": dense_times["ws"]["floor"],
         "bare_bf16_ms": dense_times["bare"]["bf16"],
         "bare_f32_ms": dense_times["bare"]["f32"],
         "bare_bf16_bound_ms": dense_times["bare"]["bf16_bound"],

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time design variants of the SPA, syndrome, bubble and list kernels
+"""Time design variants of the SPA, syndrome, bubble, list and EMS kernels
 against their committed sources, on one CUDA card.
 
     python3 chip_variants.py                       # every SPA variant
@@ -17,6 +17,9 @@ against their committed sources, on one CUDA card.
     python3 chip_variants.py --list committed committed@PATH
                                        # NAME@PATH: a variant of another
                                        # version of it, timed in the turns
+    python3 chip_variants.py --cn [--sass] [NAME[@PATH] ...]
+                                       # the EMS kernel's (K1); --sass
+                                       # prints each build's opcode counts
 
 A variant is a kernel source of ``ems_nbldpc_torch/csrc/`` with a few text
 substitutions, written to a temporary directory, built by ``ops/_build.py``
@@ -47,6 +50,14 @@ dc = 4) at F = 128 with every frame active, 20 calls each by CUDA events:
   ``list_layer_plain`` in both modes (the real variants must equal it bit
   for bit but the padding column and edge).  Built in parallel.
 
+* K1 (``--cn``): ``ems_rows`` in the dense mode at the layered shape
+  (nm = q, no truncation: the CLI default's call) and from the workspace
+  (dc = 40, 4000 rows, nm = 200), in the list mode (nm = 32) at the
+  layered and flooding shapes, and the bare ``fb_checknode`` on f32 and
+  bf16 rows (nm = 32); each variant's outputs are held against their
+  plain versions (the real variants must equal them bit for bit).  Built
+  in parallel.
+
 "design" variants are alternatives the kernel does not take; "diagnostic"
 ones drop work (their results are wrong) to show what the time is spent
 on.  Prints one line per variant, the card's name and power limit, and a
@@ -66,12 +77,13 @@ import tempfile
 import torch
 
 import chip_smoke as cs
-from ems_nbldpc_torch.decoder.flooding import _syndrome_tables, syn_key
+from ems_nbldpc_torch.decoder.flooding import (_cn_row_tables,
+                                               _syndrome_tables, syn_key)
 from ems_nbldpc_torch.decoder.graph import DeviceGraph
 from ems_nbldpc_torch.decoder.layered import _layer_plan
 from ems_nbldpc_torch.models.code import random_regular
-from ems_nbldpc_torch.ops import (_build, cuda_bubble, cuda_list, cuda_spa,
-                                  cuda_syndrome, listcn)
+from ems_nbldpc_torch.ops import (_build, cuda_bubble, cuda_cn, cuda_list,
+                                  cuda_spa, cuda_syndrome, listcn)
 
 EXP = ("x[j] = expf(-fminf(x[j], kLogEps));", "x[j] = -fminf(x[j], kLogEps);")
 LOG = ("y[j] = -logf(fmaxf(fmaxf(y[j] * invq, kOutFloor), kPFloor));",
@@ -735,6 +747,218 @@ def list_main(names) -> int:
     return 0
 
 
+CN_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
+    "committed": ("design", []),
+    # the dense merges' minima by FMNMX on every row, not two candidates a
+    # three-input integer minimum on rows with no negative input
+    "fmnmx": ("design", [("constexpr bool INT_MIN3 = true;",
+                          "constexpr bool INT_MIN3 = false;")]),
+    # every lane reading its chunks' 16-byte halves in one order (2-way
+    # bank conflicts in the lanes' loads and stores at q = 256)
+    "one_half_order": ("design", [("  const int hl = PER == 8 ? lo & 4 : 0;",
+                                   "  const int hl = 0;")]),
+    # one or four chunks a loop step, not two
+    "unroll_1": ("design", [("constexpr int DENSE_UNROLL = 2;",
+                             "constexpr int DENSE_UNROLL = 1;")]),
+    "unroll_4": ("design", [("constexpr int DENSE_UNROLL = 2;",
+                             "constexpr int DENSE_UNROLL = 4;")]),
+    # what the time is spent on (their results are wrong): the dense
+    # merges' candidates, the dense prologue (rotate in, truncate, mask,
+    # park), the epilogue (rotate out, saturate, normalise, store), both
+    "dense_no_merges": ("diagnostic", [
+        ("  for (int c = 0; c < nch; ++c) {", "  for (int c = 0; c < 0; ++c) {")]),
+    "dense_no_prologue": ("diagnostic", [
+        ("      for (int k0 = 0; k0 < (dc > 1 ? dc : 0); k0 += NB) {\n"
+         "        const int nb = min(NB, dc - k0);\n        float v[NB][PER];",
+         "      for (int k0 = 0; k0 < 0; k0 += NB) {\n"
+         "        const int nb = min(NB, dc - k0);\n        float v[NB][PER];")]),
+    "no_epilogue": ("diagnostic", [
+        ("    for (int k0 = 0; k0 < dc; k0 += NB) {",
+         "    for (int k0 = 0; k0 < 0; k0 += NB) {")]),
+    "dense_no_edges": ("diagnostic", [
+        ("      for (int k0 = 0; k0 < (dc > 1 ? dc : 0); k0 += NB) {\n"
+         "        const int nb = min(NB, dc - k0);\n        float v[NB][PER];",
+         "      for (int k0 = 0; k0 < 0; k0 += NB) {\n"
+         "        const int nb = min(NB, dc - k0);\n        float v[NB][PER];"),
+        ("    for (int k0 = 0; k0 < dc; k0 += NB) {",
+         "    for (int k0 = 0; k0 < 0; k0 += NB) {")]),
+    # the list-driven merges' candidates (the dense mode's too before the
+    # dense merge: run as NAME@<that source>), and that form's list stage
+    # (the ballot copies of every input and of B[2..dc-1]; the lists are
+    # cleared once a warp instead, so that their ids stay in range)
+    "list_no_merges": ("diagnostic", [
+        ("  for (int j = 0; j < nm; ++j) {", "  for (int j = 0; j < 0; ++j) {")]),
+    "list_no_lists": ("diagnostic", [
+        ("  const unsigned key_inf = fkey(INF_COST);\n",
+         "  const unsigned key_inf = fkey(INF_COST);\n"
+         "  for (int i = lane; i < 2 * (dc > 2 ? dc - 2 : 0) * lst; i += 32)\n"
+         "    Lst[i] = make_float2(0.0f, 0.0f);\n  __syncwarp();\n"),
+        ("        if (m < nb && k >= 1 && k <= L)\n          take_list<PER>(",
+         "        if (false)\n          take_list<PER>("),
+        ("        if (m < nb)\n          take_list<PER>(key[m], Bs",
+         "        if (false)\n          take_list<PER>(key[m], Bs")]),
+}
+CN_REPS = 10
+
+
+def cn_entry_reports(log):
+    """ptxas' register and spill lines of each ems_rows_kernel instance in
+    a verbose build's log, as ``ems_rows_kernel<PER, ws, dense>``."""
+    lines, out = log.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?ems_rows_kernel"
+                      r"ILi(\d)ELb([01])E(?:Lb([01])E)?", line)
+        if m:
+            name = (f"ems_rows_kernel<{m.group(1)}, ws={m.group(2)}"
+                    + (f", dense={m.group(3)}>" if m.group(3) else ">"))
+            out[name] = "; ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "spill" in x or "registers" in x)
+    return out
+
+
+def sass_histogram(lib_path, kernel="ems_rows_kernelILi8ELb0ELb1E", top=14):
+    """The commonest SASS opcodes of one kernel instance of a library
+    (``cuobjdump -sass``), or a note where cuobjdump is missing."""
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, inside = collections.Counter(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                counts[m.group(1)] += 1
+    return ", ".join(f"{k} {v}" for k, v in counts.most_common(top))
+
+
+def cn_main(names) -> int:
+    """Time K1's variants ``names``: its dense mode at the layered shape
+    (F = 128: [172,800, 4, 256], nm = q, no truncation: the 4k call) and
+    from the workspace (dc = 40, 4000 rows, nm = 200), its list mode
+    (nm = 32) fused at the layered and flooding shapes, and its bare entry
+    on f32 and bf16 rows; each output held against its plain version bit
+    for bit.  NAME@PATH: variant NAME of the source at PATH, in the same
+    turns; ``--sass`` first prints the SASS opcode counts of each built
+    library's dense shared-memory instance at q = 256."""
+    sass = names[:1] == ["--sass"]
+    names = names[1:] if sass else names
+    file = "fb_checknode.cu"
+    base = os.path.join(_build.CSRC, file)
+    unknown = [n for n in names if n.split("@")[0] not in CN_VARIANTS]
+    if unknown:
+        raise SystemExit(f"FAIL: unknown K1 variants {unknown}")
+    sources = {}
+    for path in {base} | {n.split("@", 1)[1] for n in names if "@" in n}:
+        with open(path) as f:
+            sources[path] = f.read()
+    names = names or [n for n in CN_VARIANTS
+                      if applies(n, CN_VARIANTS, sources[base])]
+    with tempfile.TemporaryDirectory() as root:
+        paths = {}
+        for i, n in enumerate(names):
+            name, _, path = n.partition("@")
+            paths[n] = variant_source(name, CN_VARIANTS,
+                                      sources[path or base],
+                                      os.path.join(root, str(i)), file)
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            built = {n: pool.submit(_build.build, "fb_checknode", True,
+                                    paths[n]) for n in names}
+            built = {n: fut.result() for n, fut in built.items()}
+    for n, (lib, seconds, log) in built.items():
+        print(f"built {n} in {seconds:.1f} s; " + "; ".join(
+            f"{k}: {v}" for k, v in cn_entry_reports(log).items()),
+            flush=True)
+        if sass:
+            print(f"  SASS of {n}: {sass_histogram(lib)}", flush=True)
+    graph = DeviceGraph.from_code(random_regular(8100, 4050, 256, dv=2,
+                                                 seed=0))
+    layer = _layer_plan(graph, "cuda")[0]
+    rows = _cn_row_tables(graph, "cuda")
+    lt = (layer["rot_in8"], layer["rot_out8"], layer["valid"])
+    ft = (rows["rot_in"], rows["rot_out"], rows["valid"])
+    wt = cs.odd_tables(40, 40, 256, seed=77)
+    xl = cs.rows_input(128 * cs.SLICE_ROWS, 4, 256, "uniform", seed=9)
+    xf = cs.rows_input(128 * cs.CODE_ROWS, 4, 256, "uniform", seed=8)
+    xw = cs.rows_input(4000, 40, 256, "uniform", seed=10)
+    vr = cs.kernel_input(128 * cs.SLICE_ROWS, 4, 256, 32, "uniform", seed=11)
+    vb = vr.to(cs.BF16)
+    calls = {  # label -> (kernel call, plain call)
+        "dense layered": (
+            lambda: cuda_cn.ems_rows(xl, *lt, 256, cs.OFFSET, False,
+                                     dense=True),
+            lambda: cuda_cn.ems_rows_plain(xl, *lt, 256, cs.OFFSET, False,
+                                           dense=True)),
+        "dense workspace dc=40": (
+            lambda: cuda_cn.ems_rows(xw, *wt, 200, cs.OFFSET, True,
+                                     dense=True),
+            lambda: cuda_cn.ems_rows_plain(xw, *wt, 200, cs.OFFSET, True,
+                                           dense=True)),
+        "list layered": (
+            lambda: cuda_cn.ems_rows(xl, *lt, 32, cs.OFFSET, True),
+            lambda: cuda_cn.ems_rows_plain(xl, *lt, 32, cs.OFFSET, True)),
+        "list flooding": (
+            lambda: cuda_cn.ems_rows(xf, *ft, 32, cs.OFFSET, True),
+            lambda: cuda_cn.ems_rows_plain(xf, *ft, 32, cs.OFFSET, True)),
+        "bare f32": (lambda: cuda_cn.fb_checknode(vr, 32),
+                     lambda: cs.fb_checknode_topk(vr, 32)),
+        "bare bf16": (lambda: cuda_cn.fb_checknode(vb, 32),
+                      lambda: cs.fb_checknode_topk(vb, 32)),
+    }
+    want = {}
+    for label, (_, plain) in calls.items():
+        want[label] = plain()
+        torch.cuda.synchronize()
+    exact, times = {}, collections.defaultdict(list)
+    for order in (names, names[::-1]):
+        for name in order:
+            cuda_cn._lib = functools.lru_cache(None)(
+                functools.partial(cuda_cn._bind, built[name][0]))
+            t, ok = [], {}
+            for label, (kernel, _) in calls.items():
+                got = kernel()
+                torch.cuda.synchronize()
+                ok[label] = torch.equal(got, want[label])
+                del got
+                t.append(cs.time_ms(kernel, CN_REPS))
+            print(f"{name}: ran, bit-exact vs plain {all(ok.values())}; "
+                  + ", ".join(f"{label} {v:.4f}" for label, v in
+                              zip(calls, t)) + " ms", flush=True)
+            exact[name] = ok
+            times[name].append(t)
+    for name in names:
+        cols = list(zip(*times[name]))
+        print(f"{name:28s} {cn_kind(name):10s} " + "; ".join(
+            f"{label} " + " / ".join(f"{v:.4f}" for v in col) + " ms"
+            for label, col in zip(calls, cols))
+            + "; bit-exact vs plain " + ", ".join(
+                label for label, ok in exact[name].items() if ok),
+            flush=True)
+    for name in names:
+        if cn_kind(name) == "design" and not all(exact[name].values()):
+            raise SystemExit(f"FAIL: design variant {name} disagrees with "
+                             f"the plain version: {exact[name]}")
+    print(cs.card_line())
+    print(json.dumps({"cn_variants": {n: {
+        "kind": cn_kind(n),
+        **{label.replace(" ", "_").replace("=", "") + "_ms":
+           [t[i] for t in times[n]] for i, label in enumerate(calls)},
+        "bit_exact": exact[n]} for n in names}}))
+    return 0
+
+
+def cn_kind(label):
+    """The kind of the K1 variant a label (NAME or NAME@PATH) names."""
+    return CN_VARIANTS[label.split("@")[0]][0]
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this run needs a "
@@ -746,6 +970,8 @@ def main(argv) -> int:
         return bubble_main(argv[1:])
     if argv[:1] == ["--list"]:
         return list_main(argv[1:])
+    if argv[:1] == ["--cn"]:
+        return cn_main(argv[1:])
     names = argv or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

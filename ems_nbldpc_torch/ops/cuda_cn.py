@@ -8,17 +8,18 @@ name is kept, so decoder configurations carry across unchanged),
 ``"auto"``, ``"topk"``, ``"dense"`` and ``"list"`` on dense storage, and
 the compressed ``"topk"`` decoder (``decoder/flooding.k1_route``).  It
 takes every row shape the plain version takes: rows of dc <= 2 (the
-swapped pair, or the delta message) and rows whose lists do not fit a
-block's shared memory, which run from a workspace in device memory that
-the wrapper allocates from torch's caching allocator for each call (a
-CUDA graph's capture takes it into its pool).  Two entry points launch
-it:
+swapped pair, or the delta message) and rows too wide for a block's
+shared memory (the library decides: in the dense mode, from dc = 20 at
+q = 256), which run from a workspace in device memory that the wrapper
+allocates from torch's caching allocator for each call (a CUDA graph's
+capture takes it into its pool).  Two entry points launch it:
 
 * ``ems_rows(x, rot_in, rot_out, valid, nm, offset, truncate, dense)``:
   the whole EMS check-node step of a batch of unrotated rows (truncate,
   rotate in, mask padding slots, F/B check node, rotate out, saturate,
   normalise); ``dense`` makes the check node the dense min-convolution
-  (lists of all q entries); ``ems_rows_plain`` is its plain torch version.
+  (the kernel's dense mode, which merges whole vectors); ``ems_rows_plain``
+  is its plain torch version.
 * ``fb_checknode(vr, nm)``: the F/B check node alone on rotated float32
   or bfloat16 rows, the same kernel with the steps around it off; its
   plain version is ``minconv.fb_checknode_topk``.
@@ -54,7 +55,12 @@ def build(verbose: bool = False) -> tuple[str, float, str]:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()[0])
+    return _bind(build()[0])
+
+
+def _bind(path: str) -> ctypes.CDLL:
+    """Load the kernel library at ``path`` and declare its C interface."""
+    lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ems_rows_launch.argtypes = [
         ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr, i64,
@@ -142,7 +148,7 @@ def ems_rows_plain(x, rot_in, rot_out, valid, nm: int, offset: float,
     """The plain torch composition that ``ems_rows`` fuses: [T, dc, q]
     unrotated rows -> [T, dc, q] min-normalised CN outputs; ``dense``: the
     dense min-convolution ``fb_checknode_dense`` in place of the nm-list
-    ``fb_checknode_topk`` (the kernel's lists of all q entries)."""
+    ``fb_checknode_topk`` (the kernel's dense mode)."""
     t, dc, q = x.shape
     g = _table_rows(x, rot_in, rot_out, valid)
     v = x.reshape(t // g, g, dc, q)
@@ -204,9 +210,8 @@ def ems_rows(x: torch.Tensor, rot_in, rot_out, valid, nm: int,
     ``valid`` ([G, dc] bool, False at padding slots; None: no padding).
     ``truncate`` (``cn == "ems" and nm < q``) truncates the inputs to
     their nm best (ties with the nm-th kept) and saturates the outputs at
-    nm-th best + ``offset``.  ``dense``: the check node merges lists of all
-    q entries, the dense min-convolution (nm is then the truncation rank
-    alone).  Returns [T, dc, q] min-normalised outputs, equal bit for bit
+    nm-th best + ``offset``.  ``dense``: the check node is the dense
+    min-convolution (nm is then the truncation rank alone).  Returns [T, dc, q] min-normalised outputs, equal bit for bit
     to ``ems_rows_plain``.
     """
     lst = x.shape[-1] if dense else nm
