@@ -161,7 +161,10 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 3g. K3's exact mode and general step against ``list_layer_plain`` as 3f:
    the exact merge (nbOper = 0, the fast step's exact form) on the real
    code's three layer plans at F = 128, nm = 32, f32 and bf16, from
-   "decoder", "ties", "flat" and decoded states; odd padded layers
+   "decoder", "ties", "flat" and decoded states; the same plans at F = 4
+   with nm = q (4l's settings, the general step's dense form) from
+   "decoder", "ties" and decoded states, and with nm = 128 (its exact
+   list form) from "decoder" states; odd padded layers
    (``LIST_GENERAL``: nm 1 to q = 256 on both merges, the exact form's
    edges nm = 33, 63 and 64, half the slots padded so that merges of
    neutral lists have fewer than nm GF ids below BIG (the tail), q = 2 to
@@ -170,9 +173,12 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    (20 rows of degree 34, nm = q, exact) under the device loop against the
    host loop (6's checks) and through K3 against its plain version; then
    timed at F = 128 beside the bound: the exact mode at nm = 32 in turns
-   with its plain version on both dtypes, at nm = q (the plain version
-   does not fit: not timed), and the staircase at nm = 65 (``--only-3g``:
-   phases 1, 2 and 3g alone, no result line);
+   with its plain version on both dtypes, at nm = q on both dtypes and
+   at nm = 128 on bf16 (the plain version does not fit: not timed), the
+   staircase at nm = 65 (nbOper 64) and nm = 128 (nbOper 256) with its
+   plain version, and the workspace form (a random layer of 20 rows of
+   degree 34, nm = q, exact, f32) (``--only-3g``: phases 1, 2 and 3g
+   alone, no result line);
 3b / 3c / 3e at bf16: each fused entry (``spa_layer``, ``syndrome_layer``,
    ``bubble_layer`` with both variants) on a bf16 state against its bf16
    plain version, on the real code's three layer plans at F = 128 and on
@@ -225,12 +231,18 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
 5l. list-EMS decode both ways (host loop), at full width: 16 frames of
    the chain's first batch through K3 and through ``list_layer_plain`` on
    the card (``plain``, no launch), at 4c's settings, with nbOper = 0 and
-   with nm = 65 (the exact form and the general step): identical decisions,
-   iterations and convergence (the differing frames printed), 3
-   ``list_layer`` a step on the kernel side;
+   with nm = 65 (the exact form and the general step), and 4 frames at
+   4l's settings (nm = q, nbOper = 0: the general step's dense form):
+   identical decisions, iterations and convergence (the differing frames
+   printed), 3 ``list_layer`` a step on the kernel side;
 4j. list-EMS chain with the exact merge: 4c's settings with nbOper = 0
    (the CLI's default), device loop; checks 3 ``list_layer`` a step counted
    on the card, none eager, no other kernel, avg_it < 10, FER <= 0.25;
+4l. list-EMS chain with nothing truncated: 4c's settings with nm = q =
+   256 and nbOper = 0 (exact min-sum in list form, the reference a user
+   holds nm = 32 against), device loop; K3's general step (the dense
+   merges) on every super-layer; checks 3 ``list_layer`` a step counted on
+   the card, none eager, no other kernel, avg_it < 10, FER <= 0.25;
 4k. the CLI's default decoder as a chain: layered EMS with nm = 0 under
    ``cn_impl="auto"`` (no truncation: K1's dense min-convolution, lists of
    256), 10 iterations, dense f32, 2.0 dB, F = 128, 256 frames, device
@@ -417,7 +429,8 @@ plain version's and its bound; for K2, K7 and K9 the ``bf16_*`` fields of
 the fused entry on a bf16 state; for K1 the ``dense_*`` fields of its
 dense min-convolution at the layered shape (``dense_floor_ms``: its issue
 floor) and ``ws_*`` from the workspace; for K3 the ``exact_*``,
-``exact_nmq_*`` and ``stair65_*`` fields of 3g beside ``list_layer`` at
+``exact_nmq_*``, ``exact128_*``, ``stair65_*``, ``stair128_*`` and
+``ws34_*`` fields of 3g beside ``list_layer`` at
 F = 128 on the bf16 state of the bench row, and ``f32_*`` on an f32
 one), and ``{"ok": true, "device": {...}}``.  The run prints its time.
 No JAX is imported.
@@ -1789,17 +1802,18 @@ def list_state(f, n1, e1, q, nm, cols, edges, kind, seed, dtype):
     return (app.to(dtype), cv_v.to(dtype), cv_g, cv_sat.to(dtype), active)
 
 
-def decoded_list_state(graph, f, dtype, seed, steps=2, nboper=LIST_OPS):
+def decoded_list_state(graph, f, dtype, seed, steps=2, nboper=LIST_OPS,
+                       nm=LIST_NM):
     """A state the decoder itself made: ``steps`` steps of the list
-    stepper (nm = LIST_NM, ``nboper``) through its plain version on the
-    card from a decoder-like intrinsic (``spa_state``'s APP), with about a
+    stepper (``nm``, ``nboper``) through its plain version on the card
+    from a decoder-like intrinsic (``spa_state``'s APP), with about a
     quarter of the frames frozen afterwards."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     x, active = decoder_rows(f, graph.code.n, graph.q, gen)
     intr = (x - x.min(dim=-1, keepdim=True).values).to(dtype)
-    init, step = make_layered_list_stepper(graph, LIST_NM, OFFSET, nboper,
-                                           dtype, plain=True)
+    init, step = make_layered_list_stepper(graph, nm, OFFSET, nboper, dtype,
+                                           plain=True)
     state = init(intr)
     for _ in range(steps):
         state = step(state)
@@ -1991,10 +2005,19 @@ LIST_GENERAL = [           # (F, G, dc, q, nm, nbOper, offset, padded
     (8, 40, 3, 16, 16, 0, OFFSET, 12),       # nm = q, many neutral lists
     (6, 40, 4, 64, 64, 0, OFFSET, 3),        # nm = q = 64
     (2, 8, 4, 256, 256, 0, OFFSET, 2),       # nm = q = 256
+    (4, 30, 4, 256, 256, 0, OFFSET, 60),     # dense: half the slots padded
+    # (tails: the row again through the list form)
+    (4, 30, 4, 256, 240, 0, OFFSET, 60),     # the list form's tails
     (4, 40, 4, 256, 65, 0, OFFSET, 3),       # exact, past the fast step
+    (4, 40, 4, 256, 96, 0, OFFSET, 3),       # exact, the list form
+    (4, 40, 4, 256, 128, 0, OFFSET, 3),
+    (2, 20, 4, 256, 255, 0, OFFSET, 3),
     (4, 8, 120, 256, 64, 0, OFFSET, 9),      # dc = 120: the workspace
     (2, 4, 400, 64, 32, 64, OFFSET, 9),      # the staircase, workspace
     (8, 40, 4, 256, 65, 64, OFFSET, 3),      # the staircase, nm = 65
+    (4, 40, 4, 256, 96, 64, OFFSET, 3),
+    (4, 40, 4, 256, 128, 256, OFFSET, 3),
+    (2, 20, 4, 256, 255, 1000, OFFSET, 3),
     (4, 20, 4, 256, 256, 64, OFFSET, 3),     # the staircase, nm = q
     (4, 20, 4, 256, 256, 4096, OFFSET, 3),
     (6, 20, 5, 256, 100, 300, -0.2, 2),
@@ -2021,7 +2044,11 @@ def check_list_general(graph):
     the workspace) against
     ``list_layer_plain``, bit for bit: the real code's three layer plans at
     F = 128, nm = 32, nbOper = 0, f32 and bf16, from "decoder", "ties",
-    "flat" and decoded states; the odd padded layers of LIST_GENERAL; a
+    "flat" and decoded states; the same plans at F = 4 (the plain
+    version's exact merges hold [F, 1350, nm * nm] candidates) with nm =
+    q (4l's settings: the general step's dense form) from "decoder",
+    "ties" and decoded states, and with nm = 128 (its list form) from
+    "decoder" states; the odd padded layers of LIST_GENERAL; a
     decode from the workspace (``check_workspace_decodes``); then timed at
     F = 128 on layer 0 beside the bound: the exact mode at nm = 32
     in turns with its plain version, at nm = q (the plain version's
@@ -2054,6 +2081,25 @@ def check_list_general(graph):
             worst = max(worst, check_list_case(f"layer {k} decoded", state,
                                                tables(p), exact))
         del state
+    check(cuda_list.path(code.dc_max, q, q, 0) == "shared",
+          "the real code's rows at nm = q do not run the general step from "
+          "shared memory")
+    for dtype in (torch.float32, BF16):
+        for k, p in enumerate(plans):
+            for nm, kinds in ((q, ("decoder", "ties")), (128, ("decoder",))):
+                for kind in kinds:
+                    state = list_state(4, n1, e1, q, nm, p["cols"],
+                                       p["edge_ids"], kind, 1430 + k, dtype)
+                    worst = max(worst, check_list_case(
+                        f"layer {k} {kind} nm={nm}", state, tables(p),
+                        (nm, 0, OFFSET)))
+                    del state
+        state = decoded_list_state(graph, 4, dtype, seed=1440, nboper=0, nm=q)
+        for k, p in enumerate(plans):
+            worst = max(worst, check_list_case(f"layer {k} decoded nm={q}",
+                                               state, tables(p), (q, 0, OFFSET)))
+        del state
+        torch.cuda.empty_cache()
     for i, (f, g, dc, qo, nm, ops, off, pads) in enumerate(LIST_GENERAL):
         layer, n1o, e1o = odd_list_layer(g, dc, qo, pads, seed=1450 + i)
         where = cuda_list.path(dc, qo, nm, ops)
@@ -2066,30 +2112,39 @@ def check_list_general(graph):
                     f"odd {where} {kind}", state, layer, (nm, ops, off)))
                 del state
     check_workspace_decodes()
-    p = plans[0]
-    g, dc = p["cols32"].shape
     f = 128
     active = torch.ones(f, dtype=torch.bool, device="cuda")
+    # the real code's first layer, and a random one of 20 rows of degree 34
+    # whose rows at nm = q run from the workspace
+    layers = {"layer 0": (tables(plans[0]), n1, e1),
+              "dc 34": odd_list_layer(20, 34, q, 0, seed=34)}
+    check(cuda_list.path(34, q, q, 0) == "workspace",
+          "the dc = 34 layer at nm = q does not run from the workspace")
     times = {}
-    for label, nm, ops, dtypes, plain in (
-            ("exact", LIST_NM, 0, ((torch.float32, 4), (BF16, 2)), True),
-            ("exact_nmq", q, 0, ((BF16, 2), (torch.float32, 4)), False),
-            ("stair65", 65, LIST_OPS, ((BF16, 2),), True)):
+    for label, where, nm, ops, dtypes, plain in (
+            ("exact", "layer 0", LIST_NM, 0,
+             ((torch.float32, 4), (BF16, 2)), True),
+            ("exact_nmq", "layer 0", q, 0, ((BF16, 2), (torch.float32, 4)),
+             False),
+            ("exact128", "layer 0", 128, 0, ((BF16, 2),), False),
+            ("stair65", "layer 0", 65, LIST_OPS, ((BF16, 2),), True),
+            ("stair128", "layer 0", 128, 256, ((BF16, 2),), True),
+            ("ws34", "dc 34", q, 0, ((torch.float32, 4),), False)):
+        layer, ln1, le1 = layers[where]
+        g, dc = layer[0].shape
         for dtype, elem in dtypes:
-            state = list_state(f, n1, e1, q, nm, p["cols"], p["edge_ids"],
+            state = list_state(f, ln1, le1, q, nm, layer[0], layer[1],
                                "decoder", 8, dtype)[:4]
             copies = {k: [x.clone() for x in state]
                       for k in ("kernel", "plain")}
             fns = {"kernel": lambda: cuda_list.list_layer(
-                       *copies["kernel"], active, *tables(p), nm, ops,
-                       OFFSET),
+                       *copies["kernel"], active, *layer, nm, ops, OFFSET),
                    "plain": lambda: listcn.list_layer_plain(
-                       *copies["plain"], active, *tables(p), nm, ops,
-                       OFFSET)}
+                       *copies["plain"], active, *layer, nm, ops, OFFSET)}
             order = (("plain", "kernel", "kernel", "plain") if plain
                      else ("kernel", "kernel"))
             got = collections.defaultdict(list)
-            reps = {"kernel": 10 if nm <= 2 * LIST_NM else 2, "plain": 2}
+            reps = {"kernel": 10, "plain": 2}
             for name in order:
                 got[name].append(time_ms(fns[name], reps[name]))
             b_ms, b_by = list_layer_bound_ms(f, g, dc, q, nm, ops, elem)
@@ -2115,7 +2170,9 @@ def check_list_general(graph):
 def check_workspace_decodes():
     """3g: a list-EMS decode whose rows run from K3's workspace (a code of
     20 rows of degree 34 over 120 GF(256) columns, nm = q = 256, the
-    exact merge: 235,520 B a warp), under the device loop (the workspace
+    exact merge: 135,168 B a warp of mvc and dense lists, of which a
+    block's shared memory holds fewer than four), under the device loop
+    (the workspace
     is allocated inside the graph's capture) against the host loop, and
     the host loop through K3 against ``list_layer_plain`` on the card:
     identical decisions, iterations and convergence."""
@@ -2697,33 +2754,37 @@ def check_list_decodes(graph, intr, dec, n_layers):
     """5l: 16 frames of ``intr`` decoded (host loop) through K3 (3
     ``list_layer`` launches a step) and through ``list_layer_plain`` on the
     card (no launch), at ``dec``'s settings, then with nbOper = 0 (the
-    exact merge, on the fast step's exact form) and with nm = 65 (the
-    staircase past the fast step, on the general step): identical
-    decisions, iterations and convergence,
-    the frames that differ printed.  Returns the kernel side's launches by
-    label."""
+    exact merge, on the fast step's exact form), with nm = 65 (the
+    staircase past the fast step, on the general step) and, on 4 frames
+    (the plain version's exact merges hold [F, 1350, q * q] candidates),
+    with nm = q and nbOper = 0 (4l's settings: the general step's dense
+    form): identical decisions, iterations and convergence, the frames
+    that differ printed.  Returns the kernel side's launches by label."""
     phase("5l list-EMS kernel vs plain decode at full width")
     intr = intr[:16].to(dec.torch_dtype()).contiguous()
     ran = {}
-    for label, change in (("", {}), ("nboper=0", dict(nboper=0)),
-                          ("nm=65", dict(nm=65))):
+    for label, change, frames in (
+            ("", {}, 16), ("nboper=0", dict(nboper=0), 16),
+            ("nm=65", dict(nm=65), 16),
+            ("nm=q", dict(nm=graph.q, nboper=0), 4)):
         cfg = dataclasses.replace(dec, **change)
         outs = {}
         for plain in (False, True):
             reset_launches()
             outs[plain] = tuple(x.cpu() for x in decode_layered_list_hostloop(
-                graph, intr, cfg.max_iters, cfg.nm, cfg.offset, cfg.nboper,
-                cfg.torch_dtype(), plain=plain)) + (
+                graph, intr[:frames], cfg.max_iters, cfg.nm, cfg.offset,
+                cfg.nboper, cfg.torch_dtype(), plain=plain)) + (
                 read_host_launches(f"5l {label}"),)
         (d_k, it_k, c_k, l_k), (d_p, it_p, c_p, l_p) = outs[False], outs[True]
         differ = ((d_k != d_p).any(dim=1) | (it_k != it_p) | (c_k != c_p))
         steps = int(it_k.max())
         where = cuda_list.path(graph.code.dc_max, graph.q, cfg.nm,
                                cfg.nboper)
-        print(f"F=16 nm={cfg.nm} nbOper={cfg.nboper} ({where} path): frames whose decisions, iterations or convergence "
-              f"differ: {differ.nonzero().flatten().tolist()}; iters "
-              f"{it_k.tolist()}; converged {int(c_k.sum())}/16; launches "
-              f"kernel {l_k}, plain {l_p}", flush=True)
+        print(f"F={frames} nm={cfg.nm} nbOper={cfg.nboper} ({where} path): "
+              f"frames whose decisions, iterations or convergence differ: "
+              f"{differ.nonzero().flatten().tolist()}; iters "
+              f"{it_k.tolist()}; converged {int(c_k.sum())}/{frames}; "
+              f"launches kernel {l_k}, plain {l_p}", flush=True)
         check(not bool(differ.any()),
               f"list-EMS kernel and plain decodes differ {label}")
         check(l_k["list_layer"] == n_layers * steps > 0
@@ -4018,6 +4079,23 @@ def main(argv) -> int:
           f"list-EMS exact launches {ex_launches} for "
           f"{ex_res.decoder_steps} decoder steps")
     paths["list_layer"]["list-EMS exact (4j)"] = ex_launches["list_layer"]
+    free(mc)
+    del mc
+
+    phase("4l list-EMS chain with nothing truncated (nm = q, nbOper = 0)")
+    full_dec = dataclasses.replace(list_dec, nm=code.q, nboper=0)
+    where = cuda_list.path(code.dc_max, code.q, code.q, 0)
+    print(f"4l: K3's general step ({where} path, the exact merge as dense "
+          f"min-convolutions) on every super-layer: frames/s, avg_it, FER, "
+          f"memory and idle share of the list decoder with no list "
+          f"truncated", flush=True)
+    mc, nq_res, nq_launches = run_chain("list-EMS nm=q", code, enc,
+                                        full_dec, 1.8)
+    check(nq_launches["list_layer"] == n_layers * nq_res.decoder_steps > 0
+          and sum(nq_launches.values()) == nq_launches["list_layer"],
+          f"list-EMS nm=q launches {nq_launches} for "
+          f"{nq_res.decoder_steps} decoder steps")
+    paths["list_layer"]["list-EMS nm=q (4l)"] = nq_launches["list_layer"]
     free(mc)
     del mc
 

@@ -481,6 +481,11 @@ EXACT_FAKE = ("(out[0] = lane, out[1] = lane + 32, full[0] = "
               "__float_as_uint(lane), full[1] = __float_as_uint(lane + 32), "
               "true)")
 
+# the former general step's tail, in its merge just before its kernel
+FORMER_TAIL = ("  if (nh < nm) exact_tail(la, lb, lo, tab, tab + TAB, nh, nm, "
+               "lane);\n  __syncwarp();\n}\n\ntemplate <class ST>\n")
+# that line commented out
+FORMER_NO_TAIL = FORMER_TAIL.replace("  if (nh < nm) exact_tail", "  //")
 LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
     "committed": ("design", []),
     # 6 or 4 blocks an SM (at most 80 or 128 registers a thread), not 8 (64)
@@ -608,19 +613,120 @@ LIST_VARIANTS = {  # name -> (kind, substitutions, each of every occurrence)
     "exact_no_pass2": ("diagnostic", [
         ("      if (!__any_sync(FULL, first <= bound)) break;",
          "      break;")]),
-    # the general step (list_general_kernel), which ran the exact mode
-    # before list_kernel took it (git show 90d4adb:<the source>, as
-    # NAME@PATH): without its truncations' 256-key sorts, without its
-    # merges' sorts, without its merges' candidates (and the tail, which
-    # would count them all), without the tail
-    "general_no_trunc_sorts": ("diagnostic", [("      sort256(key, lane);\n",
-                                           "")]),
-    "general_no_merge_sorts": ("diagnostic", [("  sort256(k, lane);\n", "")]),
-    "general_no_candidates": ("diagnostic", [
+    # the general step: its exact merges in the list form at nm = q too
+    # (the pruned merge), not dense
+    "exact_list_form": ("design", [("(q == TAB && nm == q && dc >= 3)",
+                                    "(false)")]),
+    # the general step's stored lists loaded 8 entries a lane at once, then
+    # folded (more registers: slower, 8.87 against 8.46 ms at nm = q)
+    "general_cv_batched": ("design", [
+        ("""      fill_tab(tab, empty, lane);
+      __syncwarp();
+      for (int e = lane; e < nm; e += 32)
+        atomicMin(tab + p.cv_g[ce * nm + e], fkey(ld(cv_v + ce * nm + e)));
+      const float sat = ld(cv_sat + ce);
+      __syncwarp();
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], c[i]);
+      rnd8<ST>(a);
+      float mn = __int_as_float(0x7f800000);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (sym(lane, i) < q) mn = fminf(mn, a[i]);
+      mn = warp_min(mn);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
+      rnd8<ST>(a);
+      store_row(mvc + k * q, a, q, q >= 4, lane);
+      __syncwarp();
+    }""", """      unsigned cvk[8], cvg[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = lane + 32 * u;
+        if (e < nm) {
+          cvg[u] = p.cv_g[ce * nm + e];
+          cvk[u] = fkey(ld(cv_v + ce * nm + e));
+        }
+      }
+      const float sat = ld(cv_sat + ce);
+      fill_tab(tab, empty, lane);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (lane + 32 * u < nm) atomicMin(tab + cvg[u], cvk[u]);
+      __syncwarp();
+      unsigned tt[8];
+      read_tab(tab, tt, lane);
+      float c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c[i] = fminf(fval(tt[i]), sat);
+      rnd8<ST>(c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], c[i]);
+      rnd8<ST>(a);
+      float mn = __int_as_float(0x7f800000);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (sym(lane, i) < q) mn = fminf(mn, a[i]);
+      mn = warp_min(mn);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
+      rnd8<ST>(a);
+      store_row(mvc + k * q, a, q, q >= 4, lane);
+      __syncwarp();
+    }""")]),
+    # no row of the dense form run again through the list form (wrong on
+    # a row with a tail: "padded256_bf16" shows that the rerun runs)
+    "general_no_tail_rerun": ("diagnostic", [
+        ("          tail = h.x < nm || h.y < nm;", "          tail = false;")]),
+    # what its time is spent on (their results are wrong): the dense
+    # merges' candidates (and the tail they would then call for), the
+    # dense form's output sorts, the staircase's selections, its merges'
+    # candidates
+    "general_no_dense_merges": ("diagnostic", [
+        ("  for (int c = 0; c < 32; ++c) {", "  for (int c = 0; c < 0; ++c) {"),
+        ("          tail = h.x < nm || h.y < nm;", "          tail = false;")]),
+    "general_no_output_sorts": ("diagnostic", [
+        ("          select_exact_out(reinterpret_cast<const unsigned*>(dv + "
+         "src * q),\n                           BIG_BITS, nm, tab2, lane);\n",
+         "")]),
+    "general_no_stair_selections": ("diagnostic", [
+        ("  select_stair_out(tab, nm, lo, lane);\n", ""),
+        ("        select_stair_out(tab, nm, lk, lane);\n", "")]),
+    "general_no_stair_candidates": ("diagnostic", [
+        ("  for (int c = lane; c < npairs; c += 32) {\n"
+         "    const unsigned p = pairs[c];\n"
+         "    const unsigned a = la[p >> 8], b = lb[p & 0xff];\n"
+         "    atomicMin(tab + ((a ^ b) & 0xff),\n"
+         "              bf16_bits(__fadd_rn(sum_value(a), sum_value(b))));\n"
+         "  }\n  __syncwarp();\n  select_stair_out",
+         "  for (int c = lane; c < 0; c += 32) {\n"
+         "    const unsigned p = pairs[c];\n"
+         "    const unsigned a = la[p >> 8], b = lb[p & 0xff];\n"
+         "    atomicMin(tab + ((a ^ b) & 0xff),\n"
+         "              bf16_bits(__fadd_rn(sum_value(a), sum_value(b))));\n"
+         "  }\n  __syncwarp();\n  select_stair_out")]),
+    # the former general step (list_general_kernel before its dense
+    # redesign: git show 101a6c6:<the source>, as NAME@PATH): without its
+    # truncations' 256-key 64-bit sorts, without its merges' sorts,
+    # without its merges' candidates (and the tail, which would count them
+    # all), without the tail
+    "former_general_no_trunc_sorts": ("diagnostic", [
+        ("      sort256(key, lane);\n", "")]),
+    "former_general_no_merge_sorts": ("diagnostic", [
+        ("  sort256(k, lane);\n  const int nh", "  const int nh")]),
+    "former_general_no_candidates": ("diagnostic", [
         ("    for (int j = lane; j < wi; j += 32) {",
          "    for (int j = lane; j < 0; j += 32) {"),
-        ("  if (nh < nm) {", "  if (false) {")]),
-    "general_no_tail": ("diagnostic", [("  if (nh < nm) {", "  if (false) {")]),
+        (FORMER_TAIL, FORMER_NO_TAIL)]),
+    "former_general_no_tail": ("diagnostic", [
+        (FORMER_TAIL, FORMER_NO_TAIL)]),
 }
 
 
@@ -637,9 +743,11 @@ def entry_reports(log):
         m = re.search(r"Compiling entry function '\w*?([A-Za-z_]+kernel)I",
                       line)
         if m:
+            flags = re.findall(r"Lb([01])E", line)
             name = m.group(1) + ("<bf16" if "bfloat16" in line
-                                 else "<float") + (
-                                     ", exact>" if "Lb1E" in line else ">")
+                                 else "<float") + "".join(
+                                     ", " + ("true" if b == "1" else "false")
+                                     for b in flags) + ">"
             out[name] = "; ".join(
                 x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                 if "spill" in x or "registers" in x)
@@ -651,11 +759,69 @@ def list_kind(label):
     return LIST_VARIANTS[label.split("@")[0]][0]
 
 
+# the general step's shapes (--list --general): label -> (layer, nm,
+# nbOper, state dtype); "layer 0" is the full-width code's first
+# super-layer (1350 rows, dc = 4) at F = 128, "dc 34" a random layer of 20
+# rows of degree 34 (the workspace), "padded" one of 1350 rows of degree 4
+# with half the slots padded (merges of neutral lists: the dense form's
+# tails)
+GENERAL_SHAPES = {
+    "exact256_bf16": ("layer 0", 256, 0, torch.bfloat16),
+    "exact256_f32": ("layer 0", 256, 0, torch.float32),
+    "exact128_bf16": ("layer 0", 128, 0, torch.bfloat16),
+    "exact96_bf16": ("layer 0", 96, 0, torch.bfloat16),
+    "exact65_bf16": ("layer 0", 65, 0, torch.bfloat16),
+    "exact128_f32": ("layer 0", 128, 0, torch.float32),
+    "exact255_bf16": ("layer 0", 255, 0, torch.bfloat16),
+    "stair65_bf16": ("layer 0", 65, 64, torch.bfloat16),
+    "stair128_bf16": ("layer 0", 128, 256, torch.bfloat16),
+    "ws34_exact256_f32": ("dc 34", 256, 0, torch.float32),
+    "padded256_bf16": ("padded", 256, 0, torch.bfloat16),
+}
+GENERAL_REPS = 5
+
+
+def general_cases(graph, shapes):
+    """For each general shape: (layer tables, cn, a maker of the F = 128
+    state to time, a 4-frame state and its plain result to check
+    against)."""
+    p = _layer_plan(graph, "cuda")[0]
+    layers = {"layer 0": ((p["cols32"], p["edge_ids32"], p["rc_in"],
+                           p["rc_out"], p["valid"]),
+                          graph.code.n + 1, graph.n_edges + 1),
+              "dc 34": cs.odd_list_layer(20, 34, 256, 0, seed=34),
+              "padded": cs.odd_list_layer(1350, 4, 256, 2700, seed=4)}
+    cases = {}
+    for label in shapes:
+        where, nm, ops, dtype = GENERAL_SHAPES[label]
+        layer, n1, e1 = layers[where]
+        cn = (nm, ops, cs.OFFSET)
+
+        def make(f, seed, n1=n1, e1=e1, layer=layer, nm=nm, dtype=dtype):
+            return cs.list_state(f, n1, e1, 256, nm, layer[0], layer[1],
+                                 "decoder", seed, dtype)
+        small = make(4, 9)
+        want = [x.clone() for x in small[:4]]
+        listcn.list_layer_plain(*want, small[4], *layer, *cn)
+        torch.cuda.synchronize()
+        cases[label] = (layer, cn, lambda make=make: make(128, 8)[:4], small,
+                        want)
+        torch.cuda.empty_cache()
+    return cases
+
+
 def list_main(names) -> int:
     """Time the list kernel's variants ``names`` (see the module
-    docstring)."""
+    docstring); with ``--general`` on the general step's shapes
+    (GENERAL_SHAPES, or those ``--shapes a,b`` names)."""
     file = "list_checknode.cu"
     base = os.path.join(_build.CSRC, file)
+    general = names[:1] == ["--general"]
+    if general:
+        names = names[1:]
+    shapes = list(GENERAL_SHAPES)
+    if names[:1] == ["--shapes"]:
+        shapes, names = names[1].split(","), names[2:]
     if names[:1] == ["--source"]:
         base, names = names[1], names[2:]
     unknown = [n for n in names if n.split("@")[0] not in LIST_VARIANTS]
@@ -691,6 +857,8 @@ def list_main(names) -> int:
 
     graph = DeviceGraph.from_code(random_regular(8100, 4050, 256, dv=2,
                                                  seed=0))
+    if general:
+        return list_general_main(names, built, bind, graph, shapes)
     p = _layer_plan(graph, "cuda")[0]
     layer = (p["cols32"], p["edge_ids32"], p["rc_in"], p["rc_out"],
              p["valid"])
@@ -744,6 +912,48 @@ def list_main(names) -> int:
         "exact_bf16_ms": [t[2] for t in times[n]],
         "exact_f32_ms": [t[3] for t in times[n]],
         "bit_exact": exact[n]} for n in names}}))
+    return 0
+
+
+def list_general_main(names, built, bind, graph, shapes) -> int:
+    """``list_main`` on the general step's shapes: each variant checked
+    against the plain version on 4 frames of each shape, then timed at
+    F = 128 in turns, forward then backward."""
+    cases = general_cases(graph, shapes)
+    active = torch.ones(128, dtype=torch.bool, device="cuda")
+    exact, times = {}, collections.defaultdict(list)
+    for order in (names, names[::-1]):
+        for name in order:
+            cuda_list._lib = bind(built[name][0])
+            t, ok = [], True
+            for label in shapes:
+                layer, cn, big, small, want = cases[label]
+                got = [x.clone() for x in small[:4]]
+                cuda_list.list_layer(*got, small[4], *layer, *cn)
+                torch.cuda.synchronize()
+                ok = ok and all(torch.equal(a[:, :-1], b[:, :-1])
+                                for a, b in zip(got, want))
+                got = big()
+                t.append(cs.time_ms(lambda: cuda_list.list_layer(
+                    *got, active, *layer, *cn), GENERAL_REPS))
+                del got
+                torch.cuda.empty_cache()
+            exact[name] = ok
+            times[name].append(t)
+    for name in names:
+        cols = list(zip(*times[name]))
+        print(f"{name:24s} {list_kind(name):10s} F=128 " + "; ".join(
+            f"{label} " + " / ".join(f"{v:.4f}" for v in cols[i])
+            for i, label in enumerate(shapes))
+            + f" ms; bit-exact vs plain {exact[name]}", flush=True)
+    for name in names:
+        if list_kind(name) == "design" and not exact[name]:
+            raise SystemExit(f"FAIL: design variant {name} disagrees with "
+                             f"the plain version")
+    print(cs.card_line())
+    print(json.dumps({"list_general_variants": {n: dict(
+        {label: [t[i] for t in times[n]] for i, label in enumerate(shapes)},
+        kind=list_kind(n), bit_exact=exact[n]) for n in names}}))
     return 0
 
 

@@ -847,9 +847,10 @@ __device__ __forceinline__ unsigned sum_bits(uint2 a, uint2 b) {
 // every candidate left (a masked duplicate or a sum clamped at BIG) in id
 // order, each as often as such candidates have it: counted into cnt, and
 // placed by a warp prefix sum of the counts (less one for a head).
-__device__ void exact_tail(const uint2* la, const uint2* lb, uint2* lo,
-                           const unsigned* tab, unsigned* cnt, int nh, int nm,
-                           int lane) {
+__device__ __forceinline__ void exact_tail(const uint2* la, const uint2* lb,
+                                           uint2* lo, const unsigned* tab,
+                                           unsigned* cnt, int nh, int nm,
+                                           int lane) {
   fill_tab(cnt, 0u, lane);
   __syncwarp();
   for (int i = 0; i < nm; ++i) {
@@ -1154,140 +1155,404 @@ __global__ void __launch_bounds__(
 
 // ---- the general step: every shape list_kernel does not take ----
 //
-// Lists of 65 to q = 256 entries on either merge (the exact one:
-// listcn.list_combine's first branch, all na * nb candidates in f32), and
-// rows whose lists do not fit a block's shared memory.  Its steps are the
+// Lists of 65 to q = 256 entries on either merge, and rows whose lists do
+// not fit a block's shared memory.  Its steps around the merges are the
 // fast step's (the same gathers, rounding points, rotations, saturation
-// and write-back), with these differences:
-// * A list entry is two words (uint2): a value's f32 bits and its GF id.
-//   In the staircase mode the value is a bf16 value and an unfilled entry
-//   (the dup marker) is value BIG with the slot as its id.
-// * A selection sorts all 256 of the warp's keys (8 a lane, 64-bit) with
-//   one bitonic network: the nm smallest are the first nm.  The exact
-//   truncation's key is a value's f32 bits over its GF id (40 bits); the
-//   staircase's the fast step's.
-// * The exact merge folds each candidate's sum, clamped at BIG, into a
-//   per-GF minimum of its f32 bits (one atomicMin), then selects from the
-//   256 keys (minimum bits << 8 | g) of the GF ids whose minimum is below
-//   BIG (the "heads"); with fewer than nm heads, the tail (exact_tail).
-// * mvc and the lists live in shared memory when one warp's fit a block
-//   (``SHARED``); else in a global workspace of one slot a warp of the
-//   grid, one allocation a call (``WORKSPACE``, list_workspace_bytes).  The two 256-entry tables (minima
-//   and counts) stay in shared memory either way.
-// Why the bits agree: the staircase's keys are the fast step's; the exact
-// keys are unique (one per GF id, or one per symbol), so each selection's
-// result is the plain version's stable sort; the plain version orders
-// equal values by GF id (its last sort is stable over the GF-sorted runs),
-// as the keys do; sums are single __fadd_rn, and the rest is exact.
-// Where it stands (chip_smoke.py 3g, NVIDIA H100 80GB HBM3, 700 W): the
-// exact mode at nm = q = 256 (F = 128, 1350 rows, dc = 4) 108-110 ms a
-// call (bound 2.04 ms, its 6.8e10 candidates); the staircase at nm = 65
-// 21 ms (bound 0.29).  Simple rather than fast: each of a row's 10
-// selections sorts all 256 keys (240 shuffles), and each candidate is a
-// shared-memory atomic.  At nm = 32 it took 14.5 / 14.1 ms (bf16 / f32)
-// before list_kernel took the exact mode.
+// and write-back); a row's mvc goes to shared memory (or its workspace
+// slot) first, and each mode builds its lists from it:
+// * The staircase (nbOper >= 1; list_general_kernel<ST, false, WS>): one
+//   u32 an entry, the fast step's key (a value's bf16 bits over its GF
+//   id) with its DUP_ENTRY marker.  A truncation or a merge writes its
+//   256 keys to the warp's table, sorts them with one 32-bit bitonic
+//   network (sort8, then runs of 16 to 256 across the lanes) and keeps the
+//   first nm; a merge folds the staircase's candidates (the block's pair
+//   table) into per-GF minima by shared-memory atomics, as the fast step's.
+// * The exact merge (nbOper <= 0; list_general_kernel<ST, true, WS>) at
+//   q = 256, dc >= 3 and nm = q (nothing truncated): dense.  An exact
+//   merge's heads are the per-GF minima of all na * nb sums clamped at
+//   BIG, whatever the lists' order, so each list is held as a q-vector by
+//   GF id and each merge is the XOR min-convolution of two vectors
+//   (dense_pair, K1's dense merge: register tiling over XOR cosets, two
+//   candidates a three-input integer minimum on the f32 bits, two merges a
+//   pass).  At nm = q every truncation is the identity: an input is its
+//   mvc rotated, and a merge's q heads are its list as a set.  Only the dc
+//   output lists are sorted, for cv_v / cv_g.  A row where a merge has
+//   fewer than q heads below BIG (the tail, whose entries depend on the
+//   lists' GF id multisets) runs again from its mvc through the list form,
+//   its lists in the warp's workspace slot.
+// * The exact list form (the other exact shapes, and the dense form's
+//   tails): two words an entry (uint2: a value's f32 bits, its GF id), the
+//   exact form's pruned merge (merge_exact: the staircase {(i+1)(j+1) <=
+//   2 nm} first, then only the candidates that can still reach the nm
+//   smallest) at 8 entries a lane.
+// An exact selection sorts 32-bit keys (a value's bits 30..7 over its GF
+// id); only neighbours of one high part can then be out of their exact
+// order, and odd-even passes over them repair it (select_exact_out).
+// mvc and the lists live in shared memory where one warp's fit a block
+// beside the pair table (the dense form: four warps'; SHARED); else in a
+// global workspace of one slot a warp of the grid, one allocation a call
+// (WORKSPACE, list_workspace_bytes), where the dense form's tail lists
+// lie on either path.  The pair table and the two 256-entry tables stay
+// in shared memory.
+// Why the bits agree: the staircase's keys are the fast step's and are
+// unique; the exact keys are unique, so each selection's result is the
+// plain version's stable sort (equal values by GF id); a dense merge's
+// minima are exact, so the order of its candidates cannot change a bit;
+// sums are single __fadd_rn, and the rest is exact.
+// Where it stands (chip_variants.py --list --general, in turns with the
+// former general step: 256-key 64-bit sorts and a shared-memory atomic a
+// candidate; F = 128, 1350 rows, dc = 4; NVIDIA H100 80GB HBM3, 700 W):
+// the exact merge at nm = q 8.49 ms a call on a bf16 state and 8.44 on an
+// f32 one (24% of its 2.04 ms bound, operations) against 109; at nm = 128
+// (the list form) 6.9 / 7.3 against 27.8; the staircase at nm = 65,
+// nbOper = 64, 4.12 against 21.0, and at nm = 128, nbOper = 256, 5.06
+// against 28.7; the workspace (dc = 34, nm = q) 3.5 against 38.6.  At nm
+// = q the dense merges take ~5.0 ms; a row with a tail costs about what
+// it did (a half-padded layer: 81 against 125 ms).  Below nm = q the list
+// form runs: a dense form there would need truncations between its merges,
+// and measured faster only at some nm of 208 to 255 (no user of which is
+// known).
 
-constexpr int GTABS = 2 * 4 * TAB;          // a warp's minima and counts
+constexpr int GTABS = 2 * 4 * TAB;    // a warp's minima and counts tables
+// blocks an SM the registers aim at: the staircase's instance, the exact
+constexpr int GEN_BLOCKS_SM_STAIR = 6;
+constexpr int GEN_BLOCKS_SM_EXACT = 4;
 
 // Where a shape runs (list_path).
 enum Path { REFUSED = 0, FAST = 1, SHARED = 2, WORKSPACE = 3, EXACT = 4 };
 
-// One warp's mvc [dc, q] (the state's type) and lists [lists, nm] (uint2)
-// of the general step, in shared memory or in its workspace slot.
+// How the general step merges: the staircase, the exact list form, dense.
+enum GMode { G_STAIR = 0, G_LIST = 1, G_DENSE = 2 };
+
+__host__ __device__ inline int gmode(int dc, int q, int nm, int nboper) {
+  return nboper >= 1 ? G_STAIR
+         : (q == TAB && nm == q && dc >= 3) ? G_DENSE
+                                            : G_LIST;
+}
+
+// One warp's rows of the general step: mvc [dc, q] (the state's type),
+// then its lists (u32 [lists, nm] for the staircase, uint2 [lists, nm]
+// for the exact list form, f32 [lists, q] for the dense form), in shared
+// memory or in its workspace slot; and the dense form's tail lists (uint2
+// [lists, nm], which a row needs only when it has a tail) always in the
+// workspace slot, past the rows where those are there too.
 struct GLayout {
-  long long lists, rows;
+  long long lists, rows, tail;
 };
 
-__host__ __device__ inline GLayout glayout(int dc, int q, int nm, int elem) {
+__host__ __device__ inline GLayout glayout(int dc, int q, int nm, int nboper,
+                                           int elem) {
+  const int mode = gmode(dc, q, nm, nboper);
   GLayout l;
   l.lists = align16(static_cast<long long>(elem) * dc * q);
-  l.rows = l.lists + align16(8LL * n_lists(dc) * nm);
+  l.rows = l.lists + align16((mode == G_DENSE  ? 4LL * q
+                              : mode == G_STAIR ? 4LL * nm
+                                                : 8LL * nm) *
+                             n_lists(dc));
+  l.tail = mode == G_DENSE ? align16(8LL * n_lists(dc) * nm) : 0;
   return l;
 }
 
-// One merge of the general step: out = the nm best distinct-GF sums of
-// the lists a and b, exact (nboper <= 0) or over the staircase.  Out of
-// line (one copy).
-__device__ __noinline__ void merge_general(const uint2* la, const uint2* lb,
-                                           uint2* lo, unsigned* tab, int nm,
-                                           int nboper, int lane) {
-  const bool exact = nboper <= 0;
-  fill_tab(tab, ABSENT, lane);
-  __syncwarp();
-  for (int i = 0; i < nm; ++i) {
-    const int wi = exact ? nm : row_width(i, nm, nboper);
-    if (wi == 0) break;
-    const uint2 a = la[i];
-    for (int j = lane; j < wi; j += 32) {
-      const uint2 b = lb[j];
-      const float s = __fadd_rn(entry_value(a), entry_value(b));
-      atomicMin(tab + ((a.y ^ b.y) & 0xff),
-                exact ? __float_as_uint(fminf(s, BIG)) : bf16_bits(s));
-    }
-  }
-  __syncwarp();
-  unsigned t[8];
-  read_tab(tab, t, lane);
-  unsigned long long k[8];
-  int heads = 0;
+// One warp's workspace slot on a path: its rows from the workspace, and
+// the dense form's tail lists on either path.
+__host__ __device__ inline long long ws_slot(const GLayout& l, bool ws) {
+  return (ws ? l.rows : 0) + l.tail;
+}
+
+// The warp's 256 keys ascending, key p = 8 lane + i in register i.
+__device__ __forceinline__ void sort256u(unsigned (&k)[8], int lane) {
+  sort8(k);
+  sort_runs<8, 256>(k, lane);
+}
+
+// The staircase's selection: the n smallest keys (bits << 8 | g) of the
+// 256 bf16 bits at tab (by GF id or symbol, ABSENT where none) into
+// out[0, n) ascending, an absent one as the dup marker (DUP_ENTRY | e).
+__device__ __noinline__ void select_stair_out(const unsigned* tab, int n,
+                                              unsigned* out, int lane) {
+  unsigned k[8];
+  read_tab(tab, k, lane);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const unsigned long long g = static_cast<unsigned>(sym(lane, i));
-    if (exact) {
-      const bool head = t[i] < BIG_BITS;
-      k[i] = head ? (static_cast<unsigned long long>(t[i]) << 8 | g) : NONE64;
-      heads += head;
-    } else {
-      k[i] = t[i] != ABSENT ? (static_cast<unsigned long long>(t[i]) << 8 | g)
-                            : DUP;
-    }
-  }
-  sort256(k, lane);
-  const int nh = exact ? __reduce_add_sync(FULL, heads) : nm;
+  for (int i = 0; i < 8; ++i)
+    k[i] = k[i] != ABSENT ? (k[i] << 8 | sym(lane, i)) : DUP;
+  sort256u(k, lane);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int e = 8 * lane + i;
-    const unsigned key = static_cast<unsigned>(k[i]);
-    if (e < nm && e < nh) {
-      if (exact)
-        lo[e] = make_uint2(static_cast<unsigned>(k[i] >> 8), key & 0xff);
-      else
-        lo[e] = k[i] == DUP ? make_uint2(BIG_BITS, e)
-                            : make_uint2((key >> 8 & 0xffff) << 16, key & 0xff);
+    if (e < n) out[e] = k[i] == DUP ? (DUP_ENTRY | e) : k[i];
+  }
+  __syncwarp();
+}
+
+// Whether exact key (f, the id of k) lies above (g, the id of m).
+__device__ __forceinline__ bool exact_above(unsigned f, unsigned k,
+                                            unsigned g, unsigned m) {
+  return f > g || (f == g && (k & 0xff) > (m & 0xff));
+}
+
+// The exact selection: the n smallest exact keys (value, GF id) of the 256
+// values at vals (a value's f32 bits by id, present where below lim; n at
+// most the present ones) into out[0, n) ascending as (value bits, id).
+// It sorts 32-bit keys, a value's bits 30..7 over its id: within one high
+// part those order by id alone, so only neighbours of one high part can
+// be out of their exact order, and odd-even transposition passes over
+// those pairs (rarely more than one, which finds none out of order) put
+// every such run in its exact order.  Out of line (one copy).
+__device__ __noinline__ void select_exact_out(const unsigned* vals,
+                                              unsigned lim, int n,
+                                              uint2* out, int lane) {
+  unsigned k[8], f[8];
+  read_tab(vals, k, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    k[i] = k[i] < lim ? (min(k[i], 0x7fffffffu) >> 7 << 8 | sym(lane, i))
+                      : ABSENT;
+  sort256u(k, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = vals[k[i] & 0xff];
+  // a pair (a, b) of neighbours is swapped where it shares a high part
+  // and its exact keys descend
+  auto fix = [&](int a, int b, bool& moved) {
+    if ((k[a] >> 8) == (k[b] >> 8) && exact_above(f[a], k[a], f[b], k[b])) {
+      const unsigned tk = k[a], tf = f[a];
+      k[a] = k[b], f[a] = f[b], k[b] = tk, f[b] = tf;
+      moved = true;
+    }
+  };
+  for (bool moved = true; __any_sync(FULL, moved);) {
+    moved = false;
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) fix(i, i + 1, moved);
+#pragma unroll
+    for (int i = 1; i < 7; i += 2) fix(i, i + 1, moved);
+    // the pair across lanes: register 7 of a lane, register 0 of the next
+    const unsigned nk = __shfl_down_sync(FULL, k[0], 1);
+    const unsigned nf = __shfl_down_sync(FULL, f[0], 1);
+    const unsigned pk = __shfl_up_sync(FULL, k[7], 1);
+    const unsigned pf = __shfl_up_sync(FULL, f[7], 1);
+    if (lane < 31 && (k[7] >> 8) == (nk >> 8) &&
+        exact_above(f[7], k[7], nf, nk)) {
+      k[7] = nk, f[7] = nf, moved = true;
+    }
+    if (lane > 0 && (pk >> 8) == (k[0] >> 8) &&
+        exact_above(pf, pk, f[0], k[0])) {
+      k[0] = pk, f[0] = pf, moved = true;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int e = 8 * lane + i;
+    if (e < n) out[e] = make_uint2(f[i], k[i] & 0xff);
+  }
+  __syncwarp();
+}
+
+// One staircase merge of the general step (list_combine, nbOper > 0): the
+// fast step's merge with its selection over all 256 keys.
+__device__ __noinline__ void merge_stair(const unsigned* la,
+                                         const unsigned* lb, unsigned* lo,
+                                         unsigned* tab,
+                                         const uint16_t* pairs, int npairs,
+                                         int nm, int lane) {
+  fill_tab(tab, ABSENT, lane);
+  __syncwarp();
+  for (int c = lane; c < npairs; c += 32) {
+    const unsigned p = pairs[c];
+    const unsigned a = la[p >> 8], b = lb[p & 0xff];
+    atomicMin(tab + ((a ^ b) & 0xff),
+              bf16_bits(__fadd_rn(sum_value(a), sum_value(b))));
+  }
+  __syncwarp();
+  select_stair_out(tab, nm, lo, lane);
+}
+
+// One exact merge of the list form (list_combine, nbOper <= 0): the exact
+// form's merge_exact with lists of up to 256 entries.  The staircase's
+// candidates (pairs) and a selection; both lists ascend and __fadd_rn is
+// monotone, so with nm GF ids below BIG a candidate whose sum exceeds the
+// nm-th's value cannot enter the nm smallest nor lower a kept minimum.
+// Then each row i (lane, lane + 32, ...) visits its candidates past the
+// staircase up to its first sum past that value; if one lowered a minimum,
+// the selection runs again.  With fewer than nm ids below BIG every other
+// candidate is visited, and the tail follows.  Out of line (one copy).
+// Kept apart from merge_exact: one template of both, on the selection and
+// the rows' widths, cost the exact form 7% on a bf16 state (2.34 against
+// 2.19 ms a call at nm = 32; NVIDIA H100 80GB HBM3, 700 W).
+__device__ __noinline__ void merge_exact_long(const uint2* la, const uint2* lb,
+                                              uint2* lo, unsigned* tab,
+                                              const uint16_t* pairs,
+                                              int npairs, int nm, int lane) {
+  const int budget = table_budget(nm, 0);  // the pair table's
+  fill_tab(tab, ABSENT, lane);
+  __syncwarp();
+  for (int c = lane; c < npairs; c += 32) {
+    const unsigned p = pairs[c];
+    const uint2 a = la[p >> 8], b = lb[p & 0xff];
+    atomicMin(tab + ((a.y ^ b.y) & 0xff), sum_bits(a, b));
+  }
+  // the smallest first sum past the staircase of the lane's rows
+  unsigned first = ABSENT;
+  for (int i = lane; i < nm; i += 32) {
+    const int j0 = row_width(i, nm, budget);
+    if (j0 < nm) first = min(first, sum_bits(la[i], lb[j0]));
+  }
+  int nh;
+  for (int pass = 0;; ++pass) {
+    __syncwarp();
+    unsigned v[8];
+    read_tab(tab, v, lane);
+    int heads = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) heads += v[i] < BIG_BITS;
+    nh = __reduce_add_sync(FULL, heads);
+    select_exact_out(tab, BIG_BITS, nh < nm ? nh : nm, lo, lane);
+    if (pass == 1) break;
+    if (nh >= nm) {
+      const unsigned bound = lo[nm - 1].x;
+      if (!__any_sync(FULL, first <= bound)) break;
+      bool lowered = false;
+      for (int i = lane; i < nm; i += 32) {
+        const uint2 a = la[i];
+        for (int j = row_width(i, nm, budget); j < nm; ++j) {
+          const uint2 b = lb[j];
+          const unsigned s = sum_bits(a, b);
+          if (s > bound) break;
+          lowered |= atomicMin(tab + ((a.y ^ b.y) & 0xff), s) > s;
+        }
+      }
+      if (!__any_sync(FULL, lowered)) break;
+    } else {
+      for (int i = 0; i < nm; ++i) {
+        const uint2 a = la[i];
+        for (int j = row_width(i, nm, budget) + lane; j < nm; j += 32)
+          atomicMin(tab + ((a.y ^ lb[j].y) & 0xff), sum_bits(a, lb[j]));
+      }
     }
   }
   if (nh < nm) exact_tail(la, lb, lo, tab, tab + TAB, nh, nm, lane);
   __syncwarp();
 }
 
-template <class ST>
-__global__ void __launch_bounds__(THREADS)
+// Symbols 8 j + (R ^ hl) of a dense q = 256 vector, R < 8, in r[R]: two
+// 16-byte loads, the half at hl (0 or 4) first; and the inverse.
+__device__ __forceinline__ void load_chunk8(const float* v, int j, int hl,
+                                            float (&r)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(v + 8 * j + hl);
+  const float4 b = *reinterpret_cast<const float4*>(v + 8 * j + (hl ^ 4));
+  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
+  r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
+}
+
+__device__ __forceinline__ void store_chunk8(float* v, int j, int hl,
+                                             const float (&r)[8]) {
+  *reinterpret_cast<float4*>(v + 8 * j + hl) =
+      make_float4(r[0], r[1], r[2], r[3]);
+  *reinterpret_cast<float4*>(v + 8 * j + (hl ^ 4)) =
+      make_float4(r[4], r[5], r[6], r[7]);
+}
+
+// Two exact merges as dense min-convolutions at q = 256 (K1's dense_merge,
+// csrc/fb_checknode.cu): o_k[s] = min(min_a u_k[a] + v_k[a ^ s], BIG).
+// Lane l owns outputs 8 l .. 8 l + 7 (in the half order hl = l & 4); chunk
+// c of u (a broadcast) meets chunk c ^ l of v, 64 candidates in registers
+// with every index fixed at compile time.  The f32 bits of sums of
+// non-negative values order as unsigned integers do (a value with its sign
+// bit set, which the decoder never makes, counts as above every other, as
+// the list form's atomicMin has it), so two candidates take one
+// three-input integer minimum.  Stores both outputs (never an input of the
+// pass) and returns their heads, the GF ids below BIG.
+__device__ __forceinline__ int2 dense_pair(const float* u0, const float* v0,
+                                           float* o0, const float* u1,
+                                           const float* v1, float* o1,
+                                           int lane) {
+  const float* const u[2] = {u0, u1};
+  const float* const v[2] = {v0, v1};
+  const int hl = lane & 4;
+  unsigned o[2][8];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) o[k][t] = ABSENT;
+#pragma unroll 2
+  for (int c = 0; c < 32; ++c) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float a[8], b[8];
+      load_chunk8(u[k], c, 0, a);
+      load_chunk8(v[k], c ^ lane, hl, b);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int t2 = 0; t2 < 8; t2 += 2)
+          o[k][t] = __vimin3_u32(
+              o[k][t], __float_as_uint(__fadd_rn(a[t2], b[t2 ^ t])),
+              __float_as_uint(__fadd_rn(a[t2 + 1], b[(t2 + 1) ^ t])));
+    }
+  }
+  int h[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float r[8];
+    int heads = 0;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const unsigned x = min(o[k][t], BIG_BITS);
+      heads += x < BIG_BITS;
+      r[t] = __uint_as_float(x);
+    }
+    store_chunk8(k ? o1 : o0, lane, hl, r);
+    h[k] = __reduce_add_sync(FULL, heads);
+  }
+  __syncwarp();
+  return make_int2(h[0], h[1]);
+}
+
+// EX: the exact merge (the dense form and the list form), else the
+// staircase.  WS: the rows run from the workspace (a template argument, so
+// that the shared-memory form's pointers stay shared-memory ones).
+template <class ST, bool EX, bool WS>
+__global__ void __launch_bounds__(
+    THREADS, EX ? GEN_BLOCKS_SM_EXACT : GEN_BLOCKS_SM_STAIR)
     list_general_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ULL);
   const int dc = p.dc, q = p.q, nm = p.nm, logq = p.logq;
-  const bool vec = p.vec != 0, exact = p.nboper <= 0;
+  const bool vec = p.vec != 0;
+  const int mode = EX ? gmode(dc, q, nm, p.nboper) : G_STAIR;
+  // the staircase's (i, j) pairs, once a block, a row a thread
+  const int budget = table_budget(nm, p.nboper);
+  uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw);
+  for (int i = threadIdx.x; i < nm; i += blockDim.x) {
+    const int w = row_width(i, nm, budget);
+    int off = 0;
+    for (int u = 0; w > 0 && u < i; ++u) off += row_width(u, nm, budget);
+    for (int j = 0; j < w; ++j)
+      pairs[off + j] = static_cast<uint16_t>(i << 8 | j);
+  }
+  __syncthreads();
+
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wpb = blockDim.x >> 5;
-  const GLayout lay = glayout(dc, q, nm, sizeof(ST));
-  unsigned char* base;
-  unsigned* tab;
-  if (p.ws) {
-    tab = reinterpret_cast<unsigned*>(smem_raw + GTABS * warp);
-    base = p.ws + (static_cast<long long>(blockIdx.x) * wpb + warp) * lay.rows;
-  } else {
-    base = smem_raw + (lay.rows + GTABS) * warp;
-    tab = reinterpret_cast<unsigned*>(base + lay.rows);
-  }
+  const GLayout lay = glayout(dc, q, nm, p.nboper, sizeof(ST));
+  unsigned char* after = smem_raw + align16(2LL * p.npairs);
+  unsigned* tab = reinterpret_cast<unsigned*>(after + GTABS * warp);
+  uint2* tab2 = reinterpret_cast<uint2*>(tab);  // both tables, 256 entries
+  unsigned char* slot =
+      p.ws + (static_cast<long long>(blockIdx.x) * wpb + warp) *
+                 ws_slot(lay, WS);
+  unsigned char* base =
+      WS ? slot : after + static_cast<long long>(GTABS) * wpb + lay.rows * warp;
   ST* mvc = reinterpret_cast<ST*>(base);
-  uint2* lists = reinterpret_cast<uint2*>(base + lay.lists);
-  const unsigned empty = fkey(BIG);
+  unsigned* sl = reinterpret_cast<unsigned*>(base + lay.lists);
+  float* dv = reinterpret_cast<float*>(base + lay.lists);
+  // the exact list form's lists: the dense form's tails past its slot's rows
+  uint2* xl = reinterpret_cast<uint2*>(
+      mode == G_DENSE ? slot + (WS ? lay.rows : 0) : base + lay.lists);
+  const unsigned empty = fkey(BIG);  // an expansion's absent symbol
+  // list L: entries at L nm (dense: L q); F[t] = dc + t - 1 (F[0] = 0),
+  // B[t] = 2 dc - 3 + t (B[dc-1] = dc - 1)
   auto fwd = [&](int t) { return t == 0 ? 0 : dc + t - 1; };
   auto bwd = [&](int t) { return t == dc - 1 ? dc - 1 : 2 * dc - 3 + t; };
-  auto neutral = [&](uint2* l) {
-    for (int e = lane; e < nm; e += 32)
-      l[e] = e == 0 ? make_uint2(0u, 0u) : make_uint2(BIG_BITS, e);
-  };
   ST* app = static_cast<ST*>(p.app);
   ST* cv_v = static_cast<ST*>(p.cv_v);
   ST* cv_sat = static_cast<ST*>(p.cv_sat);
@@ -1298,18 +1563,17 @@ __global__ void __launch_bounds__(THREADS)
     if (!__ldg(p.active + f)) continue;
     const int* rcols = p.cols + r * dc;
     const int* redges = p.edges + r * dc;
-    // 1. the slots' lists
+    auto real = [&](int k) { return !p.valid || __ldg(p.valid + r * dc + k); };
+    auto rot_in = [&](int k) {
+      return rot_table(p.rc_in + (r * dc + k) * logq, logq, lane);
+    };
+    // 1. mvc of the real slots: gathers, VN extrinsic, normalisation
     for (int k = 0; k < dc; ++k) {
-      uint2* lk = lists + k * nm;
-      if (p.valid && !__ldg(p.valid + r * dc + k)) {
-        neutral(lk);
-        continue;
-      }
+      if (!real(k)) continue;
       const int col = __ldg(rcols + k), edge = __ldg(redges + k);
       if (col < 0 || col >= p.app_rows || edge < 0 || edge >= p.cv_rows)
         __trap();
       const long long ce = f * p.cv_rows + edge;
-      const int rt = rot_table(p.rc_in + (r * dc + k) * logq, logq, lane);
       float a[8] = {};
       load_row(app + (f * p.app_rows + col) * q, a, q, vec, lane);
       fill_tab(tab, empty, lane);
@@ -1336,53 +1600,194 @@ __global__ void __launch_bounds__(THREADS)
       for (int i = 0; i < 8; ++i) a[i] = __fsub_rn(a[i], mn);
       rnd8<ST>(a);
       store_row(mvc + k * q, a, q, q >= 4, lane);
-      // the exact truncation (minconv.topk_message) keys the f32 value,
-      // the staircase's (listcn.topk_list) its bf16 bits
-      unsigned long long key[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int s = sym(lane, i);
-        const unsigned v = exact ? __float_as_uint(a[i]) : bf16_bits(a[i]);
-        key[i] = s < q ? (static_cast<unsigned long long>(v) << 8 | s) : NONE64;
-      }
-      sort256(key, lane);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = 8 * lane + i;
-        const unsigned v = static_cast<unsigned>(key[i] >> 8);
-        const int g = rotate(static_cast<int>(key[i] & 0xff), rt) & 0xff;
-        if (e < nm) lk[e] = make_uint2(exact ? v : (v & 0xffff) << 16, g);
-      }
       __syncwarp();
     }
-    // 2. the F/B chain, as the fast step's
-    if (dc == 1) {
-      neutral(lists);
-      __syncwarp();
+    // a real slot's mvc (sym order, f32) from shared memory
+    auto mvc_row = [&](int k, float (&a)[8]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = 0.0f;
+      load_row(mvc + k * q, a, q, q >= 4, lane);
+    };
+    // 2. the slots' lists and the F/B chain (fb_checknode_list): dc = 1 the
+    // neutral list, dc = 2 the swap, else the forward and backward merges,
+    // then the middles (out[k] into list k, which no later merge reads)
+    bool tail = false;
+    if constexpr (EX) {
+      if (mode == G_DENSE) {
+        // the inputs as q-vectors by GF id: mvc rotated (the truncation,
+        // minconv.topk_message, is the identity at nm = q)
+        for (int k = 0; k < dc; ++k) {
+          float* d = dv + k * q;
+          if (!real(k)) {  // listcn.neutral_list
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              d[sym(lane, i)] = sym(lane, i) == 0 ? 0.0f : BIG;
+            __syncwarp();
+            continue;
+          }
+          float a[8];
+          mvc_row(k, a);
+          const int rt = rot_in(k);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            d[rotate(sym(lane, i), rt) & 0xff] = a[i];
+          __syncwarp();
+        }
+        // the merges, two a pass: the chain's forward and backward step,
+        // then the middles in pairs (an odd last one twice)
+        const int chain = dc - 2, passes = chain + (chain + 1) / 2;
+        for (int ps = 0; ps < passes && !tail; ++ps) {
+          int x0, y0, o0, x1, y1, o1;
+          if (ps < chain) {
+            const int u = ps + 1, v = dc - 1 - u;
+            x0 = fwd(u - 1), y0 = u, o0 = fwd(u);
+            x1 = bwd(v + 1), y1 = v, o1 = bwd(v);
+          } else {
+            const int u = 2 * (ps - chain) + 1, u2 = min(u + 1, dc - 2);
+            x0 = fwd(u - 1), y0 = bwd(u + 1), o0 = u;
+            x1 = fwd(u2 - 1), y1 = bwd(u2 + 1), o1 = u2;
+          }
+          const int2 h = dense_pair(dv + x0 * q, dv + y0 * q, dv + o0 * q,
+                                    dv + x1 * q, dv + y1 * q, dv + o1 * q,
+                                    lane);
+          tail = h.x < nm || h.y < nm;
+        }
+      }
+      if (mode == G_LIST || tail) {
+        // the exact truncations (minconv.topk_message: values ascending,
+        // equal ones by symbol), ids rotated, and the list form's merges
+        for (int k = 0; k < dc; ++k) {
+          uint2* lk = xl + k * nm;
+          if (!real(k)) {
+            for (int e = lane; e < nm; e += 32)
+              lk[e] = neutral_entry<uint2>(e);
+            continue;
+          }
+          float a[8];
+          mvc_row(k, a);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            unsigned v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = sym(lane, 4 * h + i) < q ? __float_as_uint(a[4 * h + i])
+                                              : ABSENT;
+            *reinterpret_cast<uint4*>(tab + sym(lane, 4 * h)) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
+          __syncwarp();
+          select_exact_out(tab, ABSENT, nm, lk, lane);
+          const int rt = rot_in(k);
+          for (int u = 0; 32 * u < nm; ++u) {
+            const int e = lane + 32 * u;
+            const unsigned id = e < nm ? lk[e].y : 0u;
+            const int g = rotate(static_cast<int>(id), rt) & 0xff;
+            if (e < nm) lk[e].y = g;
+          }
+          __syncwarp();
+        }
+        if (dc == 1) {
+          for (int e = lane; e < nm; e += 32) xl[e] = neutral_entry<uint2>(e);
+          __syncwarp();
+        }
+        auto merge_at = [&](int x, int y, int o) {
+          merge_exact_long(xl + x * nm, xl + y * nm, xl + o * nm, tab, pairs,
+                           p.npairs, nm, lane);
+        };
+        for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
+          merge_at(fwd(u - 1), u, fwd(u));
+          const int v = dc - 1 - u;
+          merge_at(bwd(v + 1), v, bwd(v));
+        }
+        for (int u = 1; dc >= 3 && u <= dc - 2; ++u)
+          merge_at(fwd(u - 1), bwd(u + 1), u);
+      }
+    } else {
+      // the staircase's truncations (listcn.topk_list: the bf16 keys),
+      // ids rotated, and its merges
+      for (int k = 0; k < dc; ++k) {
+        unsigned* lk = sl + k * nm;
+        if (!real(k)) {
+          for (int e = lane; e < nm; e += 32)
+            lk[e] = neutral_entry<unsigned>(e);
+          continue;
+        }
+        float a[8];
+        mvc_row(k, a);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = sym(lane, 4 * h + i) < q ? bf16_bits(a[4 * h + i]) : ABSENT;
+          *reinterpret_cast<uint4*>(tab + sym(lane, 4 * h)) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
+        __syncwarp();
+        select_stair_out(tab, nm, lk, lane);
+        const int rt = rot_in(k);
+        for (int u = 0; 32 * u < nm; ++u) {
+          const int e = lane + 32 * u;
+          const unsigned x = e < nm ? lk[e] : 0u;
+          const int g = rotate(static_cast<int>(x & 0xff), rt) & 0xff;
+          if (e < nm) lk[e] = (x & 0xffffff00u) | g;
+        }
+        __syncwarp();
+      }
+      if (dc == 1) {
+        for (int e = lane; e < nm; e += 32) sl[e] = neutral_entry<unsigned>(e);
+        __syncwarp();
+      }
+      auto merge_at = [&](int x, int y, int o) {
+        merge_stair(sl + x * nm, sl + y * nm, sl + o * nm, tab, pairs,
+                    p.npairs, nm, lane);
+      };
+      for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
+        merge_at(fwd(u - 1), u, fwd(u));
+        const int v = dc - 1 - u;
+        merge_at(bwd(v + 1), v, bwd(v));
+      }
+      for (int u = 1; dc >= 3 && u <= dc - 2; ++u)
+        merge_at(fwd(u - 1), bwd(u + 1), u);
     }
-    for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
-      const int a = fwd(u - 1), o = fwd(u);
-      merge_general(lists + a * nm, lists + u * nm, lists + o * nm, tab, nm,
-                    p.nboper, lane);
-      const int v = dc - 1 - u, b = bwd(v + 1), ob = bwd(v);
-      merge_general(lists + b * nm, lists + v * nm, lists + ob * nm, tab, nm,
-                    p.nboper, lane);
-    }
-    for (int u = 1; dc >= 3 && u <= dc - 2; ++u) {
-      const int a = fwd(u - 1), b = bwd(u + 1);
-      merge_general(lists + a * nm, lists + b * nm, lists + u * nm, tab, nm,
-                    p.nboper, lane);
-    }
-    // 3. rotate out, saturate, write back the real slots
+    // 3. rotate out, saturate, write back the real slots; entry lane + 32 u
+    // of the output list in register u
     for (int k = 0; k < dc; ++k) {
-      if (p.valid && !__ldg(p.valid + r * dc + k)) continue;
+      if (!real(k)) continue;
       const int src = dc == 1 ? 0
                       : dc == 2 ? 1 - k
                       : k == 0 ? bwd(1)
                       : k == dc - 1 ? fwd(dc - 2) : k;
-      const uint2* ol = lists + src * nm;
+      float val[8];
+      unsigned id[8];
+      if constexpr (EX) {
+        const uint2* ol = xl + src * nm;
+        if (mode == G_DENSE && !tail) {
+          // the nm smallest heads, ascending
+          select_exact_out(reinterpret_cast<const unsigned*>(dv + src * q),
+                           BIG_BITS, nm, tab2, lane);
+          ol = tab2;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int e = lane + 32 * u;
+          const uint2 c = e < nm ? ol[e] : make_uint2(0u, 0u);
+          val[u] = __uint_as_float(c.x);
+          id[u] = c.y & 0xff;
+        }
+      } else {
+        const unsigned* ol = sl + src * nm;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int e = lane + 32 * u;
+          const unsigned c = e < nm ? ol[e] : 0u;
+          val[u] = entry_value(c);
+          id[u] = entry_id(c);
+        }
+      }
+      __syncwarp();
       const int rt = rot_table(p.rc_out + (r * dc + k) * logq, logq, lane);
-      const float v0 = entry_value(ol[0]);
+      const float v0 = __shfl_sync(FULL, val[0], 0);
       float v[8];
       int g[8];
       float last = 0.0f;
@@ -1390,9 +1795,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int u = 0; u < 8; ++u) {
         const int e = lane + 32 * u;
         if (32 * u < nm) {
-          const uint2 c = e < nm ? ol[e] : make_uint2(0u, 0u);
-          g[u] = rotate(static_cast<int>(c.y & 0xff), rt) & 0xff;
-          v[u] = __fsub_rn(entry_value(c), v0);
+          g[u] = rotate(static_cast<int>(id[u]), rt) & 0xff;
+          v[u] = __fsub_rn(val[u], v0);
           if (e < nm && v[u] < HALF_BIG) last = fmaxf(last, v[u]);
         }
       }
@@ -1443,17 +1847,29 @@ int warps_for(int dc, int q, int nm, int nboper, int elem) {
   return static_cast<int>(w < WARPS ? (w < 0 ? 0 : w) : WARPS);
 }
 
+// The general step's pair table a block (the staircase's, or the exact
+// list form's first pass).
+long long pair_bytes(int nm, int nboper) {
+  return align16(2LL * staircase_pairs(nm, table_budget(nm, nboper)));
+}
+
 // Where a shape runs, decided on an f32 state's sizes so that a bf16 state
 // takes the same path: list_kernel where it takes the shape (the fast
 // step, or the exact mode for nboper <= 0), else the general step with
-// its rows in shared memory where one warp's fit a block, else from the
+// its rows in shared memory where one warp's fit a block beside the pair
+// table (the dense form: WARPS warps', as a block of fewer held its
+// merges to a warp or two an SM and lost to the workspace), else from the
 // workspace.  Its limits are the plain version's
 // (ops/cuda_list.limits_error).
 int path_for(int dc, int q, int nm, int nboper) {
   if (q < 2 || q > TAB || (q & (q - 1)) || nm < 1 || nm > q || dc < 1)
     return REFUSED;
   if (warps_for(dc, q, nm, nboper, 4) >= 1) return nboper >= 1 ? FAST : EXACT;
-  if (glayout(dc, q, nm, 4).rows + GTABS <= BLOCK_LIMIT) return SHARED;
+  const int warps = gmode(dc, q, nm, nboper) == G_DENSE ? WARPS : 1;
+  if (pair_bytes(nm, nboper) +
+          warps * (glayout(dc, q, nm, nboper, 4).rows + GTABS) <=
+      BLOCK_LIMIT)
+    return SHARED;
   return WORKSPACE;
 }
 
@@ -1464,7 +1880,8 @@ int warps_of(int dc, int q, int nm, int nboper, int elem) {
     case EXACT:
       return warps_for(dc, q, nm, nboper, elem);
     case SHARED: {
-      const long long w = BLOCK_LIMIT / (glayout(dc, q, nm, elem).rows + GTABS);
+      const long long w = (BLOCK_LIMIT - pair_bytes(nm, nboper)) /
+                          (glayout(dc, q, nm, nboper, elem).rows + GTABS);
       return static_cast<int>(w < WARPS ? w : WARPS);
     }
     case WORKSPACE:
@@ -1491,10 +1908,14 @@ struct Config {
 };
 
 template <class ST>
-auto kernel_of(int path) {
+auto kernel_of(int path, int nboper) {
+  const bool ws = path == WORKSPACE;
   return path == FAST    ? list_kernel<ST, false>
          : path == EXACT ? list_kernel<ST, true>
-                         : list_general_kernel<ST>;
+         : nboper >= 1   ? (ws ? list_general_kernel<ST, false, true>
+                               : list_general_kernel<ST, false, false>)
+         : ws            ? list_general_kernel<ST, true, true>
+                         : list_general_kernel<ST, true, false>;
 }
 
 template <class ST>
@@ -1520,10 +1941,11 @@ int launch_config(const Params& p, Config& out) {
     c.smem = align16(2LL * p.npairs) +
              c.wpb * layout(p.dc, p.q, p.nm, elem, c.path == EXACT).total;
   else if (c.path == SHARED)
-    c.smem = c.wpb * (glayout(p.dc, p.q, p.nm, elem).rows + GTABS);
+    c.smem = align16(2LL * p.npairs) +
+             c.wpb * (glayout(p.dc, p.q, p.nm, p.nboper, elem).rows + GTABS);
   else
-    c.smem = c.wpb * static_cast<long long>(GTABS);
-  auto kern = kernel_of<ST>(c.path);
+    c.smem = align16(2LL * p.npairs) + c.wpb * static_cast<long long>(GTABS);
+  auto kern = kernel_of<ST>(c.path, p.nboper);
   // the same value for every shape, so no shape's setting undoes another's
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(BLOCK_LIMIT));
@@ -1556,16 +1978,20 @@ int launch(Params p, void* stream) {
           reinterpret_cast<uintptr_t>(p.app) % (4 * sizeof(ST)) == 0;
   const long long need = (p.T + c.wpb - 1) / c.wpb;
   long long blocks = need < c.resident ? need : c.resident;
-  if (c.path == WORKSPACE) {
+  const long long slot =
+      c.path == FAST || c.path == EXACT
+          ? 0
+          : ws_slot(glayout(p.dc, p.q, p.nm, p.nboper, sizeof(ST)),
+                    c.path == WORKSPACE);
+  if (slot > 0) {
     // one workspace slot a warp of the grid
-    const long long fit =
-        p.ws_bytes / glayout(p.dc, p.q, p.nm, sizeof(ST)).rows / c.wpb;
+    const long long fit = p.ws_bytes / slot / c.wpb;
     if (!p.ws || fit < 1) return static_cast<int>(cudaErrorInvalidValue);
     blocks = blocks < fit ? blocks : fit;
   } else {
     p.ws = nullptr;
   }
-  auto kern = kernel_of<ST>(c.path);
+  auto kern = kernel_of<ST>(c.path, p.nboper);
   kern<<<static_cast<unsigned>(blocks), 32 * c.wpb,
          static_cast<size_t>(c.smem), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1667,21 +2093,29 @@ int list_path(int dc, int q, int nm, int nboper) {
 }
 
 // The device workspace, in bytes, that a launch on T = F * G rows of a
-// state of `elem` bytes a value needs on the current device: one slot (a
-// warp's mvc and lists) a warp of WS_BLOCKS_SM blocks an SM, fewer for
-// fewer rows; 0 where list_path is not WORKSPACE; minus a CUDA error code.
+// state of `elem` bytes a value needs on the current device: one slot a
+// warp of the grid (ws_slot: the rows of list_path WORKSPACE, of
+// WS_BLOCKS_SM blocks an SM; the dense form's tail lists on the SHARED
+// path too, of as many warps as its registers let an SM hold), fewer for
+// fewer rows; 0 where the shape needs none; minus a CUDA error code.
 long long list_workspace_bytes(long long T, int dc, int q, int nm, int nboper,
                                int elem) {
-  if (path_for(dc, q, nm, nboper) != WORKSPACE || T <= 0) return 0;
+  const int path = path_for(dc, q, nm, nboper);
+  if ((path != SHARED && path != WORKSPACE) || T <= 0) return 0;
+  const long long slot =
+      ws_slot(glayout(dc, q, nm, nboper, elem), path == WORKSPACE);
+  if (slot == 0) return 0;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return -static_cast<long long>(e);
-  const long long blocks = (T + WARPS - 1) / WARPS;
-  const long long cap = static_cast<long long>(WS_BLOCKS_SM) * sms;
-  return WARPS * (blocks < cap ? blocks : cap) *
-         glayout(dc, q, nm, elem).rows;
+  const long long warps = (T + WARPS - 1) / WARPS * WARPS;
+  const long long cap =
+      static_cast<long long>(path == WORKSPACE ? WS_BLOCKS_SM
+                                               : GEN_BLOCKS_SM_EXACT) *
+      WARPS * sms;
+  return (warps < cap ? warps : cap) * slot;
 }
 
 // The kernel's launches on the current device since the library was loaded

@@ -26,9 +26,12 @@ picks one of four paths for a shape (``path`` asks it): the fast step
 bench row's), the exact mode in the fast step's structure (nboper <= 0,
 nm <= 64, one row within a block: the CLI's ``--storage compressed``
 default), and the general step for every other shape, nm past 64 among
-them, with a row's mvc and lists in shared memory where one warp's fit a
-block, else in a global workspace.  The library
-sizes the workspace, and ``list_layer`` allocates it from torch's caching
+them (the exact merge at q = 256 and nm = q as dense XOR
+min-convolutions, at every other nm as pruned list merges; the staircase
+on 32-bit selections), with a row's mvc and lists in shared memory where one
+warp's fit a block, else in a global workspace, which also holds the
+dense form's lists for a row with a tail.  The library sizes the
+workspace, and ``list_layer`` allocates it from torch's caching
 allocator for each call (a CUDA graph's capture takes it into its pool).
 
 On a CUDA tensor ``list_layer`` launches the kernel or raises; there is no
@@ -249,7 +252,8 @@ def list_layer(app: torch.Tensor, cv_v: torch.Tensor, cv_g: torch.Tensor,
     q = app.shape[2]
     lib = _lib()
     with torch.cuda.device(app.device):
-        # rows past a block's shared memory run from a workspace
+        # rows past a block's shared memory, and the dense form's tails,
+        # run from a workspace
         nbytes = lib.list_workspace_bytes(f * g, dc, q, nm, nboper,
                                           app.element_size())
         if nbytes < 0:
