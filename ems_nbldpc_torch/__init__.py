@@ -28,8 +28,10 @@ host loop, with
   hand-written CUDA kernel (``ops/cuda_demap.py``) on the card;
 - iteration-budget snapshots (``sim/snapshots.py``), decoder statistics
   (``decoder/stats.py``), two-phase decoding (``sim/twophase.py``),
-  timers and ``torch.profiler`` traces (``utils/timing.py``), and frame
-  sharding over ``torch.distributed``, one process per device
+  timers, ``torch.profiler`` traces and the batch step's named spans
+  (``utils/timing.py``: ``nbldpc.*`` host ranges, and on the card the
+  ``nbldpc_mark_*`` marker kernels of ``decoder/device_loop.mark``), and
+  frame sharding over ``torch.distributed``, one process per device
   (``parallel/mesh.py``; the CLI's ``--devices``).
 """
 

@@ -11,6 +11,14 @@
 // the device, with no host read between them, exactly while cond holds;
 // when every frame has converged at init the body never runs.
 //
+// Marker kernels: nbldpc_mark_<name> is an empty <<<1, 1>>> kernel whose
+// only use is its place on the card's timeline.  The program launches one
+// at each boundary of its spans (loop_mark; decoder/device_loop.py mark):
+// encode and channel in the batch's generation, end at its close, decide
+// and syndrome in every decoder step.  A device span runs from its
+// marker's start to the start of the next marker or set_condition kernel
+// on the stream.
+//
 // This file holds no math: set_condition reads one byte.  It exists because
 // PyTorch 2.11 does not expose conditional-node capture to Python; the CUDA
 // runtime (12.4 and later) offers it, and here it is called directly.
@@ -24,6 +32,12 @@ __global__ void set_condition(cudaGraphConditionalHandle handle,
                               const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
+
+__global__ void nbldpc_mark_encode() {}
+__global__ void nbldpc_mark_channel() {}
+__global__ void nbldpc_mark_end() {}
+__global__ void nbldpc_mark_decide() {}
+__global__ void nbldpc_mark_syndrome() {}
 
 }  // namespace
 
@@ -78,6 +92,21 @@ fail:
 int loop_set(void* stream, unsigned long long handle, const bool* pred) {
   set_condition<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(handle,
                                                                 pred);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch marker `which` on `stream`, in the order of device_loop.MARKS:
+// 0 encode, 1 channel, 2 end, 3 decide, 4 syndrome.
+int loop_mark(int which, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (which) {
+    case 0: nbldpc_mark_encode<<<1, 1, 0, s>>>(); break;
+    case 1: nbldpc_mark_channel<<<1, 1, 0, s>>>(); break;
+    case 2: nbldpc_mark_end<<<1, 1, 0, s>>>(); break;
+    case 3: nbldpc_mark_decide<<<1, 1, 0, s>>>(); break;
+    case 4: nbldpc_mark_syndrome<<<1, 1, 0, s>>>(); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,7 @@ import dataclasses
 import torch
 
 from .flooding import decode_flooding, decode_flooding_hostloop
+from ..utils.timing import span
 from .graph import DeviceGraph
 from .layered import (decode_layered, decode_layered_compressed,
                       decode_layered_hostloop, decode_layered_list,
@@ -117,28 +118,32 @@ def decode(code_or_graph, intrinsic: torch.Tensor, cfg: DecoderConfig):
             f"dtype={cfg.dtype!r}: flooding SPA runs at float32 only; the "
             "JAX package's decode fails there too (its fused SPA CN returns "
             "f32 into the bf16 while_loop carry: a TypeError)")
-    g = (code_or_graph if isinstance(code_or_graph, DeviceGraph)
-         else DeviceGraph.from_code(code_or_graph))
-    intrinsic = intrinsic.to(cfg.torch_dtype())
-    on_device = cfg.loop == "device"
-    if cfg.storage == "compressed":
-        if cfg.cn_impl == "topk":
-            return decode_layered_compressed(
-                g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-                dtype=cfg.torch_dtype())
-        run = decode_layered_list if on_device else decode_layered_list_hostloop
-        return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-                   nboper=cfg.nboper, dtype=cfg.torch_dtype())
-    syn = None
-    if cfg.cn == "syndrome":
-        syn = dict(
-            n_cv=cfg.syn_ncv, d1=cfg.syn_d[0], d2=cfg.syn_d[1],
-            d3=cfg.syn_d[2], shape=cfg.syn_shape,
-            max_configs=cfg.syn_max_configs, use_bayes=cfg.syn_bayes,
-            presort=cfg.syn_presort, sat_rule=cfg.syn_sat)
-    if cfg.schedule == "flooding":
-        run = decode_flooding if on_device else decode_flooding_hostloop
-    else:
-        run = decode_layered if on_device else decode_layered_hostloop
-    return run(g, intrinsic, cfg.max_iters, nm=cfg.nm, offset=cfg.offset,
-               cn=cfg.cn, cn_impl=cfg.cn_impl, syn=syn, nboper=cfg.nboper)
+    with span("decode"):
+        g = (code_or_graph if isinstance(code_or_graph, DeviceGraph)
+             else DeviceGraph.from_code(code_or_graph))
+        intrinsic = intrinsic.to(cfg.torch_dtype())
+        on_device = cfg.loop == "device"
+        if cfg.storage == "compressed":
+            if cfg.cn_impl == "topk":
+                return decode_layered_compressed(
+                    g, intrinsic, cfg.max_iters, nm=cfg.nm,
+                    offset=cfg.offset, dtype=cfg.torch_dtype())
+            run = (decode_layered_list if on_device
+                   else decode_layered_list_hostloop)
+            return run(g, intrinsic, cfg.max_iters, nm=cfg.nm,
+                       offset=cfg.offset, nboper=cfg.nboper,
+                       dtype=cfg.torch_dtype())
+        syn = None
+        if cfg.cn == "syndrome":
+            syn = dict(
+                n_cv=cfg.syn_ncv, d1=cfg.syn_d[0], d2=cfg.syn_d[1],
+                d3=cfg.syn_d[2], shape=cfg.syn_shape,
+                max_configs=cfg.syn_max_configs, use_bayes=cfg.syn_bayes,
+                presort=cfg.syn_presort, sat_rule=cfg.syn_sat)
+        if cfg.schedule == "flooding":
+            run = decode_flooding if on_device else decode_flooding_hostloop
+        else:
+            run = decode_layered if on_device else decode_layered_hostloop
+        return run(g, intrinsic, cfg.max_iters, nm=cfg.nm,
+                   offset=cfg.offset, cn=cfg.cn, cn_impl=cfg.cn_impl,
+                   syn=syn, nboper=cfg.nboper)

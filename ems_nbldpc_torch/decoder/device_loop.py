@@ -35,6 +35,14 @@ of each wrapper module).  The
 capture leaves the eager counts as it found them and records each
 kernel's launches per step (``DeviceLoop.per_step``).
 
+Markers: ``mark(name, device)`` launches the empty kernel
+``nbldpc_mark_<name>`` (``csrc/device_loop.cu``) that names a span on the
+card's timeline: ``decide`` and ``syndrome`` in every decoder step,
+``encode``, ``channel`` and ``end`` in ``MonteCarlo.gen``.  Inside the
+capture a marker is launched always, so that every replay carries two a
+step; eagerly, on the card only and only while a profiler records
+(``utils/timing.recording``); on the CPU never.
+
 Loops are cached in one LRU of ``MAX_CACHED`` entries, since each holds GBs
 at full width; ``captures`` counts the graphs captured.  A Monte-Carlo run decodes every batch under one key, so
 its loop stays in the cache and one capture serves every batch and every
@@ -53,11 +61,15 @@ import torch
 
 from ..ops import (_build, cuda_bubble, cuda_cn, cuda_list, cuda_spa,
                    cuda_syndrome)
+from ..utils.timing import recording, span
 from .graph import keep_tables
 
 MAX_CACHED = 2                   # loops kept by the cache
 captures = 0                     # graphs captured since import (set to 0
 #                                  to count a run's)
+capturing = False                # a step is being captured (``_capture``)
+# the marker kernels, in the order of csrc/device_loop.cu's loop_mark
+MARKS = ("encode", "channel", "end", "decide", "syndrome")
 
 # kernel -> (module, counter) of the wrappers' eager launch counts
 _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
@@ -87,6 +99,7 @@ def _lib() -> ctypes.CDLL:
             ("loop_set", [ptr, u64, ptr]),
             ("loop_end", [ptr, ptr, ctypes.POINTER(ptr)]),
             ("loop_launch", [ptr, ptr]),
+            ("loop_mark", [ctypes.c_int, ptr]),
             ("loop_destroy", [ptr, ptr])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
@@ -96,6 +109,19 @@ def _lib() -> ctypes.CDLL:
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"device loop: {what} failed with CUDA error {err}")
+
+
+def _launch_mark(which: int, device: torch.device) -> None:
+    _check(_lib().loop_mark(
+        which, torch.cuda.current_stream(device).cuda_stream), "marker")
+
+
+def mark(name: str, device: torch.device) -> None:
+    """Launch the marker kernel ``nbldpc_mark_<name>`` (``MARKS``) on
+    ``device``'s current stream: while a step is captured, or on the card
+    while a profiler records; else nothing."""
+    if capturing or (device.type == "cuda" and recording()):
+        _launch_mark(MARKS.index(name), device)
 
 
 def launch_counts() -> dict:
@@ -128,17 +154,22 @@ class DeviceLoop:
         """Returns (decide [F, N] int64, iters [F] int32, converged [F] bool)."""
         cuda = intrinsic.device.type == "cuda"
         if cuda and self.exec is None:
+            with span("capture"):
+                self._reset(intrinsic)
+                self._capture()
+        with span("reset"):
             self._reset(intrinsic)
-            self._capture()
-        self._reset(intrinsic)
-        if cuda:
-            _check(_lib().loop_launch(
-                self.exec, torch.cuda.current_stream().cuda_stream), "launch")
-        else:
-            while bool(self.pred):
-                self._step()
-        decide, conv, iters = self.state[-3:]
-        return decide.clone(), iters.clone(), conv.clone()
+        with span("launch"):
+            if cuda:
+                _check(_lib().loop_launch(
+                    self.exec, torch.cuda.current_stream().cuda_stream),
+                    "launch")
+            else:
+                while bool(self.pred):
+                    self._step()
+        with span("readout"):
+            decide, conv, iters = self.state[-3:]
+            return decide.clone(), iters.clone(), conv.clone()
 
     def _reset(self, intrinsic):
         if self.state is None:
@@ -185,12 +216,15 @@ class DeviceLoop:
         before = launch_counts()
         reserved = torch.cuda.memory_reserved()
         exec_, captured = ctypes.c_void_p(), False
+        global capturing
         try:
             with torch.cuda.stream(stream), torch.cuda.use_mem_pool(self.pool):
+                capturing = True
                 self._step()
                 _check(lib.loop_set(s, handle, pred), "condition launch")
             captured = True
         finally:
+            capturing = False
             after = launch_counts()
             for k, (m, a) in _COUNTERS.items():
                 setattr(m, a, before[k])

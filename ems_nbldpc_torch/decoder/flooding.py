@@ -451,8 +451,10 @@ def make_flooding_stepper(
         ctov_pad[:, :e] = torch.where(active[:, None, None],
                                       mcv.to(ctov_pad.dtype), ctov_pad[:, :e])
         del mcv
+        device_loop.mark("decide", intrinsic.device)
         decide = torch.where(active[:, None],
                              decisions(intrinsic, ctov_pad), decide)
+        device_loop.mark("syndrome", intrinsic.device)
         conv = conv | syndrome_ok(g, decide)
         return (intrinsic, ctov_pad, decide, conv,
                 iters + active.to(torch.int32))

@@ -258,9 +258,12 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
 
 
 def _step_decisions(g, app, decide, conv, iters, active):
-    """Decisions, convergence and iteration counts after one sweep."""
+    """Decisions, convergence and iteration counts after one sweep, behind
+    the ``decide`` and ``syndrome`` markers (``device_loop.mark``)."""
+    device_loop.mark("decide", app.device)
     d_new = app[:, :g.code.n].argmin(dim=-1)
     decide = torch.where(active[:, None], d_new, decide)
+    device_loop.mark("syndrome", app.device)
     conv = conv | syndrome_ok(g, decide)
     return decide, conv, iters + active.to(torch.int32)
 

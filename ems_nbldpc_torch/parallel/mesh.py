@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from ..models.code import NBCode
 from ..sim.mc import MonteCarlo, SimConfig, SimResult
+from ..utils.timing import span
 
 TIMEOUT_S = 600.0     # seconds for the rendezvous and for each collective
 
@@ -184,12 +185,13 @@ def _shardable(cfg: SimConfig) -> SimConfig:
 
 def _all_reduce(counters: torch.Tensor, groups) -> torch.Tensor:
     """The first five counters summed, the decoder steps (the sixth) the
-    largest, over each group in turn."""
-    head, steps = counters[:5].clone(), counters[5:].clone()
-    for g in groups:
-        dist.all_reduce(head, op=dist.ReduceOp.SUM, group=g)
-        dist.all_reduce(steps, op=dist.ReduceOp.MAX, group=g)
-    return torch.cat([head, steps])
+    largest, over each group in turn; in the span ``nbldpc.allreduce``."""
+    with span("allreduce"):
+        head, steps = counters[:5].clone(), counters[5:].clone()
+        for g in groups:
+            dist.all_reduce(head, op=dist.ReduceOp.SUM, group=g)
+            dist.all_reduce(steps, op=dist.ReduceOp.MAX, group=g)
+        return torch.cat([head, steps])
 
 
 def _sharded_step(code: NBCode, cfg: SimConfig, mesh: Mesh, groups):

@@ -24,11 +24,13 @@ import numpy as np
 import torch
 
 from ..decoder.api import DecoderConfig, decode
+from ..decoder.device_loop import mark
 from ..decoder.graph import DeviceGraph
 from ..models.channels import ChannelSpec, simulate
 from ..models.code import COLORING_VERSION, NBCode
 from ..models.encoder import Encoder, gaussian_elimination
 from ..utils.stats import wilson_ci
+from ..utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,34 +224,48 @@ class MonteCarlo:
         self._pmat = torch.from_numpy(pmat_np).to(self.device).to(torch.float32)
 
     def gen(self, batch_idx: int):
-        """(codewords [F, N] int64, intrinsic [F, N, q] f32) of one batch."""
-        kinfo, kchan = batch_generators(self.cfg.seed, batch_idx, self.device,
-                                        self.shard)
-        cw = self._make_codeword(kinfo, self._pmat)
-        code = self.code
-        intr = simulate(kchan, cw, code.q, self.cfg.channel,
-                        self.cfg.ebn0_db, code.rate)
+        """(codewords [F, N] int64, intrinsic [F, N, q] f32) of one batch.
+        Spans ``nbldpc.seed``, ``nbldpc.encode`` and ``nbldpc.channel`` in
+        ``nbldpc.gen``; markers ``encode``, ``channel`` and ``end``
+        (``device_loop.mark``) at their device boundaries."""
+        with span("gen"):
+            with span("seed"):
+                kinfo, kchan = batch_generators(self.cfg.seed, batch_idx,
+                                                self.device, self.shard)
+            with span("encode"):
+                mark("encode", self.device)
+                cw = self._make_codeword(kinfo, self._pmat)
+            with span("channel"):
+                mark("channel", self.device)
+                code = self.code
+                intr = simulate(kchan, cw, code.q, self.cfg.channel,
+                                self.cfg.ebn0_db, code.rate)
+            mark("end", self.device)
         return cw, intr
 
     def count(self, decide, cw, iters, conv):
         """[frames, frame_errors, bit_errors, undetected, iter_sum,
         decoder steps] as int64, and the per-frame error flags."""
-        k = self.code.k
-        diff = decide[:, :k] ^ cw[:, :k]
-        bit_err = _popcount(diff).sum(dim=1)
-        frame_err = bit_err > self.cfg.fake_bch_t
-        counters = torch.stack([
-            torch.full((), decide.shape[0], dtype=torch.int64,
-                       device=decide.device),
-            frame_err.sum(), bit_err.sum(), (frame_err & conv).sum(),
-            iters.sum().to(torch.int64), iters.max().to(torch.int64),
-        ])
+        with span("count"):
+            k = self.code.k
+            diff = decide[:, :k] ^ cw[:, :k]
+            bit_err = _popcount(diff).sum(dim=1)
+            frame_err = bit_err > self.cfg.fake_bch_t
+            counters = torch.stack([
+                torch.full((), decide.shape[0], dtype=torch.int64,
+                           device=decide.device),
+                frame_err.sum(), bit_err.sum(), (frame_err & conv).sum(),
+                iters.sum().to(torch.int64), iters.max().to(torch.int64),
+            ])
         return counters, frame_err
 
     def step(self, batch_idx: int):
-        cw, intr = self.gen(batch_idx)
-        decide, iters, conv = decode(self.graph, intr, self.cfg.decoder)
-        return self.count(decide, cw, iters, conv)
+        """``gen`` -> ``decode`` -> ``count`` of one batch, in the span
+        ``nbldpc.step`` whose argument is the batch index."""
+        with span("step", str(batch_idx)):
+            cw, intr = self.gen(batch_idx)
+            decide, iters, conv = decode(self.graph, intr, self.cfg.decoder)
+            return self.count(decide, cw, iters, conv)
 
     def run(self, verbose: bool = False) -> SimResult:
         cfg = self.cfg

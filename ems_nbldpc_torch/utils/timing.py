@@ -3,6 +3,23 @@
 Port of ``ems_nbldpc_tpu/utils/timing.py``: wall-clock section timers that
 wait for the card, and a thin wrapper over ``torch.profiler`` in place of
 the XLA profiler.
+
+``span`` names a stretch of the program's host work ``nbldpc.<name>`` in
+a profiler's trace; it records only while a session records.  The batch
+step's spans nest as
+
+    nbldpc.step (args: the batch index)
+        nbldpc.gen: nbldpc.seed, nbldpc.encode, nbldpc.channel
+        nbldpc.decode: nbldpc.capture (first call on the card),
+                       nbldpc.reset, nbldpc.launch, nbldpc.readout
+        nbldpc.count
+    nbldpc.allreduce (a sharded step, after nbldpc.step)
+
+and on the card the device timeline carries marker kernels
+(``decoder/device_loop.mark``): ``nbldpc_mark_encode``,
+``nbldpc_mark_channel`` and ``nbldpc_mark_end`` in gen, and
+``nbldpc_mark_decide`` and ``nbldpc_mark_syndrome`` in every decoder
+step.
 """
 from __future__ import annotations
 
@@ -11,6 +28,9 @@ import os
 import time
 
 import torch
+from torch._C._autograd import _profiler_enabled
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -50,3 +70,16 @@ def trace(logdir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def recording() -> bool:
+    """Whether a profiler session records in this process."""
+    return _profiler_enabled()
+
+
+def span(name: str, args: str | None = None):
+    """``torch.profiler.record_function(f"nbldpc.{name}", args)`` while a
+    profiler session records, else a context that does nothing."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(f"nbldpc.{name}", args)
