@@ -10,6 +10,11 @@
 Phases; any failure exits non-zero and prints no ``ok`` line.  The code is
 random_regular(8100, 4050, 256, dv=2) (N = 8100 symbols = 64800 bits,
 R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
+Launch counts name K4 (``decide_rows``, the layered decoders' decisions)
+beside the check-node kernels: one launch a layered step and one at each
+decode's reset, which the device loop runs eagerly, outside its graph, so
+"none eager" below leaves those resets out; "no launch" on a plain route
+includes K4.
 
 1. device: requires ``torch.cuda.is_available()``; prints nvidia-smi's card
    name and power limit, and the torch and CUDA versions;
@@ -179,6 +184,19 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    plain version, and the workspace form (a random layer of 20 rows of
    degree 34, nm = q, exact, f32) (``--only-3g``: phases 1, 2 and 3g
    alone, no result line);
+3h. the decisions kernel (K4, ``ops/cuda_decide.decide_rows``) against
+   ``decide_rows_plain`` bit for bit, on f32 and bf16 APPs, q = 4 to 256,
+   at F = 5, N = 37 and F = 7, N = 8100 and at the cells' shapes
+   (F = 1024 f32, F = 2048 bf16; N = 8100, q = 256), from decoder-like
+   APPs with ties, NaNs, +inf and -0 beside +0, under masks of every
+   frame (and none: the reset's form), no frame, one, ~30% and ~1%, with
+   the launches and rows K4 counts on the card; then K4 timed at the
+   cells' shapes with 100%, ~30% and ~1% of the frames active, the reset
+   form, the plain version and ``torch.argmin`` alone, beside the bytes
+   bound (``--only-3h``: phases 1, 2 and 3h alone, no result line; with
+   ``--cells`` as well, each benchmark cell's pool through the program's
+   batch step, with K4's launches and rows over it and the share of an
+   all-frames pass it skipped);
 3b / 3c / 3e at bf16: each fused entry (``spa_layer``, ``syndrome_layer``,
    ``bubble_layer`` with both variants) on a bf16 state against its bf16
    plain version, on the real code's three layer plans at F = 128 and on
@@ -220,14 +238,14 @@ R = 1/2, GF(256), dc = 4, 3 super-layers), built once with its encoder.
    decode on the card: identical decisions and convergence, iterations
    within 1, the differing frames printed) and the device loop against
    the host loop at F = 128 with its memory; with ``--profile`` one traced
-   batch, with ``spa_row_kernel``'s and argmin's shares of the kernel
+   batch, with ``spa_row_kernel``'s and K4's shares of the kernel
    time;
 4c. list-EMS chain at full width (the EMS row of ``bench.py``): nm = 32,
    nbOper = 64, compressed bf16 CtoV, 10 iterations, 1.8 dB, F = 128, 256
    frames, device loop; checks 3 ``list_layer`` (K3) a step counted on the
    card, none eager, no other kernel, avg_it < 10, FER <= 0.25; then 6 on
    its first batch (``list_layer`` 3 a step) and 5l; with ``--profile``
-   traces one batch: 3 ``list_kernel`` a step, K3's and argmin's shares;
+   traces one batch: 3 ``list_kernel`` a step, K3's and K4's shares;
 5l. list-EMS decode both ways (host loop), at full width: 16 frames of
    the chain's first batch through K3 and through ``list_layer_plain`` on
    the card (``plain``, no launch), at 4c's settings, with nbOper = 0 and
@@ -475,8 +493,9 @@ from ems_nbldpc_torch.models.channels import ChannelSpec
 from ems_nbldpc_torch.models.code import from_parsed, load, random_regular
 from ems_nbldpc_torch.models.encoder import gaussian_elimination
 from ems_nbldpc_torch.models.formats import ParsedMatrix
-from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_demap,
-                                  cuda_list, cuda_spa, cuda_syndrome, listcn)
+from ems_nbldpc_torch.ops import (cuda_bubble, cuda_cn, cuda_decide,
+                                  cuda_demap, cuda_list, cuda_spa,
+                                  cuda_syndrome, listcn)
 from ems_nbldpc_torch.ops.bubble_cn import bubble_rows_plain
 from ems_nbldpc_torch.ops.fht import (position_tables, spa_checknode_plain,
                                       transpose_perm_tables)
@@ -593,6 +612,13 @@ EMS_DEC = DecoderConfig(max_iters=10, schedule="layered", cn="ems", nm=32,
                         dtype="float32")      # the EMS chain's (4), at 2.0 dB
 SPA_DEC = DecoderConfig(max_iters=20, schedule="layered", cn="spa", nm=0,
                         storage="dense", dtype="float32")  # 4b's, at 1.8 dB
+DECIDE_ODD = [(5, 37), (7, 8100)]      # (F, N) of 3h's bit-exact cases
+DECIDE_QS = (4, 8, 16, 32, 64, 128, 256)
+DECIDE_TIMED = {           # APP dtype -> F at N = 8100, q = 256: the SPA
+    "f32": (1024, torch.float32),      # cells' and the list cell's
+    "bf16": (2048, torch.bfloat16)}
+DECIDE_SHARES = (1.0, 0.3, 0.01)       # active frames of 3h's timings
+DECIDE_CELLS = ("spa_row.1p8dB", "list_ems_row.1p8dB", "spa_row.3p0dB")
 SUMMARY = {}               # chain -> its timed run's numbers, printed last
 DEMAP_PATHS = {}           # chain -> K8 launches in its timed run
 
@@ -2167,6 +2193,193 @@ def check_list_general(graph):
     return worst, times
 
 
+def decide_app(f, n, q, dtype, seed):
+    """A decoder-like APP [f, n + 1, q] of ``dtype`` on the card: costs in
+    [0, 20) less their row's minimum, a third of the rows on quarter steps
+    (ties), made 128 frames at a time; in each frame row 0 of one value,
+    row 1 with two NaNs, row 2 all +inf, row 3 with -0 before +0 (n > 3)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    app = torch.empty((f, n + 1, q), dtype=dtype, device="cuda")
+    for lo in range(0, f, 128):
+        x = torch.rand((min(128, f - lo), n + 1, q), generator=gen,
+                       device="cuda") * 20
+        tie = torch.rand(x.shape[:2] + (1,), generator=gen,
+                         device="cuda") < 1 / 3
+        x = torch.where(tie, (4 * x).floor() / 4, x)
+        app[lo:lo + 128] = x - x.amin(-1, keepdim=True)
+        del x, tie
+    if n > 3:
+        app[:, 0] = 3.0
+        app[:, 1, q // 3] = float("nan")
+        app[:, 1, q - 1] = float("nan")
+        app[:, 2] = float("inf")
+        app[:, 3] = 1.0
+        app[:, 3, q // 2] = 0.0
+        app[:, 3, q // 4] = -0.0
+    return app
+
+
+def decide_masks(f, seed):
+    """3h's masks: None (the reset form), every frame, none, one, and
+    random draws of ~30% and ~1% (at least one frame)."""
+    gen = torch.Generator().manual_seed(seed)
+    masks = {"reset": None, "all": torch.ones(f, dtype=torch.bool),
+             "none": torch.zeros(f, dtype=torch.bool),
+             "one": torch.arange(f) == f // 2}
+    for share in (0.3, 0.01):
+        m = torch.zeros(f, dtype=torch.bool)
+        m[torch.randperm(f, generator=gen)[:max(1, round(share * f))]] = True
+        masks[f"{share:.0%}"] = m
+    return {k: None if v is None else v.cuda() for k, v in masks.items()}
+
+
+def decide_case(app, n, mask):
+    """K4 against ``decide_rows_plain`` on one mask, from latched
+    decisions of -7: (bit-exact, the launches and rows K4 counted, as
+    expected)."""
+    f = app.shape[0]
+    got = torch.full((f, n), -7, dtype=torch.int64, device="cuda")
+    want = got.clone()
+    cuda_decide.reset_device_launches()
+    cuda_decide.decide_rows(app, got, mask)
+    counted = (cuda_decide.device_launches(), cuda_decide.device_rows())
+    cuda_decide.decide_rows_plain(app, want, mask)
+    decided = f if mask is None else int(mask.sum())
+    return torch.equal(got, want), counted == (1, n * decided)
+
+
+def decide_bound_ms(active, n, q, elem):
+    """K4's bytes at 3.35 TB/s: the active frames' APP rows read once and
+    their int64 decisions written once."""
+    return active * n * (q * elem + 8) / HBM_BYTES_S * 1e3
+
+
+def check_decide_kernel():
+    """3h: K4 (``cuda_decide.decide_rows``) against its plain version bit
+    for bit, on f32 and bf16 APPs, every q of ``DECIDE_QS`` at
+    ``DECIDE_ODD``'s shapes and at the cells' (``DECIDE_TIMED``), under
+    every mask of ``decide_masks``, with the launches and rows it counts;
+    then timed at the cells' shapes with 100%, ~30% and ~1% of the frames
+    active, in turns with the plain version and ``torch.argmin`` alone,
+    beside the bound.  Returns {dtype: timings}."""
+    phase("3h decisions kernel (K4) against plain")
+    for dtype in (torch.float32, torch.bfloat16):
+        for q in DECIDE_QS:
+            for f, n in DECIDE_ODD:
+                app = decide_app(f, n, q, dtype, seed=q + f)
+                res = {k: decide_case(app, n, m)
+                       for k, m in decide_masks(f, seed=q).items()}
+                ok = all(a for a, _ in res.values())
+                counted = all(b for _, b in res.values())
+                print(f"decide_rows {dtype} q={q} F={f} N={n}: bit-exact="
+                      f"{ok}; counts as expected {counted} "
+                      f"({sorted(res)})", flush=True)
+                check(ok and counted, f"decide_rows {dtype} q={q} F={f} "
+                      f"N={n}: {res}")
+    times = {}
+    for key, (f, dtype) in DECIDE_TIMED.items():
+        n, q = 8100, 256
+        app = decide_app(f, n, q, dtype, seed=f)
+        masks = decide_masks(f, seed=f)
+        res = {k: decide_case(app, n, m) for k, m in masks.items()}
+        print(f"decide_rows {dtype} F={f} N={n} q={q}: bit-exact="
+              f"{all(a for a, _ in res.values())}; counts as expected "
+              f"{all(b for _, b in res.values())}", flush=True)
+        check(all(a and b for a, b in res.values()),
+              f"decide_rows {dtype} F={f}: {res}")
+        decide = torch.zeros((f, n), dtype=torch.int64, device="cuda")
+        t = {"frames": f, "dtype": key}
+        for share in DECIDE_SHARES:
+            mask = masks["all"] if share == 1.0 else masks[f"{share:.0%}"]
+            active = int(mask.sum())
+            runs = {"kernel": [], "plain": []}
+            for _ in range(2):
+                runs["kernel"].append(time_ms(
+                    lambda: cuda_decide.decide_rows(app, decide, mask), 10))
+                if share == 1.0:
+                    runs["plain"].append(time_ms(
+                        lambda: cuda_decide.decide_rows_plain(app, decide,
+                                                              mask), 5))
+            bound = decide_bound_ms(active, n, q, app.element_size())
+            kern = min(runs["kernel"])
+            t[f"{share:.0%}"] = {"active": active, "kernel": runs["kernel"],
+                                 "bound": bound,
+                                 "share_of_bound": bound / kern}
+            print(f"decide_rows {dtype} F={f} N={n} q={q}, {active} active "
+                  f"({share:.0%}): kernel "
+                  f"{' / '.join(f'{x:.4f}' for x in runs['kernel'])} ms; "
+                  f"bound {bound:.4f} ms (bytes), kernel at "
+                  f"{100 * bound / kern:.1f}% of it", flush=True)
+            if share == 1.0:
+                t["plain"] = runs["plain"]
+        t["reset"] = [time_ms(lambda: cuda_decide.decide_rows(app, decide),
+                              10) for _ in range(2)]
+        t["library"] = [time_ms(lambda: app[:, :n].argmin(dim=-1), 5)
+                        for _ in range(2)]
+        print(f"decide_rows {dtype} F={f}: reset form (no mask) "
+              f"{' / '.join(f'{x:.4f}' for x in t['reset'])} ms; plain "
+              f"(argmin + where) "
+              f"{' / '.join(f'{x:.4f}' for x in t['plain'])} ms; "
+              f"torch.argmin alone "
+              f"{' / '.join(f'{x:.4f}' for x in t['library'])} ms per call",
+              flush=True)
+        times[key] = t
+        del app, decide, masks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return times
+
+
+def check_decide_cells(names=DECIDE_CELLS):
+    """3h on the benchmark's cells (``simbench``): each cell's pool of
+    batches through the program's batch step after one warm-up batch
+    outside it, with K4's counts read over the pool: its launches equal
+    the steps plus one reset a batch, its rows N x (iterations + frames);
+    prints the share of the all-frames pass (N x F x (steps + 1) a batch)
+    that K4 skipped."""
+    from simbench import harness, spec
+    from simbench.codes import make as make_matrix
+
+    phase("3h decisions kernel (K4) on the benchmark's cells")
+    out = {}
+    for name in names:
+        cell = spec.cell(name)
+        prog = harness.imported_program()
+        rows, coefs = make_matrix(cell["config"]["code"])
+        code = harness.make_code(prog, cell, rows, coefs)
+        traffic = cell["traffic"]
+        pool_seed = int(traffic["pool_seed"])
+        pool = int(traffic["pool_batches"])
+        step, mc = harness.stepper(prog, code, cell, pool_seed, "cuda")
+        step(pool).cpu()                       # the capture, outside the pool
+        cuda_decide.reset_device_launches()
+        counters = np.array([step(b).cpu().numpy() for b in range(pool)])
+        launched = cuda_decide.device_launches()
+        decided = cuda_decide.device_rows()
+        f, n = int(counters[0, 0]), code.n
+        steps, iters = counters[:, 5], counters[:, 4]
+        every = n * f * int((steps + 1).sum())
+        skipped = 1 - decided / every
+        out[name] = {"steps": steps.tolist(), "iter_sum": int(iters.sum()),
+                     "rows": decided, "all_frames_rows": every,
+                     "skipped": skipped}
+        print(f"{name}: pool steps {steps.tolist()}, iterations "
+              f"{int(iters.sum())} over {f * pool} frames; K4 launches "
+              f"{launched} (steps + resets {int(steps.sum()) + pool}), rows "
+              f"{decided} (N x (iterations + frames) "
+              f"{n * (int(iters.sum()) + f * pool)}); an all-frames pass "
+              f"{every}: skipped share {skipped:.4f}", flush=True)
+        check(launched == int(steps.sum()) + pool
+              and decided == n * (int(iters.sum()) + f * pool),
+              f"{name}: K4 counted {launched} launches, {decided} rows")
+        del step, mc, code
+        device_loop.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_workspace_decodes():
     """3g: a list-EMS decode whose rows run from K3's workspace (a code of
     20 rows of degree 34 over 120 GF(256) columns, nm = q = 256, the
@@ -2210,6 +2423,7 @@ def check_workspace_decodes():
           f"{outs[False][3]['list_layer']}, plain "
           f"{sum(outs[True][3].values())}", flush=True)
     check(same and outs[False][3]["list_layer"] == n_layers * steps > 0
+          and outs[False][3]["decide_rows"] == steps + 1
           and sum(outs[True][3].values()) == 0,
           "the workspace decode differs from its plain version")
     device_loop.clear()
@@ -2745,7 +2959,9 @@ def check_bubble_decodes(mc, dec):
         check(same, f"{impl}: kernel and plain decodes differ")
         check(l_k["bubble_checknode"] == l_k["bubble_layer"]
               == LAYERS * steps > 0
-              and sum(l_k.values()) == 2 * l_k["bubble_checknode"]
+              and sum(cn_launches(l_k).values())
+              == 2 * l_k["bubble_checknode"]
+              and l_k["decide_rows"] == steps + 1
               and sum(l_p.values()) == 0,
               f"{impl} launches {l_k} (plain {l_p}) for {steps} steps")
 
@@ -2788,7 +3004,8 @@ def check_list_decodes(graph, intr, dec, n_layers):
         check(not bool(differ.any()),
               f"list-EMS kernel and plain decodes differ {label}")
         check(l_k["list_layer"] == n_layers * steps > 0
-              and sum(l_k.values()) == l_k["list_layer"]
+              and sum(cn_launches(l_k).values()) == l_k["list_layer"]
+              and l_k["decide_rows"] == steps + 1
               and sum(l_p.values()) == 0,
               f"list-EMS launches {l_k} (plain {l_p}) for {steps} steps "
               f"{label}")
@@ -2914,6 +3131,7 @@ def profile_batch(mc, tag, out_dir="profile_out", big=None):
             "spa_pct": share("spa_row_kernel"),
             "list_pct": share("list_kernel"),
             "argmin_pct": share("ArgMin", "argmin"),
+            "decide_pct": share("decide_kernel"),
             "steps": int(counters[5]), "traced": traced,
             "index_pct": round(100 * index_us / max(total, 1), 2),
             "demap_pct": round(100 * demap_us / max(total, 1), 2),
@@ -3000,8 +3218,10 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
     eager generation) once a batch on a non-BPSK ``channel`` and never on
     BPSK, eager and on the card alike.  Memory: the allocator's live and
     reserved peaks during the timed run (the device loop's graph pool is
-    reserved memory).  Returns (MonteCarlo, result, {kernel: launches
-    counted on the card})."""
+    reserved memory).  K4 (``decide_rows``): one launch a layered step and
+    one a batch's reset, which the device loop runs eagerly, outside its
+    graph.  Returns (MonteCarlo, result, {check-node kernel: launches
+    counted on the card}: ``cn_launches``, K4's checked here)."""
     if mc is None:
         cfg = SimConfig(ebn0_db=ebn0, frames_per_batch=128, max_frames=256,
                         stop_errors=10**9, encode="device", decoder=dec,
@@ -3023,6 +3243,7 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
     res = mc.run()
     launches, eager = read_launches(), read_eager()
     demap = (cuda_demap.device_launches(), cuda_demap.launches)
+    k4 = (launches["decide_rows"], cuda_decide.device_rows())
     live = torch.cuda.max_memory_allocated()
     held = torch.cuda.max_memory_reserved()
     lp = device_loop.last()
@@ -3034,7 +3255,8 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
           f"[{lo:.4f}, {hi:.4f}]; BER {res.ber:.3e}; decoder steps "
           f"{res.decoder_steps}; launches counted by the kernels {launches}, "
           f"eager {eager}; demap (K8) launches counted by the kernel / eager "
-          f"{demap[0]} / {demap[1]}; peak memory live {live / 2**30:.3f} GiB, "
+          f"{demap[0]} / {demap[1]}; decisions (K4) launches / rows "
+          f"{k4[0]} / {k4[1]}; peak memory live {live / 2**30:.3f} GiB, "
           f"reserved {held / 2**30:.3f} GiB (graph pool "
           f"{pool / 2**30:.3f})", flush=True)
     split = batch_split(mc)
@@ -3044,6 +3266,7 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
         "fer": f"{res.frame_errors}/{res.frames}",
         "fer_ci": [round(lo, 4), round(hi, 4)],
         "steps": res.decoder_steps, "demap_launches": demap[0],
+        "k4_launches": k4[0], "k4_rows": k4[1],
         "live_gib": round(live / 2**30, 3),
         "reserved_gib": round(held / 2**30, 3),
         "pool_gib": round(pool / 2**30, 3), "untraced": split})
@@ -3058,17 +3281,25 @@ def run_chain(name, code, enc, dec, ebn0, mc=None, channel=ChannelSpec()):
           f"{demap} for {batches} batches, expected {want} each")
     if want:
         DEMAP_PATHS[name] = demap[0]
+    # K4: one launch a layered step and one a batch's reset, N rows a
+    # decided frame: each step's active frames and the reset's every frame
+    layered = dec.schedule == "layered"
+    check(k4 == ((res.decoder_steps + batches,
+                  code.n * (res.iter_sum + res.frames)) if layered else (0, 0)),
+          f"{name}: K4 launches / rows {k4} for {res.decoder_steps} steps, "
+          f"{res.iter_sum} iterations, {batches} batches")
     if dec.loop == "device":
-        check(sum(eager.values()) == 0,
+        resets = {"decide_rows": batches * int(layered)}
+        check(eager == {k: resets.get(k, 0) for k in eager},
               f"{name}: eager launches {eager} under the device loop")
-        check(launches == {k: v * res.decoder_steps
+        check(launches == {k: v * res.decoder_steps + resets.get(k, 0)
                            for k, v in lp.per_step.items()},
               f"{name}: launches {launches}, per step {lp.per_step}, "
               f"{res.decoder_steps} steps")
     else:
         check(launches == eager, f"{name}: launches counted by the kernels "
               f"{launches}, eager {eager}")
-    return mc, res, launches
+    return mc, res, cn_launches(launches)
 
 
 def reset_launches():
@@ -3077,19 +3308,34 @@ def reset_launches():
     cuda_syndrome.launches = cuda_syndrome.layer_launches = 0
     cuda_demap.launches = cuda_bubble.launches = 0
     cuda_bubble.layer_launches = cuda_list.launches = 0
+    cuda_decide.launches = 0
     cuda_demap.reset_device_launches()
     cuda_bubble.reset_device_launches()
     cuda_cn.reset_device_launches()
     cuda_spa.reset_device_launches()
     cuda_syndrome.reset_device_launches()
     cuda_list.reset_device_launches()
+    cuda_decide.reset_device_launches()
+
+
+def cn_launches(launches) -> dict:
+    """``launches`` (as ``read_launches`` gives them) without K4's: the
+    check-node kernels'."""
+    return {k: v for k, v in launches.items() if k != "decide_rows"}
+
+
+def k4_host(dec, steps) -> dict:
+    """K4's launches in a host-loop decode of ``dec`` that ran ``steps``
+    steps: one a layered step and one at the reset, none in flooding."""
+    return {"decide_rows": (steps + 1) * int(dec.schedule == "layered")}
 
 
 def read_launches() -> dict:
     """Kernel launches by kernel, counted by the kernels themselves on the
     card (a graph's replays included); "spa_layer", "syndrome_layer" and
     "bubble_layer" are the parts of the SPA, syndrome and bubble kernels'
-    launches made by their fused entries."""
+    launches made by their fused entries; "decide_rows" is K4's, the
+    decisions kernel."""
     spa, layer = cuda_spa.device_launches()
     syn, syn_layer = cuda_syndrome.device_launches()
     bub, bub_layer = cuda_bubble.device_launches()
@@ -3097,7 +3343,8 @@ def read_launches() -> dict:
             "spa_checknode": spa, "spa_layer": layer,
             "syndrome_checknode": syn, "syndrome_layer": syn_layer,
             "bubble_checknode": bub, "bubble_layer": bub_layer,
-            "list_layer": cuda_list.device_launches()}
+            "list_layer": cuda_list.device_launches(),
+            "decide_rows": cuda_decide.device_launches()}
 
 
 def read_eager() -> dict:
@@ -3109,7 +3356,8 @@ def read_eager() -> dict:
             "syndrome_layer": cuda_syndrome.layer_launches,
             "bubble_checknode": cuda_bubble.launches,
             "bubble_layer": cuda_bubble.layer_launches,
-            "list_layer": cuda_list.launches}
+            "list_layer": cuda_list.launches,
+            "decide_rows": cuda_decide.launches}
 
 
 def read_host_launches(what) -> dict:
@@ -3192,7 +3440,7 @@ def check_small_card_decodes():
                            "spa_checknode": 0, "spa_layer": 0,
                            "syndrome_checknode": 0, "syndrome_layer": 0,
                            "bubble_checknode": 0, "bubble_layer": 0,
-                           "list_layer": 0},
+                           "list_layer": 0, **k4_host(dec, steps)},
               f"{name}: launched {launches} in {steps} steps")
         ran[f"{name} (5f)"] = launches["fb_checknode"]
     return ran
@@ -3351,8 +3599,13 @@ def check_loops(path, graph, intr, dec, per_step):
     same = all(torch.equal(a, b) for dev in (first, second)
                for a, b in zip(dev, host))
     steps = int(host[1].max())
+    # K4: one launch a layered step, and one at a decode's reset, which the
+    # device loop runs eagerly, outside its graph
+    layered = int(dec.schedule == "layered")
+    per_step = {**per_step, "decide_rows": layered}
     want = {k: per_step.get(k, 0) * steps for k in counts["host"][0]}
-    none = {k: 0 for k in want}
+    want["decide_rows"] += layered
+    resets = {k: layered if k == "decide_rows" else 0 for k in want}
     gib = 2 ** 30
     print(f"F={intr.shape[0]}: bit-equal decisions/iterations/convergence "
           f"{same}; steps {steps}; converged {int(host[2].sum())}/"
@@ -3379,7 +3632,7 @@ def check_loops(path, graph, intr, dec, per_step):
     check(same_loop, f"{path}: the second decode made a new loop")
     check(lp.per_step == {k: per_step.get(k, 0) for k in lp.per_step},
           f"{path}: launches per step {lp.per_step}, expected {per_step}")
-    check(counts["device"] == (want, none)
+    check(counts["device"] == (want, resets)
           and counts["host"] == (want, want),
           f"{path}: launches {counts} for {steps} steps")
     return steps, counts["device"][0]
@@ -3426,7 +3679,9 @@ def check_bf16_path(path, graph, intr, dec, per_step, iters_within=0):
     check(differing == 0 and torch.equal(c_k, c_p)
           and it_diff <= iters_within,
           f"{path} bf16: the kernel and plain decodes differ")
-    check(l_k == {k: per_step.get(k, 0) * steps for k in l_k} and steps > 0
+    k4 = k4_host(dec, steps)
+    check(l_k == {k: per_step.get(k, 0) * steps + k4.get(k, 0) for k in l_k}
+          and steps > 0
           and sum(l_p.values()) == 0,
           f"{path} bf16: launches {l_k} (plain {l_p}) for {steps} steps")
     return differing
@@ -3606,7 +3861,8 @@ def check_snapshots(code, enc, graph, dec, paths):
     check((fe[-1], be[-1]) == (counters[1], counters[2]),
           "snapshots at budget 10 differ from the host-loop decode")
     check(launches["fb_checknode"] == LAYERS * steps > 0
-          and sum(launches.values()) == launches["fb_checknode"],
+          and sum(cn_launches(launches).values())
+          == launches["fb_checknode"],
           f"snapshot launches {launches} for {steps} steps")
     paths["fb_checknode"]["snapshots (8a)"] = launches["fb_checknode"]
     SUMMARY["snapshots"] = {"wall_s": round(wall, 3), "frame_errors": fe,
@@ -3811,7 +4067,7 @@ def main(argv) -> int:
     phase("2 build")
     t0 = time.perf_counter()
     mods = (cuda_cn, cuda_spa, cuda_syndrome, cuda_demap, cuda_bubble,
-            cuda_list, device_loop)
+            cuda_list, cuda_decide, device_loop)
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         builds = {mod.__name__.rsplit(".", 1)[-1]: pool.submit(mod.build,
                                                                verbose=True)
@@ -3822,7 +4078,13 @@ def main(argv) -> int:
             for line in log.splitlines():
                 if "ptxas" in line:
                     print(line.strip())
-    print(f"all seven built in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"all eight built in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--only-3h" in argv:
+        check_decide_kernel()
+        if "--cells" in argv:
+            check_decide_cells()
+        print("--only-3h: the other phases were not run", flush=True)
+        return 0
     if "--only-3d" in argv:
         check_demap_kernel()
         print("--only-3d: the other phases were not run", flush=True)
@@ -3880,6 +4142,7 @@ def main(argv) -> int:
     bub_err, bub_times = check_bubble_kernel(graph)
     list_err, list_times = check_list_kernel(graph)
     gen_err, gen_times = check_list_general(graph)
+    decide_times = check_decide_kernel()
     b16 = {entry: check_bf16_layers(graph, entry) for entry in BF16_PHASES}
     syn_main = syn_times[("layered", 128 * SLICE_ROWS)]
     syn_flood = syn_times[("flooding", 128 * CODE_ROWS)]
@@ -4034,7 +4297,8 @@ def main(argv) -> int:
               f"the SPA bf16 trace holds other SPA kernels than the fused "
               f"bf16 step: {names}")
         print(f"SPA bf16 trace: spa_row_kernel {prof['spa_pct']}% and "
-              f"argmin {prof['argmin_pct']}% of the kernel time; idle "
+              f"decisions (K4) {prof['decide_pct']}% (torch argmin "
+              f"{prof['argmin_pct']}%) of the kernel time; idle "
               f"{100 - prof['busy_pct']:.2f}% of its wall", flush=True)
         check_traced(prof, "spa_row_kernel", n_layers, "SPA bf16 trace")
         SUMMARY["SPA bf16"][-1]["profile"] = prof
@@ -4061,8 +4325,9 @@ def main(argv) -> int:
         prof = profile_batch(mc, "list")
         for key in ("spa_kernels", "syn_kernels", "bub_kernels"):
             prof.pop(key)
-        print(f"list-EMS trace: list_kernel {prof['list_pct']}% and argmin "
-              f"{prof['argmin_pct']}% of the kernel time; idle "
+        print(f"list-EMS trace: list_kernel {prof['list_pct']}% and "
+              f"decisions (K4) {prof['decide_pct']}% (torch argmin "
+              f"{prof['argmin_pct']}%) of the kernel time; idle "
               f"{100 - prof['busy_pct']:.2f}% of its wall", flush=True)
         check_traced(prof, "list_kernel", n_layers, "list-EMS trace")
         SUMMARY["list-EMS"][-1]["profile"] = prof
@@ -4228,7 +4493,9 @@ def main(argv) -> int:
     check(same, "syndrome kernel and plain decodes differ")
     check(l_k["syndrome_checknode"] == l_k["syndrome_layer"]
           == n_layers * int(it_k.max()) > 0
-          and sum(l_k.values()) == 2 * l_k["syndrome_checknode"]
+          and sum(cn_launches(l_k).values())
+          == 2 * l_k["syndrome_checknode"]
+          and l_k["decide_rows"] == int(it_k.max()) + 1
           and sum(l_p.values()) == 0,
           f"syndrome launches {l_k} (plain {l_p}) for {int(it_k.max())} "
           f"steps")
@@ -4499,6 +4766,16 @@ def main(argv) -> int:
            for field, val in (("ms", t["kernel"]), ("plain_ms", t["plain"]),
                               ("bound_ms", t["bound"]), ("nm", t["nm"]),
                               ("nboper", t["nboper"]))},
+    }, {
+        "name": "decide", "route": "cuda",
+        "source": "ems_nbldpc_torch/csrc/decide.cu",
+        "replaces": "ems_nbldpc_tpu/decoder/layered.py:250, :328, :711 "
+                    "(XLA argmin; no Pallas kernel)",
+        "entry_points": ["decide_rows"], "bound_by": "bytes",
+        **{f"{key}_{share}": t[share] for key, t in decide_times.items()
+           for share in ("100%", "30%", "1%")},
+        **{f"{key}_{field}": t[field] for key, t in decide_times.items()
+           for field in ("reset", "plain", "library", "frames")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

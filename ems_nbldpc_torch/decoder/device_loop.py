@@ -29,7 +29,8 @@ overwrites the buffers.
 Kernel launches: a replay runs the captured kernels without their Python
 wrappers, so the wrappers' eager counts (``ops/cuda_cn.launches``,
 ``ops/cuda_spa.launches``, ``ops/cuda_syndrome.launches``,
-``ops/cuda_bubble.launches``, ``ops/cuda_list.launches``) do not move;
+``ops/cuda_bubble.launches``, ``ops/cuda_list.launches``,
+``ops/cuda_decide.launches``) do not move;
 the kernels count their own launches on the card (``device_launches()``
 of each wrapper module).  The
 capture leaves the eager counts as it found them and records each
@@ -59,8 +60,8 @@ import weakref
 
 import torch
 
-from ..ops import (_build, cuda_bubble, cuda_cn, cuda_list, cuda_spa,
-                   cuda_syndrome)
+from ..ops import (_build, cuda_bubble, cuda_cn, cuda_decide, cuda_list,
+                   cuda_spa, cuda_syndrome)
 from ..utils.timing import recording, span
 from .graph import keep_tables
 
@@ -79,7 +80,8 @@ _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),
              "syndrome_layer": (cuda_syndrome, "layer_launches"),
              "bubble_checknode": (cuda_bubble, "launches"),
              "bubble_layer": (cuda_bubble, "layer_launches"),
-             "list_layer": (cuda_list, "launches")}
+             "list_layer": (cuda_list, "launches"),
+             "decide_rows": (cuda_decide, "launches")}
 
 _cache: collections.OrderedDict = collections.OrderedDict()
 

@@ -19,7 +19,8 @@ edge (the target of padded row slots).  Dense storage is float32 or
 bfloat16 (the intrinsic's dtype): a bf16 state is widened to f32 where a
 super-layer reads it and rounded once where it writes it, in the torch
 sweep and in the fused kernels alike; decisions are the argmin of the
-stored APP.  The JAX version's functional
+stored APP, of the active frames only, in place (K4,
+``ops/cuda_decide.decide_rows``).  The JAX version's functional
 ``.at[].set`` scatters become in-place indexed assignment on the state
 tensors: a super-layer's columns and edges are disjoint, so every written
 element has one writer (padded slots all write the same value).
@@ -50,6 +51,7 @@ import torch
 from ..ops import cuda_cn, cuda_list, listcn
 from ..ops.cuda_bubble import bubble_layer, bubble_layer_plain
 from ..ops.cuda_cn import ems_rows
+from ..ops.cuda_decide import decide_rows, decide_rows_plain
 from ..ops.cuda_spa import spa_layer, spa_layer_plain
 from ..ops.cuda_syndrome import syndrome_layer, syndrome_layer_plain
 from ..ops.fht import transpose_perm_tables
@@ -257,27 +259,36 @@ def _make_dense_iteration(g: DeviceGraph, nm, offset, cn, cn_impl,
     return one_iteration
 
 
-def _step_decisions(g, app, decide, conv, iters, active):
-    """Decisions, convergence and iteration counts after one sweep, behind
-    the ``decide`` and ``syndrome`` markers (``device_loop.mark``)."""
+def _decide(plain):
+    """The decisions' step: ``cuda_decide.decide_rows`` (one K4 launch on
+    the card, its plain version on CPU tensors), or with ``plain``
+    (internal, for holding the kernels against it) ``decide_rows_plain``
+    on any device."""
+    return decide_rows_plain if plain else decide_rows
+
+
+def _step_decisions(g, app, decide, conv, iters, active, plain=False):
+    """Decisions (the active frames', in place: ``_decide``), convergence
+    and iteration counts after one sweep, behind the ``decide`` and
+    ``syndrome`` markers (``device_loop.mark``)."""
     device_loop.mark("decide", app.device)
-    d_new = app[:, :g.code.n].argmin(dim=-1)
-    decide = torch.where(active[:, None], d_new, decide)
+    _decide(plain)(app, decide, active)
     device_loop.mark("syndrome", app.device)
     conv = conv | syndrome_ok(g, decide)
     return decide, conv, iters + active.to(torch.int32)
 
 
-def _reset(g, state, intrinsic):
+def _reset(g, state, intrinsic, plain=False):
     """In place: APP (``state[0]``) = the intrinsic with the padding column
     0 (``copy_`` rounds as ``.to(dtype)``), and the initial (decide, conv,
-    iters) in ``state[-3:]``; returns ``state``."""
+    iters) in ``state[-3:]`` (decisions through ``_decide``); returns
+    ``state``."""
     app = state[0]
     n = intrinsic.shape[1]
     app[:, :n].copy_(intrinsic)
     app[:, n:].zero_()
     decide, conv, iters = state[-3:]
-    decide.copy_(app[:, :n].argmin(dim=-1))
+    _decide(plain)(app, decide)
     conv.copy_(syndrome_ok(g, decide))
     iters.zero_()
     return state
@@ -300,8 +311,8 @@ def make_layered_stepper(
     the new state.  ``syn``: the syndrome CN's parameters (JAX's dict;
     ``flooding.syn_settings``); ``nboper``: the bubble CNs' budget.
     ``plain`` is internal: it runs the SPA, syndrome and bubble steps' plain
-    versions and the torch EMS / min-sum CN on the card, for holding the
-    kernels against them.
+    versions, the torch EMS / min-sum CN and the plain decisions on the
+    card, for holding the kernels against them.
     """
     q, e = g.q, g.n_edges
     one_iteration = _make_dense_iteration(g, nm, offset, cn, cn_impl, plain,
@@ -314,14 +325,14 @@ def make_layered_stepper(
                      intrinsic.new_empty((f, e + 1, q))
                      ) + decision_buffers(intrinsic)
         state[1].zero_()
-        return _reset(g, state, intrinsic)
+        return _reset(g, state, intrinsic, plain)
 
     def step_fn(state):
         app, ctov, decide, conv, iters = state
         active = ~conv
         one_iteration(app, ctov, active)
         return (app, ctov) + _step_decisions(g, app, decide, conv, iters,
-                                             active)
+                                             active, plain)
 
     return init_fn, step_fn
 
@@ -353,9 +364,11 @@ def decode_layered(g, intrinsic, max_iters, nm=0, offset=0.0, cn="minsum",
         intrinsic, max_iters)
 
 
-def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration):
+def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration,
+                        plain=False):
     """(init_fn, step_fn) over the compressed state (app, cv_v, cv_g,
-    cv_sat, decide, conv, iters), updated in place by ``one_iteration``."""
+    cv_sat, decide, conv, iters), updated in place by ``one_iteration``;
+    decisions through ``_decide(plain)``."""
     e = g.n_edges
 
     def init_fn(intrinsic, state=None):
@@ -371,14 +384,14 @@ def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration):
         cv_v.zero_()
         cv_g.copy_(torch.arange(nm, dtype=torch.uint8, device=cv_g.device))
         cv_sat.zero_()
-        return _reset(g, state, intrinsic)
+        return _reset(g, state, intrinsic, plain)
 
     def step_fn(state):
         app, cv_v, cv_g, cv_sat, decide, conv, iters = state
         active = ~conv
         one_iteration(app, cv_v, cv_g, cv_sat, active)
         return (app, cv_v, cv_g, cv_sat) + _step_decisions(
-            g, app, decide, conv, iters, active)
+            g, app, decide, conv, iters, active, plain)
 
     return init_fn, step_fn
 
@@ -396,7 +409,7 @@ def make_layered_compressed_stepper(g: DeviceGraph, nm: int,
     the storage dtype of APP and the CtoV values and saturation levels.
     The F/B CN runs through K1's bare entry (``cuda_cn.fb_checknode``, at
     the state's dtype), or in torch with ``plain``, which is internal: the
-    card's comparison path."""
+    card's comparison path, with the plain decisions."""
     q = g.q
     rotated_cn = _make_rotated_cn(g, nm, "ems", "topk", plain)
 
@@ -428,7 +441,7 @@ def make_layered_compressed_stepper(g: DeviceGraph, nm: int,
             app[:, cols] = torch.where(keep[..., None], app_rows,
                                        mvc + dense)
 
-    return _compressed_stepper(g, nm, dtype, one_iteration)
+    return _compressed_stepper(g, nm, dtype, one_iteration, plain)
 
 
 def decode_layered_compressed(g, intrinsic, max_iters, nm, offset=0.3,
@@ -487,12 +500,14 @@ def make_layered_list_stepper(g: DeviceGraph, nm: int, offset: float = 0.3,
     APP and the CtoV values and saturation levels; ``nboper`` the merges'
     budget (<= 0: the exact merge).  On the card the sweep runs K3 for
     every configuration (``_list_layer_step``).  ``plain`` is internal: it
-    runs ``list_layer_plain`` on the card, for holding K3 against it."""
+    runs ``list_layer_plain`` and the plain decisions on the card, for
+    holding K3 against it."""
     if not 1 <= nm <= g.q:
         raise ValueError(f"list EMS needs 1 <= nm <= q, got nm={nm}, "
                          f"q={g.q}")
     return _compressed_stepper(
-        g, nm, dtype, _make_list_iteration(g, nm, offset, nboper, plain))
+        g, nm, dtype, _make_list_iteration(g, nm, offset, nboper, plain),
+        plain)
 
 
 def decode_layered_list_hostloop(g, intrinsic, max_iters, nm, offset=0.3,
