@@ -15,9 +15,9 @@
 // only use is its place on the card's timeline.  The program launches one
 // at each boundary of its spans (loop_mark; decoder/device_loop.py mark):
 // encode and channel in the batch's generation, end at its close, decide
-// and syndrome in every decoder step.  A device span runs from its
-// marker's start to the start of the next marker or set_condition kernel
-// on the stream.
+// and syndrome in every decoder step, and sweep at the head of each step
+// of a layered decoder.  A device span runs from its marker's start to the
+// start of the next marker or set_condition kernel on the stream.
 //
 // This file holds no math: set_condition reads one byte.  It exists because
 // PyTorch 2.11 does not expose conditional-node capture to Python; the CUDA
@@ -38,6 +38,7 @@ __global__ void nbldpc_mark_channel() {}
 __global__ void nbldpc_mark_end() {}
 __global__ void nbldpc_mark_decide() {}
 __global__ void nbldpc_mark_syndrome() {}
+__global__ void nbldpc_mark_sweep() {}
 
 }  // namespace
 
@@ -96,7 +97,7 @@ int loop_set(void* stream, unsigned long long handle, const bool* pred) {
 }
 
 // Launch marker `which` on `stream`, in the order of device_loop.MARKS:
-// 0 encode, 1 channel, 2 end, 3 decide, 4 syndrome.
+// 0 encode, 1 channel, 2 end, 3 decide, 4 syndrome, 5 sweep.
 int loop_mark(int which, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (which) {
@@ -105,6 +106,7 @@ int loop_mark(int which, void* stream) {
     case 2: nbldpc_mark_end<<<1, 1, 0, s>>>(); break;
     case 3: nbldpc_mark_decide<<<1, 1, 0, s>>>(); break;
     case 4: nbldpc_mark_syndrome<<<1, 1, 0, s>>>(); break;
+    case 5: nbldpc_mark_sweep<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -39,8 +39,10 @@ kernel's launches per step (``DeviceLoop.per_step``).
 Markers: ``mark(name, device)`` launches the empty kernel
 ``nbldpc_mark_<name>`` (``csrc/device_loop.cu``) that names a span on the
 card's timeline: ``decide`` and ``syndrome`` in every decoder step,
-``encode``, ``channel`` and ``end`` in ``MonteCarlo.gen``.  Inside the
-capture a marker is launched always, so that every replay carries two a
+``sweep`` at the head of each layered decoder's step (so that the span
+from ``sweep`` to ``decide`` is the step's check-node sweep), ``encode``,
+``channel`` and ``end`` in ``MonteCarlo.gen``.  Inside the capture a
+marker is launched always, so that every replay carries them in every
 step; eagerly, on the card only and only while a profiler records
 (``utils/timing.recording``); on the CPU never.
 
@@ -70,7 +72,7 @@ captures = 0                     # graphs captured since import (set to 0
 #                                  to count a run's)
 capturing = False                # a step is being captured (``_capture``)
 # the marker kernels, in the order of csrc/device_loop.cu's loop_mark
-MARKS = ("encode", "channel", "end", "decide", "syndrome")
+MARKS = ("encode", "channel", "end", "decide", "syndrome", "sweep")
 
 # kernel -> (module, counter) of the wrappers' eager launch counts
 _COUNTERS = {"fb_checknode": (cuda_cn, "launches"),

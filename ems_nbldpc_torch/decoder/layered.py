@@ -270,7 +270,9 @@ def _decide(plain):
 def _step_decisions(g, app, decide, conv, iters, active, plain=False):
     """Decisions (the active frames', in place: ``_decide``), convergence
     and iteration counts after one sweep, behind the ``decide`` and
-    ``syndrome`` markers (``device_loop.mark``)."""
+    ``syndrome`` markers (``device_loop.mark``).  The step functions open
+    with the ``sweep`` marker, so that ``sweep`` to ``decide`` spans the
+    step's sweep."""
     device_loop.mark("decide", app.device)
     _decide(plain)(app, decide, active)
     device_loop.mark("syndrome", app.device)
@@ -329,6 +331,7 @@ def make_layered_stepper(
 
     def step_fn(state):
         app, ctov, decide, conv, iters = state
+        device_loop.mark("sweep", app.device)
         active = ~conv
         one_iteration(app, ctov, active)
         return (app, ctov) + _step_decisions(g, app, decide, conv, iters,
@@ -388,6 +391,7 @@ def _compressed_stepper(g: DeviceGraph, nm: int, dtype, one_iteration,
 
     def step_fn(state):
         app, cv_v, cv_g, cv_sat, decide, conv, iters = state
+        device_loop.mark("sweep", app.device)
         active = ~conv
         one_iteration(app, cv_v, cv_g, cv_sat, active)
         return (app, cv_v, cv_g, cv_sat) + _step_decisions(

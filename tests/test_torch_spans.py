@@ -5,7 +5,8 @@
   carries the batch index.  (``nbldpc.capture`` opens only where the device
   loop captures its graph, on the card.)
 * Every decoder step reaches the marker launcher once for ``decide`` and
-  once for ``syndrome`` while a capture is under way (faked here: the flag
+  once for ``syndrome``, and a layered decoder's step first once for
+  ``sweep``, while a capture is under way (faked here: the flag
   ``device_loop.capturing``), and never outside one: on the CPU neither a
   step nor a whole batch launches a marker, with or without a profiler.
   On the card a marker outside a capture launches only while a profiler
@@ -140,7 +141,8 @@ def test_markers_once_a_step_in_a_capture(name, monkeypatch, launched):
     monkeypatch.setattr(device_loop, "capturing", True)
     for _ in range(STEPS):
         state = step_fn(state)
-    assert launched == ["decide", "syndrome"] * STEPS
+    head = [] if name == "flooding" else ["sweep"]
+    assert launched == (head + ["decide", "syndrome"]) * STEPS
 
 
 @pytest.mark.parametrize("name", DECODERS)
